@@ -1,0 +1,451 @@
+"""User-facing facade: MAGI_v2 in PyTorch (counterpart of
+magi_v2_tpu/api.py) — construct -> ``initial_fit`` -> ``predict`` ->
+results dict, with the JAX package's signatures and results-dict keys.
+
+Setup (hyperparameter MAP, kernel matrices, pseudo-inverses, theta init,
+Gauss-Newton whitening) runs in float64 on ``config.device``; sampling runs
+there in ``config.dtype``. The fitted state is kept as host NumPy arrays,
+like the JAX model's, so a fit can be carried across packages
+(utils/checkpoint.py).
+
+Ported so far: the fully-observed ``initial_fit`` and
+``predict(algorithm="hmc")`` with ``reparam="precond"``,
+``storage="dense"``. Every other argument value raises
+NotImplementedError naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from magi_v2_tpu_torch import preprocess
+from magi_v2_tpu_torch.config import DEFAULT_CONFIG, MagiConfig
+from magi_v2_tpu_torch.hparams import fit_kernel_hparams
+from magi_v2_tpu_torch.init import fit_theta_fully_observed
+from magi_v2_tpu_torch.ops.kernels import magi_kernel_matrices, uniform_spacing
+from magi_v2_tpu_torch.ops.linalg import band_part, sym_pinv, sym_sqrt
+from magi_v2_tpu_torch.posterior import make_posterior_data
+from magi_v2_tpu_torch.sampler.magi_state import (
+    flatten_state,
+    unflatten_samples,
+)
+from magi_v2_tpu_torch.sampler.modes import build_sampling_mode, unwhiten_draws
+from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_hmc_chains
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to magi_v2_tpu_torch yet (ROADMAP.md queue 1 "
+        f"item {item})"
+    )
+
+
+def _np_softplus(x):
+    return np.where(x > 30.0, x, np.log1p(np.exp(np.minimum(x, 30.0))))
+
+
+def _np_softplus_inverse(y):
+    return y + np.log(-np.expm1(-y))
+
+
+class MAGI_v2:
+    """MAnifold-constrained Gaussian process Inference in PyTorch.
+
+    - D_thetas: number of ODE parameters.
+    - ts_obs: (N,) observation timesteps.
+    - X_obs: (N, D) observations; NaN marks missing values.
+    - bandsize: half-bandwidth of the band truncation of the precision
+      operators, or None for dense.
+    - f_vec: torch ODE field f(t (N,1), X (..., N, D), thetas (..., P)).
+    """
+
+    def __init__(
+        self,
+        D_thetas: int,
+        ts_obs: np.ndarray,
+        X_obs: np.ndarray,
+        bandsize: Union[int, None],
+        f_vec: Callable,
+        config: MagiConfig = DEFAULT_CONFIG,
+    ):
+        self.config = config
+        self.D_thetas = D_thetas
+        self.BANDSIZE = bandsize
+        self.f_vec = f_vec
+
+        self.ts_obs = np.asarray(ts_obs)
+        self.X_obs = np.asarray(X_obs, dtype=np.float64)
+        self.N, self.D = self.X_obs.shape
+
+        self.observed_indicators = (~np.isnan(self.X_obs)).mean(axis=0) > 0
+        self.observed_components = np.arange(self.D)[self.observed_indicators]
+        self.D_observed = len(self.observed_components)
+        self.unobserved_components = np.setdiff1d(
+            np.arange(self.D), self.observed_components
+        )
+        self.D_unobserved = len(self.unobserved_components)
+        self.N_ds = (~np.isnan(self.X_obs)).sum(axis=0)
+
+        self.I = None
+        self.X_obs_discret = None
+        self.beta = None
+        self.mag_I = None
+        self.obs_index = None
+        self.X_interp_obs = None
+        self.phi1s = np.full((self.D,), np.nan)
+        self.phi2s = np.full((self.D,), np.nan)
+        self.sigma_sqs_init = np.full((self.D,), np.nan)
+        self.Xhat_init = None
+        self.thetas_init = None
+        self.mu_ds = np.full((self.D,), np.nan)
+        self.C_d_invs = None
+        self.m_ds = None
+        self.K_d_invs = None
+        self.band_truncation = None
+
+    # ------------------------------------------------------------------
+
+    def _f64(self, a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float64,
+                               device=self.config.torch_device)
+
+    def _build_inverse_matrices(self, phi1s, phi2s):
+        """Batched (C^{-1}, m, K^{-1}) over components, float64 on the
+        config's device; returned as host arrays."""
+        C, m, K = magi_kernel_matrices(
+            self._f64(self.I.reshape(-1)), self._f64(phi1s), self._f64(phi2s),
+            self.config.matern_nu, spacing=uniform_spacing(self.I),
+        )
+        return tuple(a.cpu().numpy() for a in (sym_pinv(C), m, sym_pinv(K)))
+
+    def initial_fit(self, discretization: int, verbose: bool = False):
+        """Discretize, fit GP hyperparameters, initialize theta. Fully
+        observed systems only (the gradient-matching branch is ROADMAP.md
+        queue 1 item 8). Host wall seconds per phase land in
+        ``fit_timings``; each phase ends by copying its result to the host,
+        so the walls include the device work."""
+        if not np.all(self.observed_indicators):
+            raise _not_ported("initial_fit with unobserved components", "8")
+        cfg = self.config
+        self.I, self.X_obs_discret = preprocess.discretize(
+            self.ts_obs, self.X_obs, discretization
+        )
+        self.mag_I = self.I.shape[0]
+        self.beta = (self.D * self.mag_I) / self.N_ds.sum()
+        self.obs_index = preprocess.build_observation_index(self.X_obs_discret)
+        self.X_interp_obs = preprocess.linear_interpolate(self.X_obs_discret)
+        if cfg.hparam_fit_points == "obs":
+            fit_I = self.ts_obs.reshape(-1, 1)
+            fit_X = preprocess.linear_interpolate(self.X_obs)
+        elif cfg.hparam_fit_points == "grid":
+            fit_I, fit_X = self.I, self.X_interp_obs
+        else:
+            raise ValueError(
+                f"unknown hparam_fit_points {cfg.hparam_fit_points!r}"
+            )
+        timings = self.fit_timings = {}
+        t0 = time.perf_counter()
+        hp = fit_kernel_hparams(
+            fit_I, fit_X,
+            nu=cfg.matern_nu,
+            learning_rate=cfg.hparam_learning_rate,
+            num_iters=cfg.hparam_num_iters,
+            cholesky_jitter=cfg.cholesky_jitter,
+            optimizer=cfg.hparam_optimizer,
+            device=cfg.torch_device,
+        )
+        timings["hparam_mle"] = time.perf_counter() - t0
+        self.phi1s, self.phi2s = hp["phi1s"], hp["phi2s"]
+        self.sigma_sqs_init = hp["sigma_sqs"]
+        self.Xhat_init = self.X_interp_obs.copy()
+        self.mu_ds = self.X_interp_obs.mean(axis=0)
+        t0 = time.perf_counter()
+        self.C_d_invs, self.m_ds, self.K_d_invs = self._build_inverse_matrices(
+            self.phi1s, self.phi2s
+        )
+        timings["kernel_matrices"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.thetas_init, _ = fit_theta_fully_observed(
+            self.f_vec,
+            self._f64(self.I),
+            self._f64(self.Xhat_init),
+            self._f64(self.mu_ds),
+            self._f64(self.m_ds),
+            self._f64(self.K_d_invs),
+            self.D_thetas,
+            learning_rate=cfg.init_learning_rate,
+            num_iters=cfg.init_num_iters,
+        )
+        timings["theta_init"] = time.perf_counter() - t0
+        self._apply_band_truncation(verbose)
+        t0 = time.perf_counter()
+        self.Xhat_init = preprocess.cv_cubic_smoother(
+            self.I,
+            self.Xhat_init,
+            n_splits=cfg.spline_cv_folds,
+            obs_per_knot=cfg.spline_obs_per_knot,
+            min_points=cfg.spline_min_points,
+        )
+        timings["cv_smoother"] = time.perf_counter() - t0
+        if verbose:
+            print(f"initial_fit phases (s): {timings}")
+
+    def _apply_band_truncation(self, verbose: bool = False):
+        """Band-truncate C^{-1}/K^{-1}/m and record, per operator family,
+        the largest relative Frobenius mass the truncation drops."""
+        self.band_truncation = None
+        if self.BANDSIZE is None:
+            return
+        self.band_truncation = {}
+        for name in ("C_d_invs", "K_d_invs", "m_ds"):
+            A = np.asarray(getattr(self, name))
+            Ab = band_part(torch.as_tensor(A), self.BANDSIZE,
+                           self.BANDSIZE).numpy()
+            num = np.linalg.norm((A - Ab).reshape(A.shape[0], -1), axis=1)
+            den = np.linalg.norm(A.reshape(A.shape[0], -1), axis=1)
+            self.band_truncation[name] = float(
+                (num / np.maximum(den, 1e-300)).max()
+            )
+            setattr(self, name, Ab)
+        if verbose:
+            print("band truncation (rel Frobenius mass dropped): "
+                  + ", ".join(f"{k}={v:.2e}"
+                              for k, v in self.band_truncation.items()))
+        worst = max(self.band_truncation.values())
+        if worst > 0.05:
+            import warnings
+
+            warnings.warn(
+                f"bandsize={self.BANDSIZE} drops {worst:.0%} of the "
+                "precision-operator Frobenius mass (band_truncation "
+                f"attribute: {self.band_truncation}); the truncated "
+                "posterior is a materially different distribution",
+                stacklevel=3,
+            )
+
+    # ------------------------------------------------------------------
+
+    def _build_sampling_setup(self, reparam: str, storage: str, dtype,
+                              sigma_sqs_LB=None):
+        """(mode, data, sigma_sqs_LB): the float64 factored precisions, the
+        PosteriorData in ``dtype`` and the SamplingMode, all on the
+        config's device."""
+        if sigma_sqs_LB is None:
+            sigma_sqs_LB = (
+                self.Xhat_init.std(axis=0) * self.config.sigma_sq_lb_scale
+            ) ** 2
+        sigma_sqs_LB = np.broadcast_to(
+            np.asarray(sigma_sqs_LB, np.float64), (self.D,)
+        ).copy()
+        dev = self.config.torch_device
+        R64 = sym_sqrt(self._f64(self.C_d_invs))
+        S64 = sym_sqrt(self._f64(self.K_d_invs))
+        data = make_posterior_data(
+            self.I, self.C_d_invs, self.m_ds, self.K_d_invs, self.mu_ds,
+            self.beta, self.obs_index, sigma_sqs_LB, dtype,
+            C_inv_sqrts=R64, K_inv_sqrts=S64, device=dev,
+        )
+        mode = build_sampling_mode(self, data, reparam, storage, dtype, R64,
+                                   S64)
+        return mode, data, sigma_sqs_LB
+
+    def _dense_tail_size(self, mass_matrix: str) -> int:
+        """Map the ``mass_matrix`` mode to SamplerConfig.dense_tail_size
+        (without sigma pinning, which is not ported)."""
+        full_dim = self.mag_I * self.D + self.D + self.D_thetas
+        if mass_matrix == "auto":
+            mass_matrix = "dense" if full_dim <= 1024 else "tail_dense"
+        if mass_matrix == "diag":
+            return 0
+        if mass_matrix == "tail_dense":
+            return self.D + self.D_thetas
+        if mass_matrix == "dense":
+            return full_dim
+        raise ValueError(
+            f"unknown mass_matrix {mass_matrix!r}; expected 'auto', "
+            "'diag', 'tail_dense' or 'dense'"
+        )
+
+    # ------------------------------------------------------------------
+
+    def predict(
+        self,
+        num_results: int = 1000,
+        num_burnin_steps: int = 1000,
+        sigma_sqs_LB=None,
+        verbose: bool = False,
+        num_chains: int = 1,
+        seed: int = 0,
+        init_jitter: float = 0.0,
+        use_annealing: bool = True,
+        adapt_mass_matrix: Optional[bool] = None,
+        storage: str = "dense",
+        reparam: str = "precond",
+        thin: int = 1,
+        dispatch_block_steps: Optional[int] = None,
+        algorithm: str = "nuts",
+        hmc_num_leapfrogs: int = 64,
+        anneal_mode: str = "warmup_only",
+        matmul_precision: str = "highest",
+        mass_matrix: str = "diag",
+        dense_shrinkage: float = 0.0,
+        mass_window: Optional[tuple] = None,
+        mass_window2: Optional[tuple] = None,
+        mass_window1_diag: bool = False,
+        sigma_sqs_fixed=None,
+        map_warmstart_iters: int = 0,
+        precond_refresh_steps: int = 0,
+        precond_refresh_restart: str = "remap",
+        precond_refresh_scatter: float = 0.1,
+        checkpoint_path: str = "",
+        profile_timings: bool = False,
+        stage_above_bytes: Optional[int] = None,
+        init_states: Optional[dict] = None,
+        gn_anchor: Optional[dict] = None,
+        pt_betas: Optional[tuple] = None,
+        pt_swap_every: int = 1,
+    ):
+        """Sample the posterior; same arguments and results dict as
+        magi_v2_tpu.MAGI_v2.predict. Ported: ``algorithm="hmc"`` with
+        ``reparam="precond"``, ``storage="dense"``; the other values raise
+        NotImplementedError. With num_chains > 1 the ``*_samps`` arrays
+        carry a chain axis at position 1."""
+        if algorithm != "hmc":
+            raise _not_ported(f"algorithm={algorithm!r} (NUTS)", "7")
+        if reparam != "precond" or storage != "dense":
+            raise _not_ported(f"reparam={reparam!r}, storage={storage!r}",
+                              "9/10")
+        if sigma_sqs_fixed is not None:
+            raise _not_ported("sigma_sqs_fixed", "9")
+        if init_states is not None:
+            raise _not_ported("init_states", "9")
+        if gn_anchor is not None or precond_refresh_steps:
+            raise _not_ported("gn_anchor / precond_refresh_steps", "10")
+        if map_warmstart_iters:
+            raise _not_ported("map_warmstart_iters", "11")
+        if pt_betas:
+            raise _not_ported("pt_betas", "12")
+        if checkpoint_path or profile_timings:
+            raise _not_ported("checkpoint_path / profile_timings", "14")
+        if dispatch_block_steps or stage_above_bytes is not None:
+            raise ValueError(
+                "dispatch_block_steps and stage_above_bytes serve a tunneled "
+                "TPU runtime and have no counterpart in the port"
+            )
+        if matmul_precision != "highest":
+            raise ValueError(
+                "the port always runs float32 matmuls at full precision "
+                "(TF32 off); matmul_precision must be 'highest'"
+            )
+        for name, arr in (("Xhat_init", self.Xhat_init),
+                          ("sigma_sqs_init", self.sigma_sqs_init),
+                          ("thetas_init", self.thetas_init)):
+            if arr is None or np.any(np.isnan(arr)):
+                raise ValueError(f"{name} has NaNs: run initial_fit first")
+
+        cfg = self.config
+        dtype, dev = cfg.dtype, cfg.torch_device
+        mode, data, sigma_sqs_LB = self._build_sampling_setup(
+            reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB
+        )
+
+        def pre_init(vals, lower):
+            above = vals > lower
+            out = np.full_like(vals, -5.0)
+            out[above] = _np_softplus_inverse(vals[above] - lower[above])
+            return out
+
+        sigma_pre0 = pre_init(self.sigma_sqs_init, sigma_sqs_LB)
+        theta_pre0 = pre_init(self.thetas_init,
+                              np.zeros_like(self.thetas_init))
+        q0 = flatten_state(
+            mode.X0.cpu(),
+            torch.as_tensor(sigma_pre0, dtype=dtype),
+            torch.as_tensor(theta_pre0, dtype=dtype),
+        ).numpy()
+        q0 = np.broadcast_to(q0, (num_chains, q0.shape[0])).copy()
+        ND = self.mag_I * self.D
+        if init_jitter > 0.0 and num_chains > 1:
+            rng = np.random.default_rng(seed + 1)
+            q0[1:, :ND] += init_jitter * rng.standard_normal(
+                (num_chains - 1, ND)
+            )
+
+        sampler_config = SamplerConfig(
+            num_results=num_results,
+            num_burnin_steps=num_burnin_steps,
+            initial_step_size=cfg.initial_step_size,
+            target_accept=cfg.target_accept,
+            adaptation_fraction=cfg.adaptation_fraction,
+            anneal_min_temp=cfg.anneal_min_temp,
+            use_annealing=use_annealing,
+            anneal_mode=anneal_mode,
+            adapt_mass_matrix=(cfg.adapt_mass_matrix
+                               if adapt_mass_matrix is None
+                               else adapt_mass_matrix),
+            progress_every=(max(1, (num_burnin_steps + num_results) // 20)
+                            if verbose else 0),
+            thin=thin,
+            hmc_num_leapfrogs=hmc_num_leapfrogs,
+            dense_tail_size=self._dense_tail_size(mass_matrix),
+            dense_shrinkage=dense_shrinkage,
+            **({} if mass_window is None else {
+                "mass_window_begin": float(mass_window[0]),
+                "mass_window_end": float(mass_window[1])}),
+            **({} if mass_window2 is None else {
+                "mass_window2_begin": float(mass_window2[0]),
+                "mass_window2_end": float(mass_window2[1])}),
+            mass_window1_diag=mass_window1_diag,
+        )
+        start = time.time()
+        samples, stats = run_hmc_chains(
+            mode.logp_grad,
+            torch.as_tensor(q0, dtype=dtype, device=dev),
+            seed,
+            sampler_config,
+        )
+        Z, sigma_pre, theta_pre = unflatten_samples(
+            samples, self.mag_I, self.D, self.D_thetas
+        )
+        X_samps = unwhiten_draws(mode, Z, data.mu_ds).cpu().numpy()
+        minutes = np.round((time.time() - start) / 60, 2)
+        squeeze = num_chains == 1
+
+        def host(a):
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            return a[:, 0] if squeeze else a
+
+        sigma_sqs_samps = _np_softplus(host(sigma_pre)) + sigma_sqs_LB
+        thetas_samps = _np_softplus(host(theta_pre))
+        samples_np = samples.cpu().numpy()
+        return {
+            "timings": None,
+            "phi1s": self.phi1s,
+            "phi2s": self.phi2s,
+            "Xhat_init": self.Xhat_init,
+            "sigma_sqs_init": self.sigma_sqs_init,
+            "thetas_init": self.thetas_init,
+            "I": self.I,
+            "X_samps": X_samps[:, 0] if squeeze else X_samps,
+            "sigma_sqs_samps": sigma_sqs_samps,
+            "thetas_samps": thetas_samps,
+            "kernel_results": {
+                "step_size": stats.step_size.cpu().numpy(),
+                "inv_mass": stats.inv_mass.cpu().numpy(),
+                "tail_inv_mass": (
+                    None if stats.tail_inv_mass is None
+                    else stats.tail_inv_mass.cpu().numpy()
+                ),
+                "accept_probs": stats.accept_probs.cpu().numpy(),
+                "num_leapfrogs": stats.num_leapfrogs,
+                "divergences": stats.divergences.cpu().numpy(),
+                "depths": stats.depths,
+            },
+            "sample_results": (samples_np if samples_np.nbytes <= 1 << 30
+                               else None),
+            "minutes_elapsed": minutes,
+        }

@@ -1,0 +1,159 @@
+"""The tempered MAGI log-posterior in PyTorch (counterpart of
+magi_v2_tpu/posterior.py, dense storage only).
+
+    log p ∝ beta_temp * [ -1/2 ( (1/beta)(t1 + t2) + t3 + t4 )
+                          + logJac(sigma^2) + logJac(theta) ]
+
+``log_posterior_given_t1`` is the plain reference of the fused sampler
+target: the hand-written kernels of ops/manifold.py compute the same value
+and its gradient, and the tests hold them against it. Quadratic forms use
+the factored ||R x||^2 forms and the ``RefPoint`` relative energies, which
+keep float32 energies accurate (see the JAX module for the measurements).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class PosteriorData(NamedTuple):
+    """Static (per-fit) tensors consumed by the log-posterior."""
+
+    I: torch.Tensor            # (N_I, 1)
+    C_invs: torch.Tensor       # (D, N_I, N_I)
+    m_ds: torch.Tensor         # (D, N_I, N_I)
+    K_invs: torch.Tensor       # (D, N_I, N_I)
+    mu_ds: torch.Tensor        # (D,)
+    beta: torch.Tensor         # scalar
+    N_ds: torch.Tensor         # (D,)
+    not_nan_idxs: torch.Tensor  # (M,) flat indices into X.ravel()
+    not_nan_cols: torch.Tensor  # (M,)
+    y_observed: torch.Tensor   # (M,)
+    sigma_sqs_LB: torch.Tensor  # (D,)
+    C_inv_sqrts: torch.Tensor = None   # (D, N_I, N_I) R = C^{-1/2}
+    K_inv_sqrts: torch.Tensor = None   # (D, N_I, N_I) S = K^{-1/2}
+
+
+class RefPoint(NamedTuple):
+    """Zero point for relative energy evaluation (see the JAX RefPoint)."""
+
+    x0: torch.Tensor    # (N, D)
+    a0: torch.Tensor    # (D, N)  R (x0 - mu)
+    f0: torch.Tensor    # (D, N)  f(I, x0, theta0)^T
+    mx0: torch.Tensor   # (D, N)  m (x0 - mu)
+    s0: torch.Tensor    # (D, N)  S (f0 - mx0)
+
+
+def _f64(a, device):
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=torch.float64)
+    return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+
+def make_ref_point(I, x0, mu_ds, thetas0, f_vec, R64, S64, m64, dtype,
+                   device="cpu"):
+    """Build a RefPoint in float64 on ``device`` and cast to ``dtype``."""
+    x0, mu = _f64(x0, device), _f64(mu_ds, device)
+    R64, S64, m64 = _f64(R64, device), _f64(S64, device), _f64(m64, device)
+    xc = (x0 - mu[None, :]).T
+    a0 = torch.einsum("dnm,dm->dn", R64, xc)
+    f0 = f_vec(_f64(I, device), x0, _f64(thetas0, device)).T
+    mx0 = torch.einsum("dnm,dm->dn", m64, xc)
+    s0 = torch.einsum("dnm,dm->dn", S64, f0 - mx0)
+    c = lambda a: a.to(dtype).contiguous()
+    return RefPoint(x0=c(x0), a0=c(a0), f0=c(f0), mx0=c(mx0), s0=c(s0))
+
+
+def make_posterior_data(
+    I, C_invs, m_ds, K_invs, mu_ds, beta, obs_index, sigma_sqs_LB, dtype,
+    C_inv_sqrts=None, K_inv_sqrts=None, device="cpu",
+) -> PosteriorData:
+    """Assemble PosteriorData on ``device`` in ``dtype``."""
+    asd = lambda x: _f64(x, device).to(dtype)
+    idx = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.long,
+                                    device=device)
+    return PosteriorData(
+        I=asd(I),
+        C_invs=asd(C_invs),
+        m_ds=asd(m_ds),
+        K_invs=asd(K_invs),
+        mu_ds=asd(mu_ds),
+        beta=asd(beta),
+        N_ds=asd(obs_index.N_ds),
+        not_nan_idxs=idx(obs_index.not_nan_idxs),
+        not_nan_cols=idx(obs_index.not_nan_cols),
+        y_observed=asd(obs_index.y_observed),
+        sigma_sqs_LB=asd(sigma_sqs_LB),
+        C_inv_sqrts=None if C_inv_sqrts is None else asd(C_inv_sqrts),
+        K_inv_sqrts=None if K_inv_sqrts is None else asd(K_inv_sqrts),
+    )
+
+
+def softplus(x):
+    return F.softplus(x)
+
+
+def softplus_inverse(y):
+    """log(exp(y) - 1), stable for small and large y."""
+    y = torch.as_tensor(y)
+    return y + torch.log(-torch.expm1(-y))
+
+
+def log_posterior_given_t1(
+    data: PosteriorData,
+    f_vec: Callable,
+    X,
+    sigma_sqs_pre,
+    thetas_pre,
+    beta_temp,
+    t1,
+    ref: RefPoint = None,
+    delta=None,
+):
+    """Tempered log-posterior with the GP-prior quadratic ``t1`` supplied
+    (dense storage). Leading batch axes are allowed: X (..., N, D),
+    sigma_sqs_pre (..., D), thetas_pre (..., D_thetas), t1 (...).
+
+    With ``ref``, t2 is evaluated relative to the reference point and the
+    caller supplies a relative t1; ``delta`` (..., N, D) is x - x0 computed
+    in the caller's own coordinates."""
+    sigma_sqs = softplus(sigma_sqs_pre) + data.sigma_sqs_LB
+    thetas = softplus(thetas_pre)
+    log_jac_sigma = torch.sum(F.logsigmoid(sigma_sqs_pre), dim=-1)
+    log_jac_theta = torch.sum(F.logsigmoid(thetas_pre), dim=-1)
+    if isinstance(beta_temp, torch.Tensor):
+        beta_temp = beta_temp.detach()
+
+    f_vals = f_vec(data.I, X, thetas).transpose(-1, -2)       # (..., D, N)
+    if ref is not None:
+        if data.K_inv_sqrts is None:
+            raise ValueError("relative t2 needs K_inv_sqrts")
+        delta = (X - ref.x0) if delta is None else delta
+        delta = delta.transpose(-1, -2)
+        dr = (f_vals - ref.f0) - torch.einsum("dnm,...dm->...dn",
+                                              data.m_ds, delta)
+        Ds = torch.einsum("dnm,...dm->...dn", data.K_inv_sqrts, dr)
+        t2 = torch.sum(Ds * (Ds + 2.0 * ref.s0), dim=(-2, -1))
+    else:
+        X_cent = (X - data.mu_ds).transpose(-1, -2)
+        resid = f_vals - torch.einsum("dnm,...dm->...dn", data.m_ds, X_cent)
+        if data.K_inv_sqrts is not None:
+            t2 = torch.sum(
+                torch.einsum("dnm,...dm->...dn", data.K_inv_sqrts, resid) ** 2,
+                dim=(-2, -1),
+            )
+        else:
+            t2 = torch.einsum("...dn,dnm,...dm->...", resid, data.K_invs, resid)
+
+    t3 = torch.sum(data.N_ds * torch.log(2.0 * math.pi * sigma_sqs), dim=-1)
+    X_obs = X.reshape(X.shape[:-2] + (-1,))[..., data.not_nan_idxs]
+    inv_var = (1.0 / sigma_sqs)[..., data.not_nan_cols]
+    t4 = torch.sum((X_obs - data.y_observed) ** 2 * inv_var, dim=-1)
+    return beta_temp * (
+        -0.5 * ((t1 + t2) / data.beta + t3 + t4) + log_jac_sigma + log_jac_theta
+    )

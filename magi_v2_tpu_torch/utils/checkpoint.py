@@ -1,0 +1,67 @@
+"""Fitted state carried across packages (counterpart of
+magi_v2_tpu/utils/checkpoint.py:load_fit).
+
+``load_fit`` reads the NPZ that ``magi_v2_tpu.utils.checkpoint.save_fit``
+writes; ``from_fit_arrays`` builds a fitted port model from a dict of the
+same arrays (e.g. taken from a fitted JAX model). Either way the port
+samples the same posterior, from the same operators, as the model the
+arrays came from. Saving fits and results is ROADMAP.md queue 1 item 14.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FIT_FIELDS = (
+    "I",
+    "X_obs_discret",
+    "phi1s",
+    "phi2s",
+    "sigma_sqs_init",
+    "Xhat_init",
+    "thetas_init",
+    "mu_ds",
+    "C_d_invs",
+    "m_ds",
+    "K_d_invs",
+    "X_interp_obs",
+    "ts_obs",
+    "X_obs",
+)
+
+
+def from_fit_arrays(arrays: dict, f_vec, D_thetas: int, bandsize=None,
+                    config=None):
+    """A fitted port MAGI_v2 from the arrays of FIT_FIELDS (host NumPy);
+    ready to predict."""
+    from magi_v2_tpu_torch import preprocess
+    from magi_v2_tpu_torch.api import MAGI_v2
+    from magi_v2_tpu_torch.config import DEFAULT_CONFIG
+
+    model = MAGI_v2(
+        D_thetas=D_thetas,
+        ts_obs=arrays["ts_obs"],
+        X_obs=arrays["X_obs"],
+        bandsize=bandsize,
+        f_vec=f_vec,
+        config=config or DEFAULT_CONFIG,
+    )
+    for f in FIT_FIELDS:
+        if f in arrays and f not in ("ts_obs", "X_obs"):
+            setattr(model, f, np.array(arrays[f], copy=True))
+    model.mag_I = model.I.shape[0]
+    model.beta = (model.D * model.mag_I) / model.N_ds.sum()
+    model.obs_index = preprocess.build_observation_index(model.X_obs_discret)
+    return model
+
+
+def load_fit(path: str, f_vec, config=None):
+    """Reconstruct a fitted MAGI_v2 from a ``save_fit`` NPZ (written by
+    either package's format); ready to predict."""
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    D_thetas, bandsize = (int(v) for v in data["_meta"])
+    return from_fit_arrays(
+        data, f_vec, D_thetas, bandsize=None if bandsize < 0 else bandsize,
+        config=config,
+    )

@@ -1,0 +1,106 @@
+"""The hand-written CUDA kernels of K1 against their plain PyTorch
+versions, on the card. These tests need a CUDA device and skip without
+one; run them on the card with
+
+    python -m pytest tests/test_torch_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from magi_v2_tpu_torch.models import seir_f_vec
+from magi_v2_tpu_torch.ops import manifold as mf
+
+pytestmark = pytest.mark.cuda
+
+# relative to each logical output's largest |value| (see chip_smoke.TOL)
+TOL = chip_smoke.TOL
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+def test_kernels_match_plain_versions(device):
+    """The three kernels at the SEIR bench shapes, float32 and float64;
+    each launch counted."""
+    mf.reset_launch_counts()
+    results = chip_smoke.check_kernels(device)
+    assert set(results) == set(mf.KERNELS)
+    assert all(n > 0 for n in mf.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C,N", [(1, 161), (3, 17), (256, 161)])
+def test_fused_target_on_card_matches_cpu(device, dtype, C, N):
+    """fwd -> energy -> bwd composed on the card against the same calls
+    on the CPU (plain versions), at ragged chain and grid sizes."""
+    x = chip_smoke.kernel_inputs(torch.float64, "cpu", C=C, N=N)
+    I = torch.zeros((N, 1), dtype=torch.float64)
+
+    def run(dev, dt):
+        y = {k: v.to(dev, dt) if isinstance(v, torch.Tensor) else v
+             for k, v in x.items()}
+        Iy = I.to(dev, dt)
+        dr, gcat, t14 = mf.manifold_fwd(
+            seir_f_vec, Iy, y["delta"], y["RmD"], y["q"], y["x0T"], y["a0"],
+            y["f0"], y["mask"], y["y"], y["sigma_lb"], y["beta_temp"],
+            y["beta"])
+        lp, gDs = mf.manifold_energy(seir_f_vec, dr, y["s0"], t14, y["q"],
+                                     y["sigma_lb"], y["n_ds"],
+                                     y["beta_temp"], y["beta"])
+        grad = torch.zeros_like(y["q"])
+        gpart = mf.manifold_bwd(seir_f_vec, Iy, gDs, y["delta"], y["q"],
+                                y["x0T"], y["mask"], y["y"], y["sigma_lb"],
+                                y["n_ds"], y["beta_temp"], gcat, grad)
+        return [t.double().cpu() for t in (dr, gcat, t14, lp, gDs, gpart,
+                                           grad)]
+
+    on_card = run(device, dtype)
+    torch.cuda.synchronize()
+    on_cpu = run("cpu", dtype)
+    names = ("dr", "gcat", "t14", "lp", "gDs", "gpart", "grad")
+    errs = chip_smoke.part_errors(zip(names, on_cpu, on_card), N, 3)
+    for part, (_, rel) in errs.items():
+        assert rel <= TOL[dtype], (part, rel)
+
+
+def test_wrappers_raise_instead_of_falling_back(device):
+    x = chip_smoke.kernel_inputs(torch.float32, device, C=2, N=9)
+    I = torch.zeros((9, 1), dtype=torch.float32, device=device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        h = {k: v.half() if isinstance(v, torch.Tensor) else v
+             for k, v in x.items()}
+        mf.manifold_fwd(seir_f_vec, I.half(), h["delta"], h["RmD"], h["q"],
+                        h["x0T"], h["a0"], h["f0"], h["mask"], h["y"],
+                        h["sigma_lb"], h["beta_temp"], h["beta"])
+    with pytest.raises(NotImplementedError, match="no CUDA manifold kernel"):
+        mf.manifold_fwd(lambda t, X, th: X, I, x["delta"], x["RmD"], x["q"],
+                        x["x0T"], x["a0"], x["f0"], x["mask"], x["y"],
+                        x["sigma_lb"], x["beta_temp"], x["beta"])
+
+
+def test_sampler_runs_full_float32_on_card(device):
+    """A short HMC run of the SEIR slice on the card: the kernels launch,
+    draws are finite, and TF32 stays off."""
+    from magi_v2_tpu_torch import MAGI_v2, MagiConfig
+    from magi_v2_tpu_torch.utils.data import simulate_ode
+
+    ts, X, _ = simulate_ode(seir_f_vec, x0=np.array([0.1, 0.05, 0.0]),
+                            thetas=np.array([6.0, 0.6, 1.8]), t_max=2.0,
+                            n_obs=21, noise_sd=0.005, substeps=20)
+    cfg = MagiConfig(dtype=torch.float32, device=str(device),
+                     hparam_num_iters=50, init_num_iters=100)
+    m = MAGI_v2(3, ts, X, None, seir_f_vec, cfg)
+    m.initial_fit(1)
+    mf.reset_launch_counts()
+    res = m.predict(num_results=20, num_burnin_steps=20, num_chains=8,
+                    algorithm="hmc", hmc_num_leapfrogs=8, mass_matrix="dense")
+    assert all(n > 0 for n in mf.launch_counts().values())
+    assert np.all(np.isfinite(res["X_samps"]))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
