@@ -7,22 +7,46 @@ only when all of them passed):
 
 1. Device: requires CUDA; prints the card's name and power limit as
    nvidia-smi reports them, and the torch and CUDA versions.
-2. Build: compiles the hand-written kernels (csrc/*.cu, nvcc, sm_90a).
+2. Build: compiles the hand-written kernels (csrc/*.cu, one nvcc process
+   per source, in parallel, sm_90a).
 3. Kernels vs plain: each K1 kernel against its plain PyTorch version on
    the same inputs at the SEIR bench shapes (256 chains, N_I = 161, D = 3),
-   in float32 and float64, timed with CUDA events.
-4. Main path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
+   and K2 (the leapfrog update) at the Lorenz shapes (256 chains, 3081
+   coordinates), in float32 and float64, timed with CUDA events.
+4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
    launched, rhat_max > 1.05, or a theta mean more than 15% from truth.
-5. The composed float64 target on the card against the same target on
+5. The composed float64 SEIR target on the card against the same target on
    the CPU (plain versions), for 8 states near the fit.
-6. Leapfrog profile: ms per leapfrog with the kernels and with their plain
-   versions swapped into the target, host time per wrapper call, and
+6. Leapfrog profile of the SEIR path: ms per leapfrog with the kernels and
+   with their plain versions swapped in, host time per wrapper call, and
    torch.profiler's device time by kernel over one transition.
+7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
+   discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
+   with theta started from the same data's discretization-1 fit through
+   ``initial_fit(2, thetas_init=...)`` (see ``lorenz_fit``).
+8. Lorenz kernels vs plain: K1 with the Lorenz model; K3 (block-banded
+   matvec and adjoint) on the fit's band-truncated R, m, S and K4 (the
+   block-banded solve and adjoint) on its banded Gauss-Newton factor,
+   both called through the banded target's own stages (so on the strided
+   views the sampler passes) at 64 and 256 chains, in float64 and
+   float32; K4 also prints its residual ||Ux - y|| / ||y||.
+9. Hybrid path: ``predict(storage="hybrid")``, 256 chains, L <= 64,
+   500 + 500 steps, reference annealing at a 0.3 floor, sigma pinned at
+   0.25, diagonal mass. Fails on non-finite draws, a kernel that never
+   launched, a step size below 1e-2, mean acceptance below 0.5, or a theta
+   mean more than 15% from (10, 28, 8/3).
+10. Banded path: the same with ``storage="banded"``, 64 chains, 200 + 200
+   steps; theta is printed, not gated (the band-truncated target is
+   biased by design).
+11. The composed float64 hybrid and banded targets on the card against the
+   same targets on the CPU (plain versions), for 8 states near the fit.
+12. Leapfrog profile of the hybrid path.
 
-The last two lines are a JSON object with each kernel's launch count,
-error and times, and ``{"ok": true, "device": {...}}``.
+The last lines are the card's name and power limit, a JSON object with
+each kernel's launch count (from the path named beside it), error and
+times, and ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -30,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -39,15 +64,52 @@ import torch
 # float32 sums of ~500 terms in another order differ by a few ulps of the
 # total
 TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+# K4 in float32: the solve's error is ~kappa(U) eps32 ~ 1e-4 of max |x|
+# (magi_v2_tpu/ops/banded.py), so the kernel and the plain version each
+# carry that much
+SOLVE_TOL = {torch.float32: 5e-4, torch.float64: 1e-12}
 # composed float64 target, card vs CPU, relative to max |value|
 COMPOSED_TOL = 1e-9
 TRUE_THETAS = np.array([6.0, 0.6, 1.8])
 NUM_CHAINS, NUM_LEAPFROGS, NUM_STEPS = 256, 192, 1000
+LORENZ_THETAS = np.array([10.0, 28.0, 8.0 / 3.0])
+LORENZ_CHAINS, LORENZ_LEAPFROGS, LORENZ_STEPS = 256, 64, 500
+BANDED_CHAINS, BANDED_STEPS = 64, 200
+MIN_STEP_SIZE, MIN_ACCEPT = 1e-2, 0.5
 REPLACES = {
     "manifold_fwd": "magi_v2_tpu/sampler/precond.py:540",
     "manifold_energy": "magi_v2_tpu/posterior.py:288",
     "manifold_bwd": "magi_v2_tpu/sampler/precond.py:549",
+    "leapfrog_update": "magi_v2_tpu/sampler/hmc.py:63",
+    "banded_matvec": "magi_v2_tpu/ops/banded.py:212",
+    "banded_matvec_adjoint": "magi_v2_tpu/ops/banded.py:212",
+    "banded_solve": "magi_v2_tpu/ops/banded.py:315",
+    "banded_solve_adjoint": "magi_v2_tpu/ops/banded.py:315",
 }
+SOURCES = {
+    "manifold": "magi_v2_tpu_torch/csrc/manifold.cu",
+    "banded": "magi_v2_tpu_torch/csrc/banded.cu",
+    "leapfrog": "magi_v2_tpu_torch/csrc/leapfrog.cu",
+}
+
+
+def _counters():
+    from magi_v2_tpu_torch.ops import banded, manifold
+    from magi_v2_tpu_torch.sampler import hmc
+
+    return (manifold, banded, hmc)
+
+
+def reset_launch_counts():
+    for mod in _counters():
+        mod.reset_launch_counts()
+
+
+def launch_counts():
+    out = {}
+    for mod in _counters():
+        out.update(mod.launch_counts())
+    return out
 
 
 def check_device():
@@ -67,23 +129,31 @@ def build():
     from magi_v2_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    print(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
+    print(f"build: {lib.build_seconds:.1f} s -> "
+          f"{', '.join(p.name for p in lib.paths)}")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     return lib
 
 
-def kernel_inputs(dtype, device, C=256, N=161, D=3, P=3, seed=0):
-    """Inputs of the three kernels at realistic magnitudes."""
+def kernel_inputs(dtype, device, C=256, N=161, D=3, P=3, seed=0,
+                  model="seir"):
+    """Inputs of the three K1 kernels at realistic magnitudes of the SEIR
+    or the Lorenz model."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s, scale=1.0: (scale * torch.randn(s, generator=g,
                                                    dtype=torch.float64))
     dim = N * D + D + P
     q = r(C, dim)
-    q[:, N * D: N * D + D] = -10.5 + r(C, D, scale=0.1)
-    q[:, N * D + D:] = torch.tensor([1.8, -0.3, 1.5]) + r(C, P, scale=0.1)
-    x0T = 0.5 * torch.rand((D, N), generator=g, dtype=torch.float64)
+    if model == "seir":
+        q[:, N * D: N * D + D] = -10.5 + r(C, D, scale=0.1)
+        q[:, N * D + D:] = torch.tensor([1.8, -0.3, 1.5]) + r(C, P, scale=0.1)
+        x0T = 0.5 * torch.rand((D, N), generator=g, dtype=torch.float64)
+    else:
+        q[:, N * D: N * D + D] = -1.5 + r(C, D, scale=0.1)
+        q[:, N * D + D:] = torch.tensor([10.0, 28.0, 2.6]) + r(C, P, scale=0.1)
+        x0T = 15.0 * torch.randn((D, N), generator=g, dtype=torch.float64)
     mask = torch.zeros(D, N, dtype=torch.float64)
     mask[:, ::2] = 1.0
     inp = dict(
@@ -144,15 +214,37 @@ def _time_ms(fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(device):
-    """Each kernel against its plain version, float32 and float64; returns
-    {name: {max_abs_err, ms, plain_ms}} for float32 (the sampling dtype)."""
-    from magi_v2_tpu_torch.models import seir_f_vec as f
+def report(kname, dtype, errs, ms, plain_ms, tol, results, extra=""):
+    """Print one kernel check, raise above ``tol``, and keep the float32
+    numbers (the sampling dtype) in ``results``."""
+    worst_part = max(errs, key=lambda p: errs[p][1])
+    worst_rel = errs[worst_part][1]
+    worst_abs = max(e[0] for e in errs.values())
+    name = str(dtype).replace("torch.", "")
+    print(f"{kname} {name}: max_abs_err {worst_abs:.3e}, relative per output "
+          + ", ".join(f"{p} {e[1]:.1e}" for p, e in errs.items())
+          + f" (tol {tol:.0e}){extra}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    if not worst_rel <= tol:
+        raise AssertionError(
+            f"{kname} {name} disagrees with its plain version: {worst_part} "
+            f"relative error {worst_rel:.3e} > {tol:.0e}")
+    if dtype == torch.float32:
+        results[kname] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+
+
+def check_kernels(device, model="seir", N=161):
+    """Each K1 kernel against its plain version, float32 and float64;
+    returns {name: {max_abs_err, ms, plain_ms}} for float32 (the sampling
+    dtype); names carry a ``_lorenz`` suffix for the Lorenz model."""
+    from magi_v2_tpu_torch.models import MODEL_REGISTRY
     from magi_v2_tpu_torch.ops import manifold as mf
 
+    f = MODEL_REGISTRY[model].f_vec
+    suffix = "" if model == "seir" else f"_{model}"
     results = {}
     for dtype in (torch.float64, torch.float32):
-        x = kernel_inputs(dtype, device)
+        x = kernel_inputs(dtype, device, N=N, model=model)
         D, N = x["x0T"].shape
         I = torch.zeros((N, 1), dtype=dtype, device=device)
         fwd_args = (f, I, x["delta"], x["RmD"], x["q"], x["x0T"], x["a0"],
@@ -183,7 +275,6 @@ def check_kernels(device):
                                ("grad", gr_p, gr_k)], N, D)
         torch.cuda.synchronize()
 
-        name = str(dtype).replace("torch.", "")
         for kname, errs, fk, fp in (
             ("manifold_fwd", fwd_err,
              lambda: mf.manifold_fwd(*fwd_args),
@@ -195,24 +286,70 @@ def check_kernels(device):
              lambda: bwd(mf.manifold_bwd, gc_k, gr_k),
              lambda: bwd(mf.manifold_bwd_plain, gc_p, gr_p)),
         ):
-            worst_part = max(errs, key=lambda p: errs[p][1])
-            worst_rel = errs[worst_part][1]
-            worst_abs = max(e[0] for e in errs.values())
-            ms, plain_ms = _time_ms(fk), _time_ms(fp)
-            print(f"{kname} {name}: max_abs_err {worst_abs:.3e}, relative "
-                  f"per output "
-                  + ", ".join(f"{p} {e[1]:.1e}" for p, e in errs.items())
-                  + f" (tol {TOL[dtype]:.0e}); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
-            if not worst_rel <= TOL[dtype]:
-                raise AssertionError(
-                    f"{kname} {name} disagrees with its plain version: "
-                    f"{worst_part} relative error {worst_rel:.3e} > "
-                    f"{TOL[dtype]:.0e}"
-                )
-            if dtype == torch.float32:
-                results[kname] = dict(max_abs_err=worst_abs, ms=ms,
-                                      plain_ms=plain_ms)
+            report(kname + suffix, dtype, errs, _time_ms(fk), _time_ms(fp),
+                   TOL[dtype], results)
+    return results
+
+
+def check_leapfrog(device, C=256, dim=3081):
+    """K2 against its plain version at the Lorenz shapes: a diagonal mass
+    (the hybrid run's) and a 3-wide dense tail (mass_matrix="tail_dense"
+    with sigma pinned) in one launch each, and the full dense metric of
+    the SEIR path (kick, cuBLAS velocity, drift) at its 489 coordinates."""
+    from magi_v2_tpu_torch.sampler.hmc import (
+        leapfrog_update,
+        leapfrog_update_plain,
+    )
+    from magi_v2_tpu_torch.sampler.mass import TailDenseMass
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        g = torch.Generator(device="cpu").manual_seed(3)
+        r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)
+
+        def spd(k):
+            a = r(k, k)
+            return (a @ a.T / k + torch.eye(k, dtype=torch.float64))
+
+        cases = []
+        for d, tail in ((dim, 0), (dim, 3), (489, 489)):
+            diag = torch.rand((d,), generator=g, dtype=torch.float64) + 0.5
+            if tail:
+                ti = spd(tail)
+                mass = TailDenseMass(diag.clone(), ti,
+                                     torch.linalg.cholesky(ti))
+            else:
+                mass = diag
+            cases.append((d, tail, mass))
+        errs, timing = {}, []
+        for d, tail, mass in cases:
+            dv = lambda t: t.to(device=device, dtype=dtype).contiguous()
+            if isinstance(mass, TailDenseMass):
+                mass = TailDenseMass(*(dv(t) for t in mass))
+            else:
+                mass = dv(mass)
+            q, p, gr = dv(r(C, d)), dv(r(C, d)), dv(100.0 * r(C, d))
+            eps = torch.tensor(0.05, dtype=dtype, device=device)
+            outs = []
+            for fn in (leapfrog_update, leapfrog_update_plain):
+                qq, pp = q.clone(), p.clone()
+                k1 = fn(qq, pp, gr, eps, mass, 2, True, True)
+                outs.append((qq, pp, k1))
+            tag = f"dim{d}_tail{tail}"
+            for part, a, b in zip(("q", "p", "kinetic"), outs[1], outs[0]):
+                errs[f"{tag}_{part}"] = _relerr(a, b)
+            qq, pp = q.clone(), p.clone()
+            timing.append((
+                _time_ms(lambda: leapfrog_update(qq, pp, gr, eps, mass, 2,
+                                                 True, False)),
+                _time_ms(lambda: leapfrog_update_plain(qq, pp, gr, eps, mass,
+                                                       2, True, False))))
+        torch.cuda.synchronize()
+        report("leapfrog_update", dtype, errs, timing[0][0], timing[0][1],
+               TOL[dtype], results,
+               extra=f" (ms of the diagonal case; tail 3: {timing[1][0]:.4f}"
+                     f" / {timing[1][1]:.4f}, dense 489: {timing[2][0]:.4f}"
+                     f" / {timing[2][1]:.4f})")
     return results
 
 
@@ -243,7 +380,7 @@ def main_path(device, num_steps=NUM_STEPS):
     print(f"setup (initial_fit): {setup_s:.2f} s {model.fit_timings}; thetas_init "
           f"{np.round(model.thetas_init, 4).tolist()}")
 
-    mf.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = model.predict(
         num_results=num_steps, num_burnin_steps=num_steps,
@@ -255,7 +392,7 @@ def main_path(device, num_steps=NUM_STEPS):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = mf.launch_counts()
+    counts = launch_counts()
 
     kr = res["kernel_results"]
     thetas = res["thetas_samps"]
@@ -278,9 +415,7 @@ def main_path(device, num_steps=NUM_STEPS):
     if not (np.all(np.isfinite(res["X_samps"]))
             and np.all(np.isfinite(thetas))):
         raise AssertionError("non-finite draws")
-    idle = [k for k, n in counts.items() if n == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+    check_launched(counts, mf.KERNELS + ("leapfrog_update",), "SEIR")
     if not summ["rhat_max"] <= 1.05:
         raise AssertionError(f"rhat_max {summ['rhat_max']:.4f} > 1.05")
     rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
@@ -289,22 +424,33 @@ def main_path(device, num_steps=NUM_STEPS):
     return model, counts
 
 
-def check_composed(model, device):
-    """The float64 K1 target on the card against the same target, moved to
-    the CPU (plain versions), at 8 states near the fit."""
+def check_launched(counts, kernels, path):
+    idle = [k for k in kernels if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the {path} path: "
+                             f"{idle}")
+
+
+def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
+                                                          -10.5, 1.8, -0.5,
+                                                          0.6)):
+    """The float64 target of ``storage`` on the card against the same
+    target, moved to the CPU (plain versions), at 8 states near the fit
+    (``tail`` the sigma_pre and theta_pre of the states)."""
     from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
 
     arrays = {f: getattr(model, f) for f in FIT_FIELDS}
-    m64 = from_fit_arrays(arrays, model.f_vec, model.D_thetas,
-                          bandsize=model.BANDSIZE,
-                          config=model.config.replace(dtype=torch.float64))
-    mode, _, _ = m64._build_sampling_setup("precond", "dense", torch.float64)
+    m64 = from_fit_arrays(
+        arrays, model.f_vec, model.D_thetas, bandsize=model.BANDSIZE,
+        config=model.config.replace(dtype=torch.float64),
+        exact_operators=(model._exact_operators() if storage == "hybrid"
+                         else None),
+    )
+    mode, _, _ = m64._build_sampling_setup("precond", storage, torch.float64)
     target = mode.logp_grad
     cpu_target = target.to("cpu")
     rng = np.random.default_rng(1)
-    N, D = m64.mag_I, m64.D
-    q0 = np.concatenate([mode.X0.cpu().numpy().ravel(), [-10.5] * D,
-                         [1.8, -0.5, 0.6]])
+    q0 = np.concatenate([mode.X0.cpu().numpy().ravel(), tail])
     q = q0 + 0.1 * rng.standard_normal((8, q0.size))
     bt = torch.tensor(0.37, dtype=torch.float64)
     lp_c, g_c = cpu_target(torch.as_tensor(q), bt)
@@ -312,35 +458,51 @@ def check_composed(model, device):
     torch.cuda.synchronize()
     e_lp = _relerr(lp_c, lp_d.cpu())[1]
     e_g = _relerr(g_c, g_d.cpu())[1]
-    print(f"composed float64 target, card vs CPU: lp rel {e_lp:.3e}, grad "
-          f"rel {e_g:.3e} (tol {COMPOSED_TOL:.0e})")
+    print(f"composed float64 {storage} target, card vs CPU: lp rel "
+          f"{e_lp:.3e}, grad rel {e_g:.3e} (tol {COMPOSED_TOL:.0e})")
     if not (e_lp <= COMPOSED_TOL and e_g <= COMPOSED_TOL):
-        raise AssertionError("composed target disagrees between card and CPU")
+        raise AssertionError(f"composed {storage} target disagrees between "
+                             "card and CPU")
 
 
 @contextlib.contextmanager
-def plain_k1():
-    """The plain versions swapped into the sampler's K1 target, which the
-    wrappers never take on a CUDA tensor: the baseline of the leapfrog
-    timings below."""
+def plain_kernels():
+    """The plain versions swapped into the sampler's target (K1, K3, K4)
+    and leapfrog (K2), which the wrappers never take on a CUDA tensor: the
+    baseline of the leapfrog timings below."""
+    from magi_v2_tpu_torch.ops import banded as bd
     from magi_v2_tpu_torch.ops import manifold as mf
-    from magi_v2_tpu_torch.sampler import precond
+    from magi_v2_tpu_torch.sampler import hmc, precond
 
-    saved = {k: getattr(precond, k) for k in mf.KERNELS}
-    for k in mf.KERNELS:
-        setattr(precond, k, getattr(mf, f"{k}_plain"))
+    swaps = [(precond, k, getattr(mf, f"{k}_plain")) for k in mf.KERNELS]
+    swaps += [(precond, "banded_matvec", bd.banded_matvec_plain),
+              (precond, "banded_solve", bd.banded_solve_plain),
+              (hmc, "leapfrog_update", hmc.leapfrog_update_plain)]
+    saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
+    for mod, k, fn in swaps:
+        setattr(mod, k, fn)
     try:
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(precond, k, fn)
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
 
 
-def profile_leapfrog(model, device, num_leapfrogs=100, reps=5):
-    """Where a leapfrog's time goes, at the main path's float32 shapes: the
-    wall per leapfrog with the kernels and with their plain versions
-    (alternating), one K1 evaluation alone, the host time of each wrapper
-    call, and torch.profiler's device time over one 50-leapfrog
+OWN_KERNELS = ("manifold_fwd_kernel", "manifold_energy_kernel",
+               "manifold_bwd_kernel", "leapfrog_kernel",
+               "banded_matvec_kernel", "banded_solve_kernel")
+
+
+def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
+                                                           -10.5, 1.8, -0.5,
+                                                           0.6),
+                     step_size=0.2, beta_temp=0.15, dense_mass=True,
+                     num_chains=NUM_CHAINS, num_leapfrogs=100, reps=5,
+                     host_wrappers=True):
+    """Where a leapfrog's time goes, at a path's float32 shapes: the wall
+    per leapfrog with the kernels and with their plain versions
+    (alternating), one target evaluation alone, the host time of each K1
+    wrapper call, and torch.profiler's device time over one 50-leapfrog
     transition."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,22 +510,22 @@ def profile_leapfrog(model, device, num_leapfrogs=100, reps=5):
     from magi_v2_tpu_torch.sampler.hmc import hmc_step
     from magi_v2_tpu_torch.sampler.mass import identity_mass
 
-    mode, _, _ = model._build_sampling_setup("precond", "dense",
+    mode, _, _ = model._build_sampling_setup("precond", storage,
                                              torch.float32)
     target = mode.logp_grad
     N, D = model.mag_I, model.D
     dim = N * D + D + model.D_thetas
     g = torch.Generator(device=device).manual_seed(0)
     q0 = torch.cat([mode.X0.reshape(-1).float(),
-                    torch.tensor([-10.5] * D + [1.8, -0.5, 0.6],
-                                 device=device)])
-    qs = q0 + 0.01 * torch.randn((NUM_CHAINS, dim), generator=g,
+                    torch.tensor(tail, dtype=torch.float32, device=device)])
+    qs = q0 + 0.01 * torch.randn((num_chains, dim), generator=g,
                                  device=device)
-    normals = torch.randn((NUM_CHAINS, dim), generator=g, device=device)
-    unif = torch.rand((NUM_CHAINS,), generator=g, device=device)
-    inv_mass = identity_mass(dim, dim, torch.float32, device)
-    eps = torch.tensor(0.2, device=device)
-    bt = torch.tensor(0.15, device=device)
+    normals = torch.randn((num_chains, dim), generator=g, device=device)
+    unif = torch.rand((num_chains,), generator=g, device=device)
+    inv_mass = identity_mass(dim, dim if dense_mass else 0, torch.float32,
+                             device)
+    eps = torch.tensor(step_size, device=device)
+    bt = torch.tensor(beta_temp, device=device)
 
     def transition(L):
         return hmc_step(lambda q: target(q, bt), qs, eps, inv_mass, L,
@@ -382,42 +544,46 @@ def profile_leapfrog(model, device, num_leapfrogs=100, reps=5):
     for order in [("kernels", "plain"), ("plain", "kernels")] * 2:
         for name in order:
             if name == "plain":
-                with plain_k1():
+                with plain_kernels():
                     walls[name].append(ms_per_leapfrog())
             else:
                 walls[name].append(ms_per_leapfrog())
-    print(f"ms per leapfrog ({NUM_CHAINS} chains, float32), with the kernels "
-          f"{walls['kernels']}, with the plain versions {walls['plain']}")
-    print(f"ms per K1 evaluation alone: {_time_ms(lambda: target(qs, bt))}")
+    print(f"{storage}: ms per leapfrog ({num_chains} chains, float32), with "
+          f"the kernels {walls['kernels']}, with the plain versions "
+          f"{walls['plain']}")
+    print(f"{storage}: ms per target evaluation alone: "
+          f"{_time_ms(lambda: target(qs, bt))}")
 
-    # host time of each wrapper (the kernels are a few us on the card, so
-    # back-to-back calls are bound by the host)
-    x = kernel_inputs(torch.float32, device, C=NUM_CHAINS, N=N, D=D)
-    I = torch.zeros((N, 1), dtype=torch.float32, device=device)
-    gc, gr = torch.zeros_like(x["RmD"]), torch.zeros_like(x["q"])
-    t14 = torch.zeros((NUM_CHAINS, 2), dtype=torch.float32, device=device)
-    calls = {
-        "manifold_fwd": lambda: mf.manifold_fwd(
-            model.f_vec, I, x["delta"], x["RmD"], x["q"], x["x0T"], x["a0"],
-            x["f0"], x["mask"], x["y"], x["sigma_lb"], x["beta_temp"],
-            x["beta"]),
-        "manifold_energy": lambda: mf.manifold_energy(
-            model.f_vec, x["Ds"], x["s0"], t14,
-            x["q"], x["sigma_lb"], x["n_ds"], x["beta_temp"], x["beta"]),
-        "manifold_bwd": lambda: mf.manifold_bwd(
-            model.f_vec, I, x["gdr"], x["delta"], x["q"], x["x0T"],
-            x["mask"], x["y"], x["sigma_lb"], x["n_ds"], x["beta_temp"],
-            gc, gr),
-    }
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
+    if host_wrappers:
+        # host time of each wrapper (the kernels are a few us on the card,
+        # so back-to-back calls are bound by the host)
+        x = kernel_inputs(torch.float32, device, C=num_chains, N=N, D=D)
+        I = torch.zeros((N, 1), dtype=torch.float32, device=device)
+        gc, gr = torch.zeros_like(x["RmD"]), torch.zeros_like(x["q"])
+        t14 = torch.zeros((num_chains, 2), dtype=torch.float32,
+                          device=device)
+        calls = {
+            "manifold_fwd": lambda: mf.manifold_fwd(
+                model.f_vec, I, x["delta"], x["RmD"], x["q"], x["x0T"],
+                x["a0"], x["f0"], x["mask"], x["y"], x["sigma_lb"],
+                x["beta_temp"], x["beta"]),
+            "manifold_energy": lambda: mf.manifold_energy(
+                model.f_vec, x["Ds"], x["s0"], t14,
+                x["q"], x["sigma_lb"], x["n_ds"], x["beta_temp"], x["beta"]),
+            "manifold_bwd": lambda: mf.manifold_bwd(
+                model.f_vec, I, x["gdr"], x["delta"], x["q"], x["x0T"],
+                x["mask"], x["y"], x["sigma_lb"], x["n_ds"], x["beta_temp"],
+                gc, gr),
+        }
+        for name, fn in calls.items():
             fn()
-        host_us = (time.perf_counter() - t0) / 500 * 1e6
-        torch.cuda.synchronize()
-        print(f"{name} wrapper: {host_us:.2f} us of host time per call")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            host_us = (time.perf_counter() - t0) / 500 * 1e6
+            torch.cuda.synchronize()
+            print(f"{name} wrapper: {host_us:.2f} us of host time per call")
 
     transition(50)
     torch.cuda.synchronize()
@@ -436,42 +602,294 @@ def profile_leapfrog(model, device, num_leapfrogs=100, reps=5):
     busy = sum(e.self_device_time_total for e in kernels)
     gemm = sum(e.self_device_time_total for e in kernels
                if "gemm" in e.key.lower())
-    print("device time over one 50-leapfrog transition, by kernel:")
+    print(f"{storage}: device time over one 50-leapfrog transition, by "
+          "kernel:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total:10.1f} us {e.count:5d} calls  "
               f"{e.key[:90]}")
-    for name in mf.KERNELS:
-        own = [e for e in kernels if f"{name}_kernel" in e.key]
-        n = sum(e.count for e in own)
-        us = sum(e.self_device_time_total for e in own)
-        print(f"{name}: {us / max(n, 1):.2f} us of device time per launch "
-              f"({n} launches)")
+    for e in kernels:
+        if any(k in e.key for k in OWN_KERNELS):
+            print(f"  {e.self_device_time_total / max(e.count, 1):.2f} us of "
+                  f"device time per launch ({e.count} launches): "
+                  f"{e.key[:90]}")
     if busy == 0:
         print("torch.profiler recorded no device time; the split above is "
               "not measured")
         return
-    print(f"device busy {busy:.1f} us ({gemm / busy:.1%} in GEMMs) of "
-          f"{profiled_us:.1f} us profiled wall and {wall_us:.1f} us "
+    print(f"{storage}: device busy {busy:.1f} us ({gemm / busy:.1%} in GEMMs)"
+          f" of {profiled_us:.1f} us profiled wall and {wall_us:.1f} us "
           f"unprofiled wall; device idle {1 - busy / wall_us:.1%} of the "
           "unprofiled wall")
 
 
+def lorenz_fit(device, n_obs=257):
+    """The dense-grid Lorenz configuration, fitted in float32 on the card:
+    N_I = 1025 from 257 observations at discretization 2, bandsize 100.
+
+    Theta starts from the same data's discretization-1 fit (N_I = 513),
+    passed as ``initial_fit(2, thetas_init=...)``, the README's recipe. At
+    N_I = 1025 the derivative operator K = K'' - K' C^{-1} K'^T is a
+    cancellation below float64's resolution (its eigenvalues come out
+    between about -1 and +1 where they are positive and small), so the
+    theta that initial_fit fits through K^{-1} depends on the LAPACK that
+    computed it: the JAX package on a CPU and the port on the card and on
+    a CPU all put rho near 1e-4, and the banded run anchored there collapsed
+    its step size to 1.2e-7. At N_I = 513 the fit is well posed."""
+    from magi_v2_tpu_torch import MAGI_v2, MagiConfig
+    from magi_v2_tpu_torch.models import lorenz_f_vec
+    from magi_v2_tpu_torch.utils.data import simulate_ode
+
+    ts, X_obs, _ = simulate_ode(lorenz_f_vec, x0=np.array([-8.0, 7.0, 27.0]),
+                                thetas=LORENZ_THETAS, t_max=2.0, n_obs=n_obs,
+                                noise_sd=0.5, substeps=50)
+    cfg = MagiConfig(dtype=torch.float32, device=str(device),
+                     anneal_min_temp=0.3)
+    thetas_init = None
+    for disc in (1, 2):
+        model = MAGI_v2(D_thetas=3, ts_obs=ts, X_obs=X_obs, bandsize=100,
+                        f_vec=lorenz_f_vec, config=cfg)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.initial_fit(discretization=disc, thetas_init=thetas_init)
+        torch.cuda.synchronize()
+        print(f"Lorenz setup (initial_fit, discretization {disc}): "
+              f"{time.perf_counter() - t0:.2f} s {model.fit_timings}; N_I "
+              f"{model.mag_I}, thetas_init "
+              f"{np.round(model.thetas_init, 4).tolist()}, band truncation "
+              f"{model.band_truncation}")
+        for w in caught:
+            print(f"  warning: {str(w.message)[:160]}")
+        thetas_init = model.thetas_init
+    return model
+
+
+def check_banded_kernels(model, device):
+    """K3 and K4 (and adjoints) against their plain versions on the Lorenz
+    fit's operators: the band-truncated R, m, S of storage="banded" and
+    its banded Gauss-Newton factor U, float64 and float32, at the banded
+    run's and the hybrid run's chain counts; returns the float32 numbers
+    (K3 timed at the banded run's chains, K4 at the hybrid run's)."""
+    mode, data, _ = model._build_sampling_setup("precond", "banded",
+                                                torch.float64)
+    return check_banded_ops(
+        {"R": data.C_sqrt_blocks, "m": data.m_blocks, "S": data.K_sqrt_blocks},
+        mode.factor, model.mag_I, model.D, (BANDED_CHAINS, LORENZ_CHAINS),
+        device, timed={"banded_matvec": BANDED_CHAINS,
+                       "banded_matvec_adjoint": BANDED_CHAINS,
+                       "banded_solve": LORENZ_CHAINS,
+                       "banded_solve_adjoint": LORENZ_CHAINS})
+
+
+def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
+    """K3 and K4 against their plain versions through the target's own
+    stages, so on the strided views the sampler passes: K3 through
+    ``BandedOperators`` (R delta and m delta into the halves of the
+    (D, C, 2N) RmD, S dr, S' g_Ds and the accumulating [R' | -m'] gcat on
+    (D, C, N) <-> (C, D, N) transposes) on ``blocks`` ({"R", "m", "S"}:
+    float64 (D, nb, nw, T, T) tiles), K4 through ``BandedWhitening`` (the
+    interleaved <-> component-major permutation) on the float64
+    ``factor64``. The plain side is the same calls with the plain versions
+    swapped in. Float64 and float32, for each chain count of ``chains``;
+    ``timed`` maps a kernel to the chain count whose times are reported
+    (default the first)."""
+    from magi_v2_tpu_torch.ops import banded as bd
+    from magi_v2_tpu_torch.sampler.precond import (
+        BandedOperators,
+        BandedWhitening,
+    )
+
+    timed = timed or {}
+    nwu = factor64.tiles.shape[1]
+    ND = N * D
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        ops = BandedOperators(*(blocks[k].to(dtype) for k in ("R", "m", "S")))
+        wh = BandedWhitening(factor64.to(dtype), N, D)
+        errs = {k: {} for k in bd.KERNELS}
+        times, extra = {}, {k: "" for k in bd.KERNELS}
+        for C in chains:
+            g = torch.Generator(device="cpu").manual_seed(4)
+            r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64).to(
+                device=device, dtype=dtype)
+            delta, dr, gDs = 1e-2 * r(C, D, N), r(D, C, N), r(D, C, N)
+            gpart, gcat, dz, g_delta = (r(D, C, N), r(D, C, 2 * N), r(C, ND),
+                                        r(D, C, N))
+
+            def whiten_adjoint():
+                # grad[:, :ND] of a (C, ND + D + P) gradient, P = 3 θ, as
+                # the target passes it
+                out = torch.empty((C, ND + D + 3), dtype=dtype,
+                                  device=device)[:, :ND]
+                wh.backward(g_delta, out)
+                return out
+
+            calls = {
+                "banded_matvec": {"rm": lambda: ops.rm(delta),
+                                  "s": lambda: ops.s(dr)},
+                "banded_matvec_adjoint": {
+                    "s_adjoint": lambda: ops.s_adjoint(gDs),
+                    "rm_adjoint": lambda: ops.rm_adjoint(gpart.clone(), gcat)},
+                "banded_solve": {"x": lambda: wh.forward(dz)},
+                "banded_solve_adjoint": {"gy": whiten_adjoint},
+            }
+            got = {k: {p: fn() for p, fn in parts.items()}
+                   for k, parts in calls.items()}
+            with plain_kernels():
+                ref = {k: {p: fn() for p, fn in parts.items()}
+                       for k, parts in calls.items()}
+            for k, parts in got.items():
+                for p, t in parts.items():
+                    errs[k][f"{p}_C{C}"] = _relerr(ref[k][p], t)
+
+            # the solves' residuals against the float64 factor
+            x_nat = got["banded_solve"]["x"].permute(0, 2, 1).reshape(
+                C, ND).double()
+            Ux = bd.block_banded_matvec_plain(factor64.tiles, x_nat, 0,
+                                              nwu - 1)
+            res = float(torch.linalg.norm(Ux - dz.double())
+                        / torch.linalg.norm(dz.double()))
+            extra["banded_solve"] += (f", C{C} residual ||Ux - y||/||y|| "
+                                      f"{res:.2e}")
+            g_nat = g_delta.permute(1, 2, 0).reshape(C, ND).double()
+            Utg = bd.block_banded_matvec_adjoint_plain(
+                factor64.tiles, got["banded_solve_adjoint"]["gy"].double(), 0,
+                nwu - 1)
+            res = float(torch.linalg.norm(Utg - g_nat)
+                        / torch.linalg.norm(g_nat))
+            extra["banded_solve_adjoint"] += (f", C{C} residual "
+                                              f"||U'gy - g||/||g|| {res:.2e}")
+
+            # times of one launch: S dr, S' g_Ds, and the two solves
+            for k, p in (("banded_matvec", "s"),
+                         ("banded_matvec_adjoint", "s_adjoint"),
+                         ("banded_solve", "x"), ("banded_solve_adjoint", "gy")):
+                if C == timed.get(k, chains[0]):
+                    fn = calls[k][p]
+                    ms = _time_ms(fn)
+                    with plain_kernels():
+                        plain_ms = _time_ms(fn)
+                    times[k] = (ms, plain_ms)
+                    extra[k] += f" (ms of {p} at C{C})"
+        torch.cuda.synchronize()
+        for k in bd.KERNELS:
+            tol = SOLVE_TOL if k.startswith("banded_solve") else TOL
+            report(k, dtype, errs[k], *times[k], tol[dtype], results,
+                   extra=extra[k])
+    return results
+
+
+LORENZ_PATH_KERNELS = {
+    "hybrid": ("manifold_fwd", "manifold_energy", "manifold_bwd",
+               "leapfrog_update", "banded_solve", "banded_solve_adjoint"),
+    "banded": ("manifold_fwd", "manifold_energy", "manifold_bwd",
+               "leapfrog_update", "banded_solve", "banded_solve_adjoint",
+               "banded_matvec", "banded_matvec_adjoint"),
+}
+
+
+def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
+    """predict(storage=...) on the Lorenz fit with the dense-grid recipe
+    (sigma pinned, reference annealing at the config's 0.3 floor, diagonal
+    mass), gated on finite draws, kernel launches, step size, acceptance
+    and (``gate_theta``) the theta means."""
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(
+        num_results=num_steps, num_burnin_steps=num_steps,
+        num_chains=num_chains, seed=0, init_jitter=0.05, algorithm="hmc",
+        hmc_num_leapfrogs=LORENZ_LEAPFROGS, storage=storage,
+        anneal_mode="reference", sigma_sqs_fixed=0.25, mass_matrix="diag",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    mean_L = float(kr["num_leapfrogs"].mean())
+    evals = 2 * num_steps * mean_L * num_chains / wall
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    rel = (theta_mean - LORENZ_THETAS) / LORENZ_THETAS
+    step = float(kr["step_size"])
+    accept = float(kr["accept_probs"].mean())
+    print(f"Lorenz {storage} predict wall: {wall:.2f} s ({num_steps}+"
+          f"{num_steps} steps, {num_chains} chains, L<={LORENZ_LEAPFROGS})")
+    print(f"Lorenz {storage}: mean acceptance {accept:.4f}, divergence rate "
+          f"{kr['divergences'].mean():.5f}, step size {step:.5f}")
+    print(f"Lorenz {storage}: theta pooled means "
+          f"{np.round(theta_mean, 4).tolist()} (truth "
+          f"{np.round(LORENZ_THETAS, 4).tolist()}, relative "
+          f"{np.round(rel, 4).tolist()})")
+    print(f"Lorenz {storage}: ESS_min {summ['ess_min']:.1f}, rhat_max "
+          f"{summ['rhat_max']:.4f}, ESS/s {summ['ess_per_sec_min']:.2f}, "
+          f"fused evals/s (sampler-derived) {evals:.4g}")
+    print(f"Lorenz {storage}: launch counts {counts}")
+
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError(f"Lorenz {storage}: non-finite draws")
+    check_launched(counts, LORENZ_PATH_KERNELS[storage], f"Lorenz {storage}")
+    if not step >= MIN_STEP_SIZE:
+        raise AssertionError(f"Lorenz {storage}: step size {step:.3e} < "
+                             f"{MIN_STEP_SIZE:.0e}")
+    if not accept >= MIN_ACCEPT:
+        raise AssertionError(f"Lorenz {storage}: mean acceptance "
+                             f"{accept:.3f} < {MIN_ACCEPT}")
+    if gate_theta and not np.all(np.abs(rel) <= 0.15):
+        raise AssertionError(f"Lorenz {storage}: theta means {theta_mean} "
+                             f"off truth by {rel}")
+    return counts
+
+
 def main():
+    t_start = time.perf_counter()
     smi = check_device()
     device = torch.device("cuda:0")
     t0 = time.perf_counter()
     build()
     print(f"build phase: {time.perf_counter() - t0:.1f} s")
     timing = check_kernels(device)
-    model, counts = main_path(device)
+    timing.update(check_leapfrog(device))
+    model, counts_seir = main_path(device)
     check_composed(model, device)
     profile_leapfrog(model, device)
-    kernels = [
-        dict(name=k, route="cuda",
-             source="magi_v2_tpu_torch/csrc/manifold_seir.cu",
-             replaces=REPLACES[k], launches=counts[k], **timing[k])
-        for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")
-    ]
+    print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
+
+    lmodel = lorenz_fit(device)
+    timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I))
+    timing.update(check_banded_kernels(lmodel, device))
+    counts_h = lorenz_path(lmodel, device, "hybrid", LORENZ_CHAINS,
+                           LORENZ_STEPS, gate_theta=True)
+    counts_b = lorenz_path(lmodel, device, "banded", BANDED_CHAINS,
+                           BANDED_STEPS, gate_theta=False)
+    lorenz_tail = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
+    for storage in ("hybrid", "banded"):
+        check_composed(lmodel, device, storage, tail=lorenz_tail)
+    profile_leapfrog(lmodel, device, "hybrid", tail=lorenz_tail,
+                     step_size=0.05, beta_temp=0.3, dense_mass=False,
+                     num_leapfrogs=64, reps=3, host_wrappers=False)
+
+    def entry(name, kernel, source, path, counts):
+        return dict(name=name, route="cuda", source=SOURCES[source],
+                    replaces=REPLACES[kernel], path=path,
+                    launches=counts[kernel], **timing[name])
+
+    kernels = [entry(k, k, "manifold", "seir_dense", counts_seir)
+               for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels += [entry(f"{k}_lorenz", k, "manifold", "lorenz_hybrid",
+                      counts_h)
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels += [entry("leapfrog_update", "leapfrog_update", "leapfrog",
+                      "lorenz_hybrid", counts_h)]
+    kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
+                for k in ("banded_solve", "banded_solve_adjoint")]
+    kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)
+                for k in ("banded_matvec", "banded_matvec_adjoint")]
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ like the JAX model's, so a fit can be carried across packages
 (utils/checkpoint.py).
 
 Ported so far: the fully-observed ``initial_fit`` and
-``predict(algorithm="hmc")`` with ``reparam="precond"``,
-``storage="dense"``. Every other argument value raises
-NotImplementedError naming its ROADMAP.md item.
+``predict(algorithm="hmc")`` with ``reparam="precond"`` in every storage
+mode (``"dense"``, ``"hybrid"``, ``"banded"``), ``sigma_sqs_fixed`` and
+``gn_anchor``. Every other argument value raises NotImplementedError
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from magi_v2_tpu_torch.hparams import fit_kernel_hparams
 from magi_v2_tpu_torch.init import fit_theta_fully_observed
 from magi_v2_tpu_torch.ops.kernels import magi_kernel_matrices, uniform_spacing
 from magi_v2_tpu_torch.ops.linalg import band_part, sym_pinv, sym_sqrt
-from magi_v2_tpu_torch.posterior import make_posterior_data
+from magi_v2_tpu_torch.posterior import make_posterior_data, to_banded_data
 from magi_v2_tpu_torch.sampler.magi_state import (
     flatten_state,
     unflatten_samples,
@@ -122,14 +123,41 @@ class MAGI_v2:
         )
         return tuple(a.cpu().numpy() for a in (sym_pinv(C), m, sym_pinv(K)))
 
-    def initial_fit(self, discretization: int, verbose: bool = False):
+    def _exact_operators(self):
+        """Untruncated (C^{-1}, m, K^{-1}) at the fitted hyperparameters, as
+        host arrays. initial_fit band-truncates the model's operators in
+        place when a bandsize is set; storage="hybrid" needs the exact
+        ones, so they are rebuilt, once per (phi1s, phi2s, grid)."""
+        key = (self.phi1s.tobytes(), self.phi2s.tobytes(), self.I.tobytes())
+        cache = getattr(self, "_exact_ops_cache", None)
+        if cache is not None and cache[0] == key:
+            return cache[1]
+        ops = self._build_inverse_matrices(self.phi1s, self.phi2s)
+        self._exact_ops_cache = (key, ops)
+        return ops
+
+    def initial_fit(self, discretization: int, verbose: bool = False,
+                    thetas_init=None):
         """Discretize, fit GP hyperparameters, initialize theta. Fully
         observed systems only (the gradient-matching branch is ROADMAP.md
         queue 1 item 8). Host wall seconds per phase land in
         ``fit_timings``; each phase ends by copying its result to the host,
-        so the walls include the device work."""
+        so the walls include the device work.
+
+        ``thetas_init`` (D_thetas,) skips the theta fit and starts theta
+        there. On dense grids the fit through K^{-1} can be ill-posed
+        (Lorenz at N_I = 1025: K's cancellation falls below float64's
+        resolution, see ROADMAP.md queue 3); a fit of the same data at a
+        coarser discretization is then a sound start."""
         if not np.all(self.observed_indicators):
             raise _not_ported("initial_fit with unobserved components", "8")
+        if thetas_init is not None:
+            thetas_init = np.asarray(thetas_init, np.float64)
+            if thetas_init.shape != (self.D_thetas,) or not np.all(
+                    np.isfinite(thetas_init)):
+                raise ValueError(
+                    f"thetas_init must be {self.D_thetas} finite values, got "
+                    f"{thetas_init!r}")
         cfg = self.config
         self.I, self.X_obs_discret = preprocess.discretize(
             self.ts_obs, self.X_obs, discretization
@@ -169,17 +197,20 @@ class MAGI_v2:
         )
         timings["kernel_matrices"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.thetas_init, _ = fit_theta_fully_observed(
-            self.f_vec,
-            self._f64(self.I),
-            self._f64(self.Xhat_init),
-            self._f64(self.mu_ds),
-            self._f64(self.m_ds),
-            self._f64(self.K_d_invs),
-            self.D_thetas,
-            learning_rate=cfg.init_learning_rate,
-            num_iters=cfg.init_num_iters,
-        )
+        if thetas_init is None:
+            self.thetas_init, _ = fit_theta_fully_observed(
+                self.f_vec,
+                self._f64(self.I),
+                self._f64(self.Xhat_init),
+                self._f64(self.mu_ds),
+                self._f64(self.m_ds),
+                self._f64(self.K_d_invs),
+                self.D_thetas,
+                learning_rate=cfg.init_learning_rate,
+                num_iters=cfg.init_num_iters,
+            )
+        else:
+            self.thetas_init = thetas_init.copy()
         timings["theta_init"] = time.perf_counter() - t0
         self._apply_band_truncation(verbose)
         t0 = time.perf_counter()
@@ -223,17 +254,23 @@ class MAGI_v2:
                 f"bandsize={self.BANDSIZE} drops {worst:.0%} of the "
                 "precision-operator Frobenius mass (band_truncation "
                 f"attribute: {self.band_truncation}); the truncated "
-                "posterior is a materially different distribution",
+                "posterior is a materially different distribution (the "
+                "JAX package measured a ~10% theta bias on Lorenz "
+                "N_I=1025/b=100 while the exact posterior's mode is at "
+                "truth). Use predict(storage='hybrid') (exact operators, "
+                "banded GN whitening), widen bandsize, coarsen the grid, or "
+                "treat results as approximate.",
                 stacklevel=3,
             )
 
     # ------------------------------------------------------------------
 
-    def _build_sampling_setup(self, reparam: str, storage: str, dtype,
-                              sigma_sqs_LB=None):
-        """(mode, data, sigma_sqs_LB): the float64 factored precisions, the
-        PosteriorData in ``dtype`` and the SamplingMode, all on the
-        config's device."""
+    def _sigma_bounds(self, sigma_sqs_LB, sigma_sqs_fixed):
+        """(sigma_sqs_LB (D,), sig_fix64 or None, sigma_pre_fix or None):
+        the noise-variance lower bound, and with ``sigma_sqs_fixed`` the
+        known variances and their softplus pre-images. The bound is kept
+        strictly below the known values so that the bijection
+        sigma^2 = softplus(pre) + LB can represent them."""
         if sigma_sqs_LB is None:
             sigma_sqs_LB = (
                 self.Xhat_init.std(axis=0) * self.config.sigma_sq_lb_scale
@@ -241,29 +278,118 @@ class MAGI_v2:
         sigma_sqs_LB = np.broadcast_to(
             np.asarray(sigma_sqs_LB, np.float64), (self.D,)
         ).copy()
-        dev = self.config.torch_device
-        R64 = sym_sqrt(self._f64(self.C_d_invs))
-        S64 = sym_sqrt(self._f64(self.K_d_invs))
-        data = make_posterior_data(
-            self.I, self.C_d_invs, self.m_ds, self.K_d_invs, self.mu_ds,
-            self.beta, self.obs_index, sigma_sqs_LB, dtype,
-            C_inv_sqrts=R64, K_inv_sqrts=S64, device=dev,
+        if sigma_sqs_fixed is None:
+            return sigma_sqs_LB, None, None
+        sig_fix64 = np.broadcast_to(
+            np.asarray(sigma_sqs_fixed, np.float64), (self.D,)
         )
+        if not np.all(np.isfinite(sig_fix64)) or np.any(sig_fix64 <= 0):
+            raise ValueError(
+                "sigma_sqs_fixed must be finite and > 0 (a zero or negative "
+                "known variance makes the softplus bijection pre-image -inf "
+                f"and NaNs every energy); got {sig_fix64!r}"
+            )
+        sigma_sqs_LB = np.minimum(sigma_sqs_LB, 0.5 * sig_fix64)
+        return (sigma_sqs_LB, sig_fix64,
+                np.log(np.expm1(sig_fix64 - sigma_sqs_LB)))
+
+    def _gn_anchor(self, gn_anchor):
+        """Validated natural-coordinate (X, thetas) anchor, or None."""
+        if gn_anchor is None:
+            return None
+        unknown = set(gn_anchor) - {"X", "thetas"}
+        if unknown:
+            raise ValueError(
+                f"gn_anchor has unknown keys {sorted(unknown)}; expected "
+                "{'X', 'thetas'}"
+            )
+        aX = np.asarray(gn_anchor.get("X", self.Xhat_init), np.float64)
+        ath = np.asarray(gn_anchor.get("thetas", self.thetas_init),
+                         np.float64)
+        if aX.shape != (self.mag_I, self.D):
+            raise ValueError(
+                f"gn_anchor['X'] has shape {aX.shape}; expected "
+                f"{(self.mag_I, self.D)}"
+            )
+        if ath.shape != (self.D_thetas,):
+            raise ValueError(
+                f"gn_anchor['thetas'] has shape {ath.shape}; expected "
+                f"{(self.D_thetas,)}"
+            )
+        if np.any(np.isnan(aX)) or np.any(np.isnan(ath)):
+            raise ValueError("gn_anchor contains NaNs")
+        return aX, ath
+
+    def _build_sampling_setup(self, reparam: str, storage: str, dtype,
+                              sigma_sqs_LB=None, sigma_sqs_fixed=None,
+                              gn_anchor=None):
+        """(mode, data, sigma_sqs_LB): the float64 factored precisions, the
+        dense or banded posterior data in ``dtype`` and the SamplingMode,
+        all on the config's device.
+
+        storage="hybrid" evaluates the posterior through the exact
+        (untruncated) operators, rebuilt when initial_fit truncated them,
+        and whitens with the banded GN factor; "banded" stores the
+        band-truncated operators and their band-truncated square roots in
+        block-banded form; "dense" uses the model's operators as they are."""
+        sigma_sqs_LB, _, pre_fix = self._sigma_bounds(sigma_sqs_LB,
+                                                      sigma_sqs_fixed)
+        if storage not in ("dense", "banded", "hybrid"):
+            raise ValueError(f"unknown storage mode {storage!r}")
+        if storage != "dense" and self.BANDSIZE is None:
+            raise ValueError(
+                f"storage={storage!r} requires a bandsize: the banded GN "
+                "whitening factor is built at the model's bandsize"
+                + (" (the posterior itself evaluates untruncated)"
+                   if storage == "hybrid" else "")
+            )
+        if storage == "hybrid":
+            C_ops, m_ops, K_ops = self._exact_operators()
+        else:
+            C_ops, m_ops, K_ops = self.C_d_invs, self.m_ds, self.K_d_invs
+        dev = self.config.torch_device
+        # R = C^{-1/2}, S = K^{-1/2} in float64 (negative eigenvalues, which
+        # band truncation can leave, clamp to 0)
+        R64 = sym_sqrt(self._f64(C_ops))
+        S64 = sym_sqrt(self._f64(K_ops))
+        data = make_posterior_data(
+            self.I, C_ops, m_ops, K_ops, self.mu_ds, self.beta,
+            self.obs_index, sigma_sqs_LB, dtype,
+            C_inv_sqrts=R64 if storage != "banded" else None,
+            K_inv_sqrts=S64 if storage != "banded" else None, device=dev,
+        )
+        if storage == "banded":
+            data = to_banded_data(data, self.BANDSIZE, C_inv_sqrts_f64=R64,
+                                  K_inv_sqrts_f64=S64)
         mode = build_sampling_mode(self, data, reparam, storage, dtype, R64,
-                                   S64)
+                                   S64, sig_pre_fix=pre_fix,
+                                   anchor=self._gn_anchor(gn_anchor))
         return mode, data, sigma_sqs_LB
 
-    def _dense_tail_size(self, mass_matrix: str) -> int:
-        """Map the ``mass_matrix`` mode to SamplerConfig.dense_tail_size
-        (without sigma pinning, which is not ported)."""
+    def _dense_tail_size(self, mass_matrix: str, sigma_sqs_fixed=None) -> int:
+        """Map the ``mass_matrix`` mode to SamplerConfig.dense_tail_size.
+        "tail_dense" covers the (sigma_pre, theta_pre) block, theta_pre only
+        when sigma is pinned: pinned coordinates carry no potential and
+        random-walk ballistically, so their moments would pollute a dense
+        block. "dense" covers the whole flat state and excludes pinning."""
         full_dim = self.mag_I * self.D + self.D + self.D_thetas
         if mass_matrix == "auto":
-            mass_matrix = "dense" if full_dim <= 1024 else "tail_dense"
+            mass_matrix = ("dense" if sigma_sqs_fixed is None
+                           and full_dim <= 1024 else "tail_dense")
         if mass_matrix == "diag":
             return 0
         if mass_matrix == "tail_dense":
-            return self.D + self.D_thetas
+            return (self.D_thetas if sigma_sqs_fixed is not None
+                    else self.D + self.D_thetas)
         if mass_matrix == "dense":
+            if sigma_sqs_fixed is not None:
+                raise ValueError(
+                    "mass_matrix='dense' with sigma_sqs_fixed is not "
+                    "supported: the pinned sigma coordinates random-walk "
+                    "ballistically and their sample moments are "
+                    "meaningless; use mass_matrix='tail_dense' (theta "
+                    "block only) instead"
+                )
             return full_dim
         raise ValueError(
             f"unknown mass_matrix {mass_matrix!r}; expected 'auto', "
@@ -311,20 +437,22 @@ class MAGI_v2:
     ):
         """Sample the posterior; same arguments and results dict as
         magi_v2_tpu.MAGI_v2.predict. Ported: ``algorithm="hmc"`` with
-        ``reparam="precond"``, ``storage="dense"``; the other values raise
-        NotImplementedError. With num_chains > 1 the ``*_samps`` arrays
-        carry a chain axis at position 1."""
+        ``reparam="precond"`` and ``storage`` "dense", "hybrid" (banded GN
+        whitening around the exact operators: the accurate dense-grid
+        mode) or "banded" (every operator O(N_I * bandsize); the target is
+        the band-truncated posterior), ``sigma_sqs_fixed`` (known noise
+        variances, pinned) and ``gn_anchor`` (banded/hybrid only); the
+        other values raise NotImplementedError. With num_chains > 1 the
+        ``*_samps`` arrays carry a chain axis at position 1."""
         if algorithm != "hmc":
             raise _not_ported(f"algorithm={algorithm!r} (NUTS)", "7")
-        if reparam != "precond" or storage != "dense":
-            raise _not_ported(f"reparam={reparam!r}, storage={storage!r}",
-                              "9/10")
-        if sigma_sqs_fixed is not None:
-            raise _not_ported("sigma_sqs_fixed", "9")
+        if reparam != "precond":
+            raise _not_ported(f"reparam={reparam!r}", "9")
         if init_states is not None:
             raise _not_ported("init_states", "9")
-        if gn_anchor is not None or precond_refresh_steps:
-            raise _not_ported("gn_anchor / precond_refresh_steps", "10")
+        if precond_refresh_steps:
+            raise _not_ported("precond_refresh_steps (its restarts need "
+                              "map_estimate, item 11)", "10")
         if map_warmstart_iters:
             raise _not_ported("map_warmstart_iters", "11")
         if pt_betas:
@@ -349,8 +477,12 @@ class MAGI_v2:
 
         cfg = self.config
         dtype, dev = cfg.dtype, cfg.torch_device
+        sig_fix64, sigma_pre_fix = self._sigma_bounds(sigma_sqs_LB,
+                                                      sigma_sqs_fixed)[1:]
+        dense_tail_size = self._dense_tail_size(mass_matrix, sigma_sqs_fixed)
         mode, data, sigma_sqs_LB = self._build_sampling_setup(
-            reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB
+            reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB,
+            sigma_sqs_fixed=sigma_sqs_fixed, gn_anchor=gn_anchor,
         )
 
         def pre_init(vals, lower):
@@ -359,7 +491,8 @@ class MAGI_v2:
             out[above] = _np_softplus_inverse(vals[above] - lower[above])
             return out
 
-        sigma_pre0 = pre_init(self.sigma_sqs_init, sigma_sqs_LB)
+        sigma_pre0 = (sigma_pre_fix.copy() if sigma_sqs_fixed is not None
+                      else pre_init(self.sigma_sqs_init, sigma_sqs_LB))
         theta_pre0 = pre_init(self.thetas_init,
                               np.zeros_like(self.thetas_init))
         q0 = flatten_state(
@@ -391,7 +524,7 @@ class MAGI_v2:
                             if verbose else 0),
             thin=thin,
             hmc_num_leapfrogs=hmc_num_leapfrogs,
-            dense_tail_size=self._dense_tail_size(mass_matrix),
+            dense_tail_size=dense_tail_size,
             dense_shrinkage=dense_shrinkage,
             **({} if mass_window is None else {
                 "mass_window_begin": float(mass_window[0]),
@@ -419,7 +552,12 @@ class MAGI_v2:
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             return a[:, 0] if squeeze else a
 
-        sigma_sqs_samps = _np_softplus(host(sigma_pre)) + sigma_sqs_LB
+        if sigma_sqs_fixed is not None:
+            # the pinned coordinates random-walk; report the known values
+            sigma_sqs_samps = np.broadcast_to(
+                sig_fix64, host(sigma_pre).shape).copy()
+        else:
+            sigma_sqs_samps = _np_softplus(host(sigma_pre)) + sigma_sqs_LB
         thetas_samps = _np_softplus(host(theta_pre))
         samples_np = samples.cpu().numpy()
         return {

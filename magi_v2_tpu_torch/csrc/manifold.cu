@@ -19,7 +19,7 @@
 //                    beside g_Rd for the stacked [R^T | -m^T] product
 //
 // What bounds it on the card: latency and launch count, not bandwidth or
-// flops. At the bench shapes (256 chains, N_I = 161, D = 3) each kernel
+// flops. At the SEIR bench shapes (256 chains, N_I = 161, D = 3) each kernel
 // moves 1-3 MB and does O(10) flops per element, which the H100 streams
 // in under a microsecond; measured device time is 3-6 us per kernel
 // (torch.profiler, H100 SXM), so a kernel is dominated by its launch and
@@ -126,6 +126,35 @@ struct Seir {
     gth[0] = g[0] * S * I;
     gth[1] = (g[2] - g[1]) * I;
     gth[2] = (g[1] - g[0]) * E;
+  }
+};
+
+// Lorenz (magi_v2_tpu/models/odes.py:lorenz_f_vec): x = (x, y, z),
+// theta = (sigma, rho, beta).
+struct Lorenz {
+  static constexpr int D = 3;
+  static constexpr int P = 3;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    out[0] = th[0] * (x[1] - x[0]);
+    out[1] = x[0] * (th[1] - x[2]) - x[1];
+    out[2] = x[0] * x[1] - th[2] * x[2];
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    gx[0] = -th[0] * g[0] + (th[1] - x[2]) * g[1] + x[1] * g[2];
+    gx[1] = th[0] * g[0] - g[1] + x[0] * g[2];
+    gx[2] = -x[0] * g[1] - th[2] * g[2];
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    gth[0] = g[0] * (x[1] - x[0]);
+    gth[1] = g[1] * x[0];
+    gth[2] = -g[2] * x[2];
   }
 };
 
@@ -314,3 +343,5 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
 
 MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, float, f32)
 MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, double, f64)

@@ -6,7 +6,7 @@ the JAX package. The port's fields also broadcast over leading batch axes —
 all chains in one call.
 
 ``OdeModel.cuda_model`` names the model functor in the hand-written CUDA
-kernels (csrc/manifold_seir.cu); the fused sampler path needs one.
+kernels (csrc/manifold.cu); the fused sampler path needs one.
 """
 
 from __future__ import annotations
@@ -35,6 +35,21 @@ def seir_f_vec(t, X, thetas):
     )
 
 
+def lorenz_f_vec(t, X, thetas):
+    """Lorenz system, X = (x, y, z), thetas = (sigma, rho, beta):
+        dx/dt = sigma * (y - x)
+        dy/dt = x * (rho - z) - y
+        dz/dt = x*y - beta*z
+    """
+    x, y, z = X[..., 0:1], X[..., 1:2], X[..., 2:3]
+    sigma = thetas[..., None, 0:1]
+    rho = thetas[..., None, 1:2]
+    beta = thetas[..., None, 2:3]
+    return torch.cat(
+        [sigma * (y - x), x * (rho - z) - y, x * y - beta * z], dim=-1
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class OdeModel:
     name: str
@@ -56,6 +71,15 @@ MODEL_REGISTRY = {
         theta_names=("beta", "gamma", "sigma"),
         true_thetas=(6.0, 0.6, 1.8),
         cuda_model="seir",
+    ),
+    "lorenz": OdeModel(
+        name="lorenz",
+        f_vec=lorenz_f_vec,
+        D=3,
+        D_thetas=3,
+        theta_names=("sigma", "rho", "beta"),
+        true_thetas=(10.0, 28.0, 8.0 / 3.0),
+        cuda_model="lorenz",
     ),
 }
 

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 The sources under ``magi_v2_tpu_torch/csrc/`` have a plain C interface. At
-first use they are compiled with ``nvcc`` for Hopper (sm_90a) into a shared
-library under ``magi_v2_tpu_torch/_build/``, named by a hash of the sources
-and flags (so an edited source builds anew), and loaded with ``ctypes``.
-Nothing is built when a module is imported, and nothing is built on a
-machine that never launches a kernel.
+first use each is compiled with ``nvcc`` for Hopper (sm_90a) into its own
+shared library under ``magi_v2_tpu_torch/_build/``, named by a hash of the
+source and flags (so an edited source builds anew), all sources at once in
+parallel processes, and loaded with ``ctypes``. Nothing is built when a
+module is imported, and nothing is built on a machine that never launches
+a kernel.
 """
 
 from __future__ import annotations
@@ -22,19 +23,23 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("manifold_seir.cu",)
+SOURCES = ("manifold.cu", "banded.cu", "leapfrog.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C signatures of the entry points, by kernel (pointers and stream are
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
+# C signatures of the entry points, by family (pointers and stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
-    "fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 3 + [_P],
-    "energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 2 + [_P],
-    "bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_P],
+    "manifold_fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 3 + [_P],
+    "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 2 + [_P],
+    "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_P],
+    "banded_matvec": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_D, _I] + [_P],
+    "banded_solve": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],
+    "leapfrog_update": [_P] * 7 + [_I] * 5 + [_P] + [_P],
 }
 
 
@@ -51,47 +56,64 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+def _digest(source: str) -> str:
+    h = hashlib.sha256((CSRC / source).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 class KernelLibrary:
-    """The loaded shared library, its build time and the compiler's log."""
+    """The loaded shared libraries, the build's wall time and the
+    compiler's log of each source built in this process."""
 
-    def __init__(self, path: Path, build_seconds: float, log: str):
-        self.path = path
+    def __init__(self, paths, build_seconds: float, logs: dict):
+        self.paths = list(paths)
         self.build_seconds = build_seconds
-        self.log = log
-        self.lib = ctypes.CDLL(str(path))
+        self.logs = logs
+        self.libs = [ctypes.CDLL(str(p)) for p in self.paths]
 
-    def entry(self, kernel: str, model: str, dtype_suffix: str):
-        fn = getattr(self.lib, f"magi_manifold_{kernel}_{model}_{dtype_suffix}")
-        fn.argtypes = SIGNATURES[kernel]
-        fn.restype = ctypes.c_int
-        return fn
+    @property
+    def log(self) -> str:
+        return "\n".join(self.logs.values())
+
+    def entry(self, symbol: str, family: str):
+        """The C entry point ``symbol`` with the signature of ``family``."""
+        for lib in self.libs:
+            try:
+                fn = getattr(lib, symbol)
+            except AttributeError:
+                continue
+            fn.argtypes = SIGNATURES[family]
+            fn.restype = ctypes.c_int
+            return fn
+        raise AttributeError(f"no kernel entry point {symbol}")
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> KernelLibrary:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile each source (once per source hash), all in parallel, and
+    load the libraries."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libmagi_manifold_{_digest()}.so"
-    log = ""
     t0 = time.perf_counter()
-    if not out.exists():
+    outs = [BUILD_DIR / f"lib{Path(s).stem}_{_digest(s)}.so" for s in SOURCES]
+    nvcc = _nvcc()
+    procs = {}
+    for src, out in zip(SOURCES, outs):
+        if out.exists():
+            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stderr}"
-            )
-        log = res.stderr
-        os.replace(tmp, out)
-    return KernelLibrary(out, time.perf_counter() - t0, log)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = {}, []
+    for src, (cmd, tmp, out, proc) in procs.items():
+        _, err = proc.communicate()
+        logs[src] = err
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return KernelLibrary(outs, time.perf_counter() - t0, logs)

@@ -15,7 +15,7 @@ them is three kernels, each here as a wrapper:
 
 Each wrapper checks its arguments, takes the plain version (``*_plain``)
 for tensors on the CPU, and on a CUDA tensor launches the hand-written
-kernel of csrc/manifold_seir.cu or raises: there is no fallback on the card.
+kernel of csrc/manifold.cu or raises: there is no fallback on the card.
 ``LAUNCH_COUNTS`` counts kernel launches only.
 
 Layouts: delta (C, D, N); RmD, gcat (D, C, 2N); dr, Ds, gDs, gdr, gpart
@@ -150,7 +150,7 @@ def _entry(kernel, f_vec, dtype):
     if model is None:
         raise NotImplementedError(
             "no CUDA manifold kernel is registered for this ODE model "
-            "(OdeModel.cuda_model); only SEIR is ported"
+            "(OdeModel.cuda_model); SEIR and Lorenz are ported"
         )
     if dtype == torch.float32:
         suffix = "f32"
@@ -159,7 +159,7 @@ def _entry(kernel, f_vec, dtype):
     else:
         raise TypeError(f"manifold kernels take float32 or float64, not {dtype}")
     fn = _ENTRIES[(kernel, f_vec, dtype)] = load_library().entry(
-        kernel, model, suffix)
+        f"magi_manifold_{kernel}_{model}_{suffix}", f"manifold_{kernel}")
     return fn
 
 

@@ -1,5 +1,5 @@
 """The tempered MAGI log-posterior in PyTorch (counterpart of
-magi_v2_tpu/posterior.py, dense storage only).
+magi_v2_tpu/posterior.py; ``log_posterior`` itself is not ported).
 
     log p ∝ beta_temp * [ -1/2 ( (1/beta)(t1 + t2) + t3 + t4 )
                           + logJac(sigma^2) + logJac(theta) ]
@@ -94,6 +94,66 @@ def make_posterior_data(
     )
 
 
+class BandedPosteriorData(NamedTuple):
+    """PosteriorData with the operators in block-banded storage
+    (D, nb, nw, 128, 128) (ops/banded.py), for the O(N_I*b) large-grid
+    target (storage="banded"). The JAX type's C_blocks serves only the
+    centered log_posterior, which is not ported."""
+
+    I: torch.Tensor
+    m_blocks: torch.Tensor     # (D, nb, nw, T, T)
+    K_blocks: torch.Tensor
+    mu_ds: torch.Tensor
+    beta: torch.Tensor
+    N_ds: torch.Tensor
+    not_nan_idxs: torch.Tensor
+    not_nan_cols: torch.Tensor
+    y_observed: torch.Tensor
+    sigma_sqs_LB: torch.Tensor
+    # band truncations of the float64 square roots R = C^{-1/2},
+    # S = K^{-1/2}: t1/t2 evaluate as ||band(R) x||^2, ||band(S) r||^2
+    C_sqrt_blocks: torch.Tensor = None
+    K_sqrt_blocks: torch.Tensor = None
+
+
+def to_banded_data(data: PosteriorData, bandwidth: int, C_inv_sqrts_f64=None,
+                   K_inv_sqrts_f64=None) -> BandedPosteriorData:
+    """Dense PosteriorData -> block-banded storage at half-bandwidth b.
+
+    With the float64 square roots of the (band-truncated) operators, their
+    band truncations are stored too, so the quadratic forms evaluate in the
+    factored float32-safe form (the JAX function says why a banded Cholesky
+    of the truncated operators is not an option)."""
+    from magi_v2_tpu_torch.ops.banded import banded_to_blocks, dense_to_banded
+
+    def to_blocks(A, b=bandwidth):
+        return banded_to_blocks(dense_to_banded(A, b))
+
+    def factor_blocks(S_f64):
+        # float64 band of the factor (the band clamped to the matrix, as the
+        # JAX package's host conversion does), cast after the gather
+        if S_f64 is None:
+            return None
+        S_f64 = _f64(S_f64, data.I.device)
+        return to_blocks(S_f64, min(bandwidth, S_f64.shape[-1] - 1)).to(
+            data.I.dtype)
+
+    return BandedPosteriorData(
+        I=data.I,
+        m_blocks=to_blocks(data.m_ds),
+        K_blocks=to_blocks(data.K_invs),
+        mu_ds=data.mu_ds,
+        beta=data.beta,
+        N_ds=data.N_ds,
+        not_nan_idxs=data.not_nan_idxs,
+        not_nan_cols=data.not_nan_cols,
+        y_observed=data.y_observed,
+        sigma_sqs_LB=data.sigma_sqs_LB,
+        C_sqrt_blocks=factor_blocks(C_inv_sqrts_f64),
+        K_sqrt_blocks=factor_blocks(K_inv_sqrts_f64),
+    )
+
+
 def softplus(x):
     return F.softplus(x)
 
@@ -115,8 +175,9 @@ def log_posterior_given_t1(
     ref: RefPoint = None,
     delta=None,
 ):
-    """Tempered log-posterior with the GP-prior quadratic ``t1`` supplied
-    (dense storage). Leading batch axes are allowed: X (..., N, D),
+    """Tempered log-posterior with the GP-prior quadratic ``t1`` supplied,
+    for dense ``PosteriorData`` or ``BandedPosteriorData`` (whose matvecs
+    go through ops/banded.py). Leading batch axes are allowed: X (..., N, D),
     sigma_sqs_pre (..., D), thetas_pre (..., D_thetas), t1 (...).
 
     With ``ref``, t2 is evaluated relative to the reference point and the
@@ -130,15 +191,33 @@ def log_posterior_given_t1(
         beta_temp = beta_temp.detach()
 
     f_vals = f_vec(data.I, X, thetas).transpose(-1, -2)       # (..., D, N)
+    banded = isinstance(data, BandedPosteriorData)
+    if banded:
+        from magi_v2_tpu_torch.ops.banded import block_banded_matvec
     if ref is not None:
-        if data.K_inv_sqrts is None:
-            raise ValueError("relative t2 needs K_inv_sqrts")
         delta = (X - ref.x0) if delta is None else delta
         delta = delta.transpose(-1, -2)
-        dr = (f_vals - ref.f0) - torch.einsum("dnm,...dm->...dn",
-                                              data.m_ds, delta)
-        Ds = torch.einsum("dnm,...dm->...dn", data.K_inv_sqrts, dr)
+        if banded:
+            if data.K_sqrt_blocks is None:
+                raise ValueError("relative t2 needs the banded sqrt factors")
+            dr = (f_vals - ref.f0) - block_banded_matvec(data.m_blocks, delta)
+            Ds = block_banded_matvec(data.K_sqrt_blocks, dr)
+        else:
+            if data.K_inv_sqrts is None:
+                raise ValueError("relative t2 needs K_inv_sqrts")
+            dr = (f_vals - ref.f0) - torch.einsum("dnm,...dm->...dn",
+                                                  data.m_ds, delta)
+            Ds = torch.einsum("dnm,...dm->...dn", data.K_inv_sqrts, dr)
         t2 = torch.sum(Ds * (Ds + 2.0 * ref.s0), dim=(-2, -1))
+    elif banded:
+        X_cent = (X - data.mu_ds).transpose(-1, -2)
+        resid = f_vals - block_banded_matvec(data.m_blocks, X_cent)
+        if data.K_sqrt_blocks is not None:
+            t2 = torch.sum(block_banded_matvec(data.K_sqrt_blocks, resid) ** 2,
+                           dim=(-2, -1))
+        else:
+            t2 = torch.sum(resid * block_banded_matvec(data.K_blocks, resid),
+                           dim=(-2, -1))
     else:
         X_cent = (X - data.mu_ds).transpose(-1, -2)
         resid = f_vals - torch.einsum("dnm,...dm->...dn", data.m_ds, X_cent)

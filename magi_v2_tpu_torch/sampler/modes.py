@@ -1,84 +1,238 @@
-"""Sampler coordinate system for MAGI_v2.predict() (counterpart of
-magi_v2_tpu/sampler/modes.py, ``reparam="precond"`` with ``storage="dense"``
-only): full-state Gauss-Newton whitening z = L^{-1}(x - mu) around a
-float64 relative-energy zero point. The map is linear and fixed, so the
-posterior over X is the same as in centered coordinates.
+"""Sampler coordinate systems for MAGI_v2.predict() (counterpart of
+magi_v2_tpu/sampler/modes.py, ``reparam="precond"``): Gauss-Newton
+whitening around a float64 relative-energy zero point, with
 
-The other modes (centered, GP-prior whitened, banded, hybrid), sigma
-pinning and user-supplied initial states are ROADMAP.md queue 1 items 9
-and 10.
+- ``storage="dense"``: z = L^{-1}(x - mu), L from a dense (ND, ND) eigh;
+- ``storage="hybrid"``: z = U (x - mu), U the banded GN Cholesky factor,
+  around the EXACT dense operators (truncation touches the preconditioner
+  only); the accurate dense-grid mode;
+- ``storage="banded"``: the same whitening around the band-truncated
+  operators, every per-leapfrog product O(ND * b) (the target itself is
+  the band-truncated posterior).
+
+Each map is linear and fixed, so the posterior over X is the same in all
+of them. Known-sigma pinning (``sigma_sqs_fixed``) is applied here, inside
+``build_sampling_mode``. The centered and GP-prior whitened modes,
+user-supplied initial states and the mid-warmup re-anchoring
+(``precond_refresh_steps``) are ROADMAP.md queue 1 items 9 to 11.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from magi_v2_tpu_torch.ops.banded import UpperFactor, banded_solve
+
+# grid size from which float32 sampling in dense storage warns (the JAX
+# package measured its step size collapsing at N_I ~ 1k)
+DENSE_FLOAT32_WARN_N_I = 768
+
+
+class PinnedSigma:
+    """A fused target with the sigma_pre block pinned at known values (the
+    original magi package's useFixedSigma): the fixed values are
+    substituted and their gradient zeroed, so the coordinates carry no
+    potential. Under leapfrog a zero-force coordinate keeps its momentum,
+    so acceptance is that of a sampler without them. Works on a copy of
+    the chain states, which stays contiguous for the kernels."""
+
+    def __init__(self, logp_grad, sig_pre_fix, N_I: int, D: int):
+        self.logp_grad, self.sig_pre_fix = logp_grad, sig_pre_fix
+        self.N_I, self.D = N_I, D
+
+    def __call__(self, q, beta_temp):
+        lo, hi = self.N_I * self.D, (self.N_I + 1) * self.D
+        qf = q.clone()
+        qf[..., lo:hi] = self.sig_pre_fix
+        v, g = self.logp_grad(qf, beta_temp)
+        g[..., lo:hi] = 0.0
+        return v, g
+
+    def to(self, device) -> "PinnedSigma":
+        return PinnedSigma(self.logp_grad.to(device),
+                           self.sig_pre_fix.to(device), self.N_I, self.D)
+
+
+def pin_sigma_coordinates(logp_grad, sig_pre_fix, N_I: int, D: int):
+    """``logp_grad`` with the sigma_pre block pinned (see PinnedSigma)."""
+    return PinnedSigma(logp_grad, sig_pre_fix, N_I, D)
 
 
 @dataclass
 class SamplingMode:
     """The fused target and the coordinate maps predict() needs around it.
 
-    - ``logp_grad(q (C, dim), beta_temp) -> (logp (C,), grad (C, dim))``;
+    - ``logp_grad(q (C, dim), beta_temp) -> (logp (C,), grad (C, dim))``,
+      sigma pinning (if any) applied;
     - ``X0`` — initial X-block coordinates (N_I, D) in the sampling dtype;
-    - ``factor`` — L, mapping z draws back to trajectories x = mu + L z.
+    - ``factor`` — maps z draws back to trajectories: L (x = mu + L z) in
+      dense storage, an ``UpperFactor`` U (x = mu + U^{-1} z) otherwise;
+    - ``gn`` — the banded-GN parts (U_blocks, U_dinv, factor, ref, z0,
+      z064, info), or None.
     """
 
     reparam: str
     storage: str
     logp_grad: Callable
     X0: torch.Tensor
-    factor: torch.Tensor
+    factor: object
+    gn: Optional[dict] = None
 
 
-def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
-                        S64) -> SamplingMode:
-    """Construct the SamplingMode of a fitted port model. ``data`` is the
-    PosteriorData predict() built; R64/S64 the float64 clamped square roots
-    of C^{-1}/K^{-1} on the model's device."""
-    if reparam != "precond" or storage != "dense":
-        raise NotImplementedError(
-            f"reparam={reparam!r}, storage={storage!r} is not ported; only "
-            "reparam='precond' with storage='dense' is (ROADMAP.md queue 1 "
-            "items 9 and 10)"
-        )
+def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
+                           exact: bool):
+    """(logp_grad, parts) with the GN factor, the relative-energy zero
+    point and the whitening all anchored at (X, theta).
+
+    ``exact=False`` (storage "banded"): the target evaluates through the
+    band-truncated factored operators and the zero point is built from the
+    same band-truncated factors. ``exact=True`` (storage "hybrid"): the
+    target and the zero point use the exact operators (R64/S64 are then
+    the untruncated factors); only the GN factor is banded."""
+    from magi_v2_tpu_torch.ops.banded import (
+        banded_diag_tile_inverses,
+        banded_to_blocks_upper,
+    )
     from magi_v2_tpu_torch.posterior import make_ref_point
     from magi_v2_tpu_torch.sampler.precond import (
-        build_gn_whitening,
-        make_tempered_logp_grad_gn,
-        whiten_X_full,
+        build_gn_cholesky_banded,
+        make_tempered_logp_grad_gn_banded,
+        make_tempered_logp_grad_gn_hybrid,
+        whiten_X_banded,
     )
 
     dev = model.config.torch_device
-    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
-    L64, L_inv64 = build_gn_whitening(model, R64, S64)
-    ref = make_ref_point(
-        model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
-        model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                    dtype=torch.float64, device=dev)
+    N, D = model.mag_I, model.D
+    U_band, gn_info = build_gn_cholesky_banded(
+        model, C_inv_sqrts=R64, K_inv_sqrts=S64, at_X=anchor_X,
+        at_thetas=anchor_th,
     )
-    z064 = whiten_X_full(f64(model.Xhat_init), f64(model.mu_ds), L_inv64)
-    L = L64.to(dtype)
-    logp_grad = make_tempered_logp_grad_gn(
-        data, model.f_vec, L, model.mag_I, model.D, model.D_thetas,
-        ref=ref, z0=z064.reshape(-1).to(dtype),
-    )
+    U_blocks64 = banded_to_blocks_upper(f64(U_band))
+    # diagonal-tile inverses in float64, cast afterwards (see
+    # banded_diag_tile_inverses)
+    U_dinv64 = banded_diag_tile_inverses(U_blocks64, N * D)
+    if exact:
+        m_ref = (model._exact_operators()[1] if model.BANDSIZE is not None
+                 else model.m_ds)
+        R_ref, S_ref = R64, S64
+    else:
+        i = torch.arange(N, device=dev)
+        in_band = ((i[:, None] - i[None, :]).abs() <= model.BANDSIZE)[None]
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        R_ref = torch.where(in_band, R64, zero)
+        S_ref = torch.where(in_band, S64, zero)
+        m_ref = model.m_ds
+    ref = make_ref_point(model.I, anchor_X, model.mu_ds, anchor_th,
+                         model.f_vec, R_ref, S_ref, m_ref, dtype, device=dev)
+    z064 = whiten_X_banded(f64(anchor_X), f64(model.mu_ds), U_blocks64)
+    U_blocks, U_dinv = U_blocks64.to(dtype), U_dinv64.to(dtype)
+    z0 = z064.reshape(-1).to(dtype)
+    maker = (make_tempered_logp_grad_gn_hybrid if exact
+             else make_tempered_logp_grad_gn_banded)
+    lp = maker(data, model.f_vec, U_blocks, N, D, model.D_thetas,
+               diag_inv=U_dinv, ref=ref, z0=z0)
+    return lp, {"U_blocks": U_blocks, "U_dinv": U_dinv,
+                "factor": lp.whitening.factor, "ref": ref, "z0": z0,
+                "z064": z064, "info": gn_info}
+
+
+def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
+                        S64, sig_pre_fix=None, anchor=None) -> SamplingMode:
+    """Construct the SamplingMode of a fitted port model. ``data`` is the
+    (dense or banded) posterior data predict() built; R64/S64 the float64
+    clamped square roots of C^{-1}/K^{-1} on the model's device;
+    ``sig_pre_fix`` the pre-space pinned sigma values (or None);
+    ``anchor`` an optional natural-coordinate (X (N_I, D), thetas) point
+    for the banded/hybrid GN factor and zero point (predict's
+    ``gn_anchor``), instead of (Xhat_init, thetas_init)."""
+    if reparam != "precond" or storage not in ("dense", "banded", "hybrid"):
+        raise NotImplementedError(
+            f"reparam={reparam!r}, storage={storage!r} is not ported; only "
+            "reparam='precond' with storage 'dense', 'banded' or 'hybrid' "
+            "is (ROADMAP.md queue 1 item 9)"
+        )
+    if anchor is not None and storage == "dense":
+        raise ValueError(
+            "anchor= (predict gn_anchor=) is supported for the banded-GN "
+            "modes only (reparam='precond', storage='banded'/'hybrid') — "
+            f"got reparam={reparam!r}, storage={storage!r}"
+        )
+    dev = model.config.torch_device
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                    dtype=torch.float64, device=dev)
+
+    if storage in ("banded", "hybrid"):
+        anchor_X, anchor_th = ((model.Xhat_init, model.thetas_init)
+                               if anchor is None else anchor)
+        logp_grad, gn = _build_banded_gn_parts(
+            model, data, dtype, R64, S64, np.asarray(anchor_X, np.float64),
+            np.asarray(anchor_th, np.float64), exact=storage == "hybrid",
+        )
+        factor = gn["factor"]
+        X0 = gn["z064"].to(dtype)
+    else:
+        if dtype == torch.float32 and model.mag_I >= DENSE_FLOAT32_WARN_N_I:
+            warnings.warn(
+                "storage='dense' with reparam='precond' in float32: the "
+                "JAX package measured a step-size collapse at N_I ~ 1k (a "
+                "high-gradient curvature cliff the GN linearization misses "
+                "at this scale); use storage='hybrid' or 'banded' (the "
+                "large-grid modes, which need a bandsize).",
+                stacklevel=3,
+            )
+        from magi_v2_tpu_torch.posterior import make_ref_point
+        from magi_v2_tpu_torch.sampler.precond import (
+            build_gn_whitening,
+            make_tempered_logp_grad_gn,
+            whiten_X_full,
+        )
+
+        L64, L_inv64 = build_gn_whitening(model, R64, S64)
+        ref = make_ref_point(
+            model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
+            model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
+        )
+        z064 = whiten_X_full(f64(model.Xhat_init), f64(model.mu_ds), L_inv64)
+        factor = L64.to(dtype)
+        logp_grad = make_tempered_logp_grad_gn(
+            data, model.f_vec, factor, model.mag_I, model.D, model.D_thetas,
+            ref=ref, z0=z064.reshape(-1).to(dtype),
+        )
+        gn = None
+        X0 = z064.to(dtype)
+    if sig_pre_fix is not None:
+        logp_grad = pin_sigma_coordinates(
+            logp_grad, torch.as_tensor(np.asarray(sig_pre_fix), dtype=dtype,
+                                       device=dev),
+            model.mag_I, model.D,
+        )
     return SamplingMode(reparam=reparam, storage=storage, logp_grad=logp_grad,
-                        X0=z064.to(dtype), factor=L)
+                        X0=X0, factor=factor, gn=gn)
 
 
 def unwhiten_draws(mode: SamplingMode, Z, mu_ds, max_bytes: int = 1 << 30):
-    """Trajectories X = mu + L z from z draws Z (T, C, N_I, D), as one
-    batched GEMM per chunk of draws, the chunk bounded by ``max_bytes`` of
-    output."""
+    """Trajectories from z draws Z (T, C, N_I, D): X = mu + L z (one
+    batched GEMM per chunk) or X = mu + U^{-1} z (K4 over the chunk's
+    draws and chains), the chunk bounded by ``max_bytes`` of output."""
     T = Z.shape[0]
     per_draw = max(1, Z[0].numel() * Z.element_size())
     chunk = max(1, max_bytes // per_draw)
-    L = mode.factor
     out = torch.empty_like(Z)
     for i in range(0, T, chunk):
         z = Z[i: i + chunk]
-        flat = z.reshape(z.shape[:2] + (-1,))
-        out[i: i + chunk] = (flat @ L.T).reshape(z.shape) + mu_ds
+        if isinstance(mode.factor, UpperFactor):
+            flat = z.reshape(-1, 1, z.shape[-2] * z.shape[-1])
+            x = out[i: i + chunk].view(flat.shape)
+            banded_solve(mode.factor, flat.contiguous(), x)
+            x += mu_ds.repeat(z.shape[-2])
+        else:
+            flat = z.reshape(z.shape[:2] + (-1,))
+            out[i: i + chunk] = (flat @ mode.factor.T).reshape(z.shape) + mu_ds
     return out

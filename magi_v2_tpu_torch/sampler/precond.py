@@ -1,26 +1,45 @@
 """Gauss-Newton posterior preconditioning and the fused sampler target
-(counterpart of magi_v2_tpu/sampler/precond.py, dense storage only).
+(counterpart of magi_v2_tpu/sampler/precond.py).
 
-Setup builds the Gauss-Newton precision of the X block at the init point,
+Setup builds the Gauss-Newton precision of the X block at an anchor point,
 
     Lambda = [ blkdiag_d(C_d^{-1}) + (dr/dX)' blkdiag_d(K_d^{-1}) (dr/dX) ] / beta
              + diag(observed)/sigma^2,
 
-and the sampler works in z = L^{-1}(x - mu) with L = Lambda^{-1/2}, all in
-float64 on the config's device (see the JAX module for the measurements
-behind the design).
+in float64, and the sampler works in whitened coordinates z: dense
+storage z = L^{-1}(x - mu) with L = Lambda^{-1/2} (eigh), banded and
+hybrid storage z = U (x - mu) with Lambda = U'U the banded Cholesky factor
+(host SciPy), unwhitened per leapfrog by the exact block-banded back
+substitution (K4). See the JAX module for the measurements behind the
+design.
 
-``make_tempered_logp_grad_gn`` returns the per-leapfrog target: the tempered
-log-posterior and its gradient for a batch of chains, in the relative-energy
-form around a ``RefPoint``. Its six matrix products are GEMMs with chains as
-the free dimension; the pointwise and per-chain work between them is the
-three K1 kernels of ops/manifold.py.
+``GNTarget`` is the per-leapfrog target of all three storage modes: the
+tempered log-posterior and its gradient for a batch of chains, in the
+relative-energy form around a ``RefPoint``. It is one pipeline with two
+pluggable linear stages around the three K1 kernels of ops/manifold.py:
+
+- the whitening stage, delta = W (z - z0) and its adjoint: a dense GEMM
+  with L (``DenseWhitening``) or the K4 solve with U (``BandedWhitening``);
+- the operator stage, [R; m] delta, S dr and their adjoints: dense batched
+  GEMMs (``DenseOperators``) or K3 on the band-truncated factors
+  (``BandedOperators``).
+
+Dense storage = (L, dense), hybrid = (K4, dense), banded = (K4, K3).
 """
 
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
+from magi_v2_tpu_torch.ops.banded import (
+    BandedMatrix,
+    UpperFactor,
+    banded_matvec,
+    banded_solve,
+    block_banded_matvec_upper,
+)
 from magi_v2_tpu_torch.ops.manifold import (
     manifold_bwd,
     manifold_energy,
@@ -108,39 +127,298 @@ def unwhiten_Z_full(Z, mu_ds, L):
     return xc.reshape(shape) + mu_ds
 
 
+# --------------------------------------------------------------------------
+# banded Gauss-Newton whitening (the O(ND * b) large-grid path)
+# --------------------------------------------------------------------------
+
+
+def gauss_newton_precision_band(
+    C_invs, m_ds, K_invs, beta, obs_mask, sigma_sqs, J, bw: int,
+    comp_bandwidth: int | None = None, C_inv_sqrts=None, K_inv_sqrts=None,
+):
+    """Banded storage (2*bw+1, N*D) of the Gauss-Newton precision Lambda
+    without forming the dense (ND)^2 matrix: sparse products on the host
+    in float64 (NumPy/SciPy in, NumPy out, as the JAX function).
+
+    Index order flat = n*D + d (X.ravel()), the order in which Lambda is
+    banded. With the float64 square roots R, S the precision is assembled
+    from band(R)'band(R) and band(S)'band(S), the exact PSD curvature of
+    the banded target (the raw band-truncated operators are indefinite at
+    dense-grid sizes)."""
+    import scipy.sparse as sp
+
+    C_invs = np.asarray(C_invs, np.float64)
+    m_ds = np.asarray(m_ds, np.float64)
+    J = np.asarray(J, np.float64)
+    D, N = C_invs.shape[0], C_invs.shape[1]
+    ND = N * D
+    b = N - 1 if comp_bandwidth is None else int(min(comp_bandwidth, N - 1))
+
+    def interleaved(mats):
+        """Block diagonal over components in the interleaved order,
+        banded at b."""
+        rows, cols, vals = [], [], []
+        for d in range(D):
+            for k in range(-b, b + 1):
+                diag = np.diagonal(mats[d], offset=k)
+                r = np.arange(N - k) if k >= 0 else np.arange(N + k) - k
+                rows.append(r * D + d)
+                cols.append((r + k) * D + d)
+                vals.append(diag)
+        return sp.csr_matrix(
+            (np.concatenate(vals), (np.concatenate(rows),
+                                    np.concatenate(cols))),
+            shape=(ND, ND),
+        )
+
+    if C_inv_sqrts is not None:
+        Rb = interleaved(np.asarray(C_inv_sqrts, np.float64))
+        C_term = Rb.T @ Rb
+    else:
+        C_term = interleaved(C_invs)
+    if K_inv_sqrts is not None:
+        Sb = interleaved(np.asarray(K_inv_sqrts, np.float64))
+        K_term = Sb.T @ Sb
+    else:
+        K_term = interleaved(np.asarray(K_invs, np.float64))
+
+    # dr/dX = J_blockdiag - m_blockdiag
+    J_sp = sp.bsr_matrix((J, np.arange(N), np.arange(N + 1)),
+                         shape=(ND, ND)).tocsr()
+    Rm = J_sp - interleaved(m_ds)
+    lam = (C_term + Rm.T @ K_term @ Rm) / float(beta)
+    obs_diag = (np.asarray(obs_mask, np.float64)
+                / np.asarray(sigma_sqs, np.float64)[None, :]).ravel()
+    lam = (lam + sp.diags(obs_diag)).tocsr()
+
+    bw = int(min(bw, ND - 1))
+    band = np.zeros((2 * bw + 1, ND), np.float64)
+    for k in range(-bw, bw + 1):
+        diag = lam.diagonal(k)
+        if k >= 0:
+            band[bw + k, : ND - k] = diag
+        else:
+            band[bw + k, -k:] = diag
+    return band
+
+
+def build_gn_cholesky_banded(model, sigma_sqs_init=None,
+                             bw_precision: int | None = None,
+                             C_inv_sqrts=None, K_inv_sqrts=None, at_X=None,
+                             at_thetas=None):
+    """Banded Cholesky factor U of the Gauss-Newton precision Lambda = U'U
+    of a fitted port model, on the host in float64: (U_band, info). The
+    sampler whitens with z = U (x - mu), whose curvature U^{-T} Lambda
+    U^{-1} is the identity; x = mu + U^{-1} z is the exact block-banded
+    back substitution (K4). With the float64 square roots of the operators
+    the precision's bandwidth defaults to its natural 4*D*bandsize (no
+    truncation of Lambda). ``at_X``/``at_thetas`` move the linearization
+    anchor (predict's ``gn_anchor``)."""
+    from magi_v2_tpu_torch.ops.banded_host import banded_cholesky_upper
+
+    N, D = model.mag_I, model.D
+    bsize = model.BANDSIZE if model.BANDSIZE is not None else N - 1
+    if bw_precision is None:
+        if C_inv_sqrts is not None:
+            bw_precision = min(N * D - 1, 4 * D * bsize)
+        else:
+            bw_precision = min(N * D - 1, D * (bsize + 1))
+    host = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                      else a)
+    obs_mask = (~np.isnan(model.X_obs_discret)).astype(np.float64)
+    sigma = model.sigma_sqs_init if sigma_sqs_init is None else sigma_sqs_init
+    X_anchor = model.Xhat_init if at_X is None else np.asarray(at_X)
+    th_anchor = model.thetas_init if at_thetas is None else np.asarray(
+        at_thetas)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                    dtype=torch.float64)
+    J = pointwise_ode_jacobian(model.f_vec, f64(model.I), f64(X_anchor),
+                               f64(th_anchor)).numpy()
+    lam_band = gauss_newton_precision_band(
+        model.C_d_invs, model.m_ds, model.K_d_invs, model.beta, obs_mask,
+        sigma, J, bw_precision, comp_bandwidth=bsize,
+        C_inv_sqrts=host(C_inv_sqrts), K_inv_sqrts=host(K_inv_sqrts),
+    )
+    U_band, jitter = banded_cholesky_upper(lam_band)
+    return U_band, {"jitter": jitter, "bw_precision": int(bw_precision)}
+
+
+def whiten_X_banded(X, mu_ds, U_blocks):
+    """z (N, D) from X (N, D): z = U (X - mu).ravel(), one banded matvec
+    (U_blocks in ``banded_to_blocks_upper`` layout)."""
+    xc = (X - mu_ds[None, :]).reshape(-1)
+    return block_banded_matvec_upper(U_blocks, xc).reshape(X.shape)
+
+
+def unwhiten_Z_banded(Z, mu_ds, factor: UpperFactor):
+    """X (..., N, D) from z (..., N, D): x = mu + U^{-1} z by the exact
+    block-banded back substitution (K4)."""
+    shape = Z.shape
+    zf = Z.reshape(-1, 1, shape[-2] * shape[-1])
+    x = torch.empty_like(zf)
+    banded_solve(factor, zf, x)
+    return x.reshape(shape) + mu_ds
+
+
+# --------------------------------------------------------------------------
+# the fused target
+# --------------------------------------------------------------------------
+
+
+def _to(obj, device):
+    """A copy of ``obj`` (a stage or target) with every tensor, and every
+    member that has ``to``, on ``device``."""
+    out = object.__new__(type(obj))
+    out.__dict__ = {
+        k: (v.to(device) if isinstance(v, torch.Tensor) or hasattr(v, "to")
+            else v)
+        for k, v in obj.__dict__.items()
+    }
+    return out
+
+
+class DenseWhitening:
+    """delta = L (z - z0) as one GEMM, component-major: L's rows are
+    permuted at setup so that delta comes out (C, D, N)."""
+
+    def __init__(self, L, N: int, D: int):
+        self.N, self.D = N, D
+        # perm[d*N + n] = n*D + d: row (d, n) of the component-major factor
+        perm = torch.arange(N * D, device=L.device).reshape(N, D).T.reshape(-1)
+        L_perm = L[perm]
+        self.L_perm = L_perm.contiguous()        # (DN, ND): g_z = g_delta L_perm
+        self.Lt_perm = L_perm.T.contiguous()     # (ND, DN): delta = dz Lt_perm
+
+    def forward(self, dz):
+        return torch.mm(dz, self.Lt_perm).view(dz.shape[0], self.D, self.N)
+
+    def backward(self, g_delta, grad_x):
+        """grad_x (C, ND) <- W' g_delta, g_delta (D, C, N)."""
+        C = grad_x.shape[0]
+        grad_x.copy_(torch.mm(g_delta.transpose(0, 1).reshape(C, -1),
+                              self.L_perm))
+
+    to = _to
+
+
+class BandedWhitening:
+    """delta = U^{-1} (z - z0) by K4; its adjoint U^{-T} by K4's adjoint.
+    U is banded in the interleaved order n*D + d; the permutation to and
+    from the component-major (C, D, N) blocks is folded into the kernel's
+    loads and stores (strided views, no transpose copies)."""
+
+    def __init__(self, factor: UpperFactor, N: int, D: int):
+        self.factor, self.N, self.D = factor, N, D
+
+    def forward(self, dz):
+        C = dz.shape[0]
+        delta = torch.empty((C, self.D, self.N), dtype=dz.dtype,
+                            device=dz.device)
+        banded_solve(self.factor, dz.view(C, self.N, self.D).permute(0, 2, 1),
+                     delta)
+        return delta
+
+    def backward(self, g_delta, grad_x):
+        C = grad_x.shape[0]
+        banded_solve(self.factor, g_delta.permute(1, 0, 2),
+                     grad_x.view(C, self.N, self.D).permute(0, 2, 1),
+                     adjoint=True)
+
+    to = _to
+
+
+class DenseOperators:
+    """[R; m] delta, S dr and their adjoints as batched GEMMs over the D
+    components, with [R; m] and [R' | -m'] stacked so that each direction
+    takes one GEMM."""
+
+    def __init__(self, R, m, S):
+        self.W_fwd = torch.cat([R.transpose(1, 2), m.transpose(1, 2)],
+                               dim=2).contiguous()           # (D, N, 2N)
+        self.W_bwd = torch.cat([R, -m], dim=1).contiguous()  # (D, 2N, N)
+        self.S = S.contiguous()
+        self.St = S.transpose(1, 2).contiguous()
+
+    def rm(self, delta):
+        """(C, D, N) -> RmD (D, C, 2N) = [R delta | m delta]."""
+        return torch.bmm(delta.transpose(0, 1), self.W_fwd)
+
+    def s(self, dr):
+        return torch.bmm(dr, self.St)
+
+    def s_adjoint(self, gDs):
+        return torch.bmm(gDs, self.S)
+
+    def rm_adjoint(self, gpart, gcat):
+        """gpart + R' g_Rd - m' g_dr, gcat = [g_Rd | g_dr] (D, C, 2N)."""
+        return torch.baddbmm(gpart, gcat, self.W_bwd)
+
+    to = _to
+
+
+class BandedOperators:
+    """The same products through K3 on the band-truncated block storage of
+    R, m and S (D, nb, nw, 128, 128); chains are the kernel's free
+    dimension and the (D, C, N) / (C, D, N) layouts enter as strides."""
+
+    def __init__(self, R_blocks, m_blocks, S_blocks):
+        self.R = BandedMatrix.make(R_blocks)
+        self.m = BandedMatrix.make(m_blocks)
+        self.S = BandedMatrix.make(S_blocks)
+
+    def rm(self, delta):
+        C, D, N = delta.shape
+        RmD = torch.empty((D, C, 2 * N), dtype=delta.dtype,
+                          device=delta.device)
+        banded_matvec(self.R, delta, RmD[..., :N].transpose(0, 1))
+        banded_matvec(self.m, delta, RmD[..., N:].transpose(0, 1))
+        return RmD
+
+    def s(self, dr):
+        Ds = torch.empty_like(dr)
+        banded_matvec(self.S, dr.transpose(0, 1), Ds.transpose(0, 1))
+        return Ds
+
+    def s_adjoint(self, gDs):
+        gdr = torch.empty_like(gDs)
+        banded_matvec(self.S, gDs.transpose(0, 1), gdr.transpose(0, 1),
+                      adjoint=True)
+        return gdr
+
+    def rm_adjoint(self, gpart, gcat):
+        N = gpart.shape[-1]
+        out = gpart.transpose(0, 1)
+        banded_matvec(self.R, gcat[..., :N].transpose(0, 1), out,
+                      adjoint=True, accumulate=True)
+        banded_matvec(self.m, gcat[..., N:].transpose(0, 1), out,
+                      adjoint=True, alpha=-1.0, accumulate=True)
+        return gpart
+
+    to = _to
+
+
 class GNTarget:
     """The fused tempered log-posterior and gradient in GN-whitened
     coordinates, relative to a RefPoint, for a batch of chains (K1).
 
-    Per call, with chains as the GEMMs' free dimension:
+    Per call, with chains as the free dimension of every product:
 
-        delta = L (z - z0)                      GEMM
-        [R delta; m delta]                      batched GEMM   -> manifold_fwd
-        Ds = S dr                               batched GEMM   -> manifold_energy
-        g_dr = S' g_Ds                          batched GEMM   -> manifold_bwd
-        g_delta = [R' | -m'] [g_Rd; g_dr] + .   batched GEMM
-        grad_z = L' g_delta                     GEMM
+        delta = W (z - z0)                      whitening stage
+        [R delta; m delta]                      operator stage -> manifold_fwd
+        Ds = S dr                               operator stage -> manifold_energy
+        g_dr = S' g_Ds                          operator stage -> manifold_bwd
+        g_delta = [R' | -m'] [g_Rd; g_dr] + .   operator stage
+        grad_z = W' g_delta                     whitening stage
 
-    Layouts follow ops/manifold.py: per-component blocks are (D, C, N), and
-    L's rows are permuted at setup so that delta comes out component-major.
+    Layouts follow ops/manifold.py: per-component blocks are (D, C, N).
     """
 
-    def __init__(self, data, f_vec, L, ref, z0, N_I: int, D: int,
-                 D_thetas: int):
+    def __init__(self, data, f_vec, whitening, operators, ref, z0, N_I: int,
+                 D: int, D_thetas: int):
         self.f_vec = f_vec
         self.N, self.D, self.P = N_I, D, D_thetas
-        dt, dev = L.dtype, L.device
-        # perm[d*N + n] = n*D + d: row (d, n) of the component-major factor
-        perm = torch.arange(N_I * D, device=dev).reshape(N_I, D).T.reshape(-1)
-        L_perm = L[perm]
-        self.L_perm = L_perm.contiguous()          # (DN, ND): g_z = g_delta L_perm
-        self.Lt_perm = L_perm.T.contiguous()       # (ND, DN): delta = dz Lt_perm
-        R, m, S = data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts
-        self.W_fwd = torch.cat([R.transpose(1, 2), m.transpose(1, 2)],
-                               dim=2).contiguous()          # (D, N, 2N)
-        self.W_bwd = torch.cat([R, -m], dim=1).contiguous()  # (D, 2N, N)
-        self.S = S.contiguous()
-        self.St = S.transpose(1, 2).contiguous()
+        self.whitening, self.operators = whitening, operators
+        dt, dev = z0.dtype, z0.device
         self.z0 = z0
         self.I = data.I
         self.x0T = ref.x0.T.contiguous()
@@ -155,52 +433,98 @@ class GNTarget:
         self.n_ds = data.N_ds.contiguous()
         self.beta = float(data.beta)
 
-    def to(self, device) -> "GNTarget":
-        """A copy of this target with every tensor on ``device``."""
-        out = object.__new__(GNTarget)
-        out.__dict__ = {k: v.to(device) if isinstance(v, torch.Tensor) else v
-                        for k, v in self.__dict__.items()}
-        return out
+    to = _to
 
     def __call__(self, q, beta_temp):
         """q (C, dim) -> (logp (C,), grad (C, dim)); beta_temp 0-dim."""
-        N, D = self.N, self.D
-        ND = N * D
-        C = q.shape[0]
+        ND = self.N * self.D
         q = q.contiguous()
-        delta = torch.mm(q[:, :ND] - self.z0, self.Lt_perm).view(C, D, N)
-        RmD = torch.bmm(delta.transpose(0, 1), self.W_fwd)
+        delta = self.whitening.forward(q[:, :ND] - self.z0)
+        RmD = self.operators.rm(delta)
         dr, gcat, t14 = manifold_fwd(
             self.f_vec, self.I, delta, RmD, q, self.x0T, self.a0, self.f0,
             self.mask, self.y, self.sigma_lb, beta_temp, self.beta,
         )
-        Ds = torch.bmm(dr, self.St)
+        Ds = self.operators.s(dr)
         lp, gDs = manifold_energy(
             self.f_vec, Ds, self.s0, t14, q, self.sigma_lb, self.n_ds,
             beta_temp, self.beta,
         )
-        gdr = torch.bmm(gDs, self.S)
+        gdr = self.operators.s_adjoint(gDs)
         grad = torch.empty_like(q)
         gpart = manifold_bwd(
             self.f_vec, self.I, gdr, delta, q, self.x0T, self.mask, self.y,
             self.sigma_lb, self.n_ds, beta_temp, gcat, grad,
         )
-        g_delta = torch.baddbmm(gpart, gcat, self.W_bwd)
-        grad[:, :ND] = torch.mm(g_delta.transpose(0, 1).reshape(C, ND),
-                                self.L_perm)
+        g_delta = self.operators.rm_adjoint(gpart, gcat)
+        self.whitening.backward(g_delta, grad[:, :ND])
         return lp, grad
 
 
-def make_tempered_logp_grad_gn(data, f_vec, L, N_I: int, D: int,
-                               D_thetas: int, ref, z0):
-    """Fused evaluation in GN-whitened coordinates, relative to ``ref``
-    (posterior.RefPoint) — the float32-safe form the JAX package samples
-    with. Returns ``logp_grad(q (C, dim), beta_temp) -> (logp (C,), grad)``.
-    The absolute-energy branch (ref=None, t1 = z'A1z) is not ported."""
+def _relative_only(ref, z0):
     if ref is None or z0 is None:
         raise NotImplementedError(
             "only the relative-energy target (ref and z0) is ported"
         )
+
+
+def make_tempered_logp_grad_gn(data, f_vec, L, N_I: int, D: int,
+                               D_thetas: int, ref, z0):
+    """Dense storage: delta = L (z - z0), dense operators. Relative to
+    ``ref`` (posterior.RefPoint), the float32-safe form the JAX package
+    samples with. Returns ``logp_grad(q (C, dim), beta_temp) -> (logp (C,),
+    grad)``. The absolute-energy branch (ref=None, t1 = z'A1z) is not
+    ported."""
+    _relative_only(ref, z0)
     if data.C_inv_sqrts is None or data.K_inv_sqrts is None:
         raise ValueError("the relative target needs C_inv_sqrts and K_inv_sqrts")
-    return GNTarget(data, f_vec, L, ref, z0, N_I, D, D_thetas)
+    return GNTarget(
+        data, f_vec, DenseWhitening(L, N_I, D),
+        DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
+        ref, z0, N_I, D, D_thetas,
+    )
+
+
+def make_tempered_logp_grad_gn_hybrid(data, f_vec, U_blocks, N_I: int,
+                                      D: int, D_thetas: int, diag_inv, ref,
+                                      z0):
+    """Hybrid storage: banded-GN coordinates (delta = U^{-1}(z - z0), K4)
+    against the EXACT dense operators of ``data`` (a dense PosteriorData
+    with C_inv_sqrts): the truncation touches the preconditioner only,
+    never the target. ``ref``/``z0`` must come from the same exact
+    operators."""
+    _relative_only(ref, z0)
+    if data.C_inv_sqrts is None or data.K_inv_sqrts is None:
+        raise ValueError(
+            "hybrid mode needs the dense factored operators; build the "
+            "data with C_inv_sqrts/K_inv_sqrts"
+        )
+    factor = UpperFactor.make(U_blocks, diag_inv, N_I * D)
+    return GNTarget(
+        data, f_vec, BandedWhitening(factor, N_I, D),
+        DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
+        ref, z0, N_I, D, D_thetas,
+    )
+
+
+def make_tempered_logp_grad_gn_banded(data, f_vec, U_blocks, N_I: int,
+                                      D: int, D_thetas: int, diag_inv, ref,
+                                      z0):
+    """Banded storage: every operator O(ND * b) — K4 for the whitening, K3
+    on the band-truncated square roots (``data`` a BandedPosteriorData
+    with C_sqrt_blocks/K_sqrt_blocks) for the energies. ``ref`` must be
+    built from the same band-truncated float64 operators."""
+    _relative_only(ref, z0)
+    if data.C_sqrt_blocks is None or data.K_sqrt_blocks is None:
+        raise ValueError(
+            "banded GN whitening needs the banded sqrt factors; build the "
+            "data via to_banded_data(..., C_inv_sqrts_f64=..., "
+            "K_inv_sqrts_f64=...)"
+        )
+    factor = UpperFactor.make(U_blocks, diag_inv, N_I * D)
+    return GNTarget(
+        data, f_vec, BandedWhitening(factor, N_I, D),
+        BandedOperators(data.C_sqrt_blocks, data.m_blocks,
+                        data.K_sqrt_blocks),
+        ref, z0, N_I, D, D_thetas,
+    )

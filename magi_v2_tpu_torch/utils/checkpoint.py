@@ -31,9 +31,13 @@ FIT_FIELDS = (
 
 
 def from_fit_arrays(arrays: dict, f_vec, D_thetas: int, bandsize=None,
-                    config=None):
+                    config=None, exact_operators=None):
     """A fitted port MAGI_v2 from the arrays of FIT_FIELDS (host NumPy);
-    ready to predict."""
+    ready to predict. With a bandsize, ``C_d_invs``/``m_ds``/``K_d_invs``
+    are the band-truncated operators; storage="hybrid" rebuilds the exact
+    ones from (I, phi1s, phi2s), or takes ``exact_operators`` (C^{-1}, m,
+    K^{-1}) as given, e.g. the fitting model's own, so that both samplers
+    see the same operators."""
     from magi_v2_tpu_torch import preprocess
     from magi_v2_tpu_torch.api import MAGI_v2
     from magi_v2_tpu_torch.config import DEFAULT_CONFIG
@@ -52,6 +56,11 @@ def from_fit_arrays(arrays: dict, f_vec, D_thetas: int, bandsize=None,
     model.mag_I = model.I.shape[0]
     model.beta = (model.D * model.mag_I) / model.N_ds.sum()
     model.obs_index = preprocess.build_observation_index(model.X_obs_discret)
+    if exact_operators is not None:
+        key = (model.phi1s.tobytes(), model.phi2s.tobytes(),
+               model.I.tobytes())
+        model._exact_ops_cache = (key, tuple(
+            np.array(a, np.float64, copy=True) for a in exact_operators))
     return model
 
 

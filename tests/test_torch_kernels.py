@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of K1 against their plain PyTorch
-versions, on the card. These tests need a CUDA device and skip without
+"""The hand-written CUDA kernels (K1, K2, K3, K4) against their plain
+PyTorch versions, on the card. These tests need a CUDA device and skip without
 one; run them on the card with
 
     python -m pytest tests/test_torch_kernels.py -m cuda
@@ -104,3 +104,93 @@ def test_sampler_runs_full_float32_on_card(device):
     assert all(n > 0 for n in mf.launch_counts().values())
     assert np.all(np.isfinite(res["X_samps"]))
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_lorenz_kernels_match_plain_versions(device):
+    """K1 with the Lorenz model functor at the dense-grid shapes (256
+    chains, N_I = 1025)."""
+    mf.reset_launch_counts()
+    results = chip_smoke.check_kernels(device, model="lorenz", N=1025)
+    assert set(results) == {f"{k}_lorenz" for k in mf.KERNELS}
+    assert all(n > 0 for n in mf.launch_counts().values())
+
+
+def test_leapfrog_kernel_matches_plain_version(device):
+    """K2 on a diagonal mass, a 3-wide dense tail and the full dense
+    metric."""
+    from magi_v2_tpu_torch.sampler import hmc
+
+    hmc.reset_launch_counts()
+    assert set(chip_smoke.check_leapfrog(device)) == {"leapfrog_update"}
+    assert hmc.launch_counts()["leapfrog_update"] > 0
+
+
+def synthetic_banded_ops(device, N=1025, D=3, b=100, bw=1200, seed=0):
+    """Float64 operators of the Lorenz shapes without a fit: K3 tiles
+    {"R", "m", "S"} of random (D, N, N) matrices at half-bandwidth b, and a
+    K4 factor: an upper band of width bw over N*D rows with a dominant
+    diagonal."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn((D, N, N), generator=g, dtype=torch.float64).to(device)
+    blocks = {k: bd.banded_to_blocks(bd.dense_to_banded(A * s, b))
+              for k, s in (("R", 1.0), ("m", 0.3), ("S", 2.0))}
+    ND = N * D
+    band = torch.zeros((2 * bw + 1, ND), dtype=torch.float64)
+    band[bw] = 1.0 + torch.rand((ND,), generator=g, dtype=torch.float64)
+    for k in range(1, bw + 1):
+        band[bw + k, : ND - k] = 0.02 / np.sqrt(k) * torch.randn(
+            (ND - k,), generator=g, dtype=torch.float64)
+    tiles = bd.banded_to_blocks_upper(band.to(device))
+    factor = bd.UpperFactor.make(tiles, bd.banded_diag_tile_inverses(tiles,
+                                                                     ND), ND)
+    return blocks, factor
+
+
+@pytest.mark.parametrize("N,D,b,bw,chains", [(1025, 3, 100, 1200, (64, 256)),
+                                             (65, 3, 4, 48, (7,)),
+                                             (300, 1, 40, 0, (1,))])
+def test_banded_kernels_match_plain_versions(device, N, D, b, bw, chains):
+    """K3 and K4, forward and adjoint, through the banded target's stages
+    at the Lorenz shapes and at ragged sizes (a part-filled last tile, a
+    diagonal-only factor, one chain)."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    blocks, factor = synthetic_banded_ops(device, N, D, b, bw)
+    bd.reset_launch_counts()
+    results = chip_smoke.check_banded_ops(blocks, factor, N, D, chains,
+                                          device)
+    assert set(results) == set(bd.KERNELS)
+    assert all(n > 0 for n in bd.launch_counts().values())
+
+
+def test_banded_wrappers_raise_instead_of_falling_back(device):
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    blocks, factor = synthetic_banded_ops(device, 65, 3, 4, 48)
+    op = bd.BandedMatrix.make(blocks["R"].half())
+    x = torch.zeros((2, 3, 65), dtype=torch.float16, device=device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        bd.banded_matvec(op, x, torch.empty_like(x))
+    y = torch.zeros((2, 1, 195), dtype=torch.float64, device=device)
+    with pytest.raises(ValueError, match="expected"):
+        bd.banded_solve(factor, y.cpu(), torch.empty_like(y))
+
+
+def test_large_grid_targets_on_card_match_cpu(device):
+    """The composed float64 hybrid and banded targets (K1-Lorenz, K3, K4)
+    on the card against the same targets on the CPU, on a small Lorenz
+    fit."""
+    import magi_v2_tpu_torch
+
+    config = magi_v2_tpu_torch.MagiConfig
+    try:
+        magi_v2_tpu_torch.MagiConfig = lambda **kw: config(
+            hparam_num_iters=50, init_num_iters=200, **kw)
+        model = chip_smoke.lorenz_fit(device, n_obs=33)
+    finally:
+        magi_v2_tpu_torch.MagiConfig = config
+    for storage in ("hybrid", "banded"):
+        chip_smoke.check_composed(model, device, storage,
+                                  tail=(-1.5, -1.5, -1.5, 10.0, 28.0, 2.6))

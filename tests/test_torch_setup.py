@@ -158,6 +158,24 @@ def test_fit_carried_across_packages(fits, tmp_path):
                                       getattr(jm.obs_index, f))
 
 
+def test_initial_fit_takes_a_theta_start(seir_data, fits):
+    """initial_fit(thetas_init=...) skips the theta fit and leaves every
+    other result of the fit as it was; a malformed start is refused."""
+    ts, X, _ = seir_data
+    _, tm = fits
+    start = np.array([5.0, 0.5, 2.0])
+    tm2 = T.MAGI_v2(3, ts, X, 20, tseir, TINY_T)
+    tm2.initial_fit(discretization=1, thetas_init=start)
+    np.testing.assert_array_equal(tm2.thetas_init, start)
+    for f in FIT_FIELDS:
+        if f != "thetas_init":
+            np.testing.assert_array_equal(getattr(tm2, f), getattr(tm, f))
+    for bad in (np.ones(2), np.array([1.0, np.nan, 1.0])):
+        with pytest.raises(ValueError, match="thetas_init"):
+            T.MAGI_v2(3, ts, X, 20, tseir, TINY_T).initial_fit(
+                1, thetas_init=bad)
+
+
 def test_unported_branches_raise(seir_data):
     ts, X, _ = seir_data
     X = X.copy()

@@ -102,8 +102,8 @@ def test_unwhiten_draws_matches_jax(fitted):
 @pytest.mark.parametrize("override,exc", [
     ({"algorithm": "nuts"}, NotImplementedError),
     ({"reparam": "centered"}, NotImplementedError),
-    ({"storage": "banded"}, NotImplementedError),
-    ({"sigma_sqs_fixed": 1e-4}, NotImplementedError),
+    ({"precond_refresh_steps": 10}, NotImplementedError),
+    ({"init_states": {"thetas": np.ones(3)}}, NotImplementedError),
     ({"pt_betas": (1.0, 0.5)}, NotImplementedError),
     ({"checkpoint_path": "ckpt"}, NotImplementedError),
     ({"matmul_precision": "high"}, ValueError),
