@@ -30,8 +30,14 @@ only when all of them passed):
    matvec and adjoint) on the fit's band-truncated R, m, S and K4 (the
    block-banded solve and adjoint) on its banded Gauss-Newton factor,
    both called through the banded target's own stages (so on the strided
-   views the sampler passes) at 64 and 256 chains, in float64 and
-   float32; K4 also prints its residual ||Ux - y|| / ||y||.
+   views the sampler passes) at 64, 256 and 257 chains, in float64 and
+   float32; K4 also prints its residual ||Ux - y|| / ||y|| and its time
+   at each chain count. K4 is also checked as ``unwhiten_draws`` calls it
+   on the hybrid run's 500 x 256 draws: (C, 1, N) right-hand sides in
+   chunks of up to 87,296, many waves of clusters. Each kernel's
+   time is printed beside one PyTorch call that computes the same function
+   (the yardstick: torch.bmm with the densified operator for K3,
+   torch.linalg.solve_triangular on the densified factor for K4).
 9. Hybrid path: ``predict(storage="hybrid")``, 256 chains, L <= 64,
    500 + 500 steps, reference annealing at a 0.3 floor, sigma pinned at
    0.25, diagonal mass. Fails on non-finite draws, a kernel that never
@@ -42,11 +48,16 @@ only when all of them passed):
    biased by design).
 11. The composed float64 hybrid and banded targets on the card against the
    same targets on the CPU (plain versions), for 8 states near the fit.
-12. Leapfrog profile of the hybrid path.
+12. Leapfrog profile of the hybrid path, and K4's float32 time per launch
+   at 256 chains back to back and in that leapfrog, beside its bound and
+   solve_triangular's time.
 
 The last lines are the card's name and power limit, a JSON object with
-each kernel's launch count (from the path named beside it), error and
-times, and ``{"ok": true, "device": {...}}``.
+each kernel's launch count (from the path named beside it), error, times,
+the bound (the least time the card could take for the same work, from
+this run's inputs and the published H100 SXM peaks) and the yardstick's
+time (null where no one PyTorch call computes the same function), and
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -75,6 +86,8 @@ NUM_CHAINS, NUM_LEAPFROGS, NUM_STEPS = 256, 192, 1000
 LORENZ_THETAS = np.array([10.0, 28.0, 8.0 / 3.0])
 LORENZ_CHAINS, LORENZ_LEAPFROGS, LORENZ_STEPS = 256, 64, 500
 BANDED_CHAINS, BANDED_STEPS = 64, 200
+# a chain count that fills one of K4's chain groups in part
+RAGGED_CHAINS = 257
 MIN_STEP_SIZE, MIN_ACCEPT = 1e-2, 0.5
 REPLACES = {
     "manifold_fwd": "magi_v2_tpu/sampler/precond.py:540",
@@ -91,6 +104,39 @@ SOURCES = {
     "banded": "magi_v2_tpu_torch/csrc/banded.cu",
     "leapfrog": "magi_v2_tpu_torch/csrc/leapfrog.cu",
 }
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet), for the
+# bounds: float32 and float64 outside the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+# K1's operations per (chain, grid point, component), counted from
+# csrc/manifold.cu: fwd (x, f, dr, the t1 seed, the t1 and t4 sums), energy
+# (the t2 sum and the g_Ds seed), bwd (the VJPs in x and theta, the
+# residual, gpart)
+K1_FLOPS = {"manifold_fwd": 16, "manifold_energy": 5, "manifold_bwd": 17}
+
+
+def bound(nbytes, flops, dtype=torch.float32):
+    """The least time (ms) the card could take to move ``nbytes`` (each
+    input read once, each output written once) and do ``flops`` operations
+    of ``dtype``, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(kname, C, N, D, P, dtype):
+    """The bound of one K1 kernel at C chains, N grid points, D
+    components and P parameters: what it reads and writes per
+    csrc/manifold.cu (the (C, D, N) blocks, the (D, N) reference rows, the
+    sigma/theta entries of q and grad, t14 and lp)."""
+    pts, row, tail = C * N * D, D * N, C * (D + P)
+    elems = {"manifold_fwd": 5 * pts + 5 * row + tail + 2 * C,
+             "manifold_energy": 2 * pts + row + tail + 3 * C,
+             "manifold_bwd": 4 * pts + 3 * row + 2 * tail}[kname]
+    size = torch.finfo(dtype).bits // 8
+    return bound(elems * size, K1_FLOPS[kname] * pts, dtype)
 
 
 def _counters():
@@ -214,9 +260,11 @@ def _time_ms(fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
-def report(kname, dtype, errs, ms, plain_ms, tol, results, extra=""):
+def report(kname, dtype, errs, ms, plain_ms, tol, results, extra="",
+           more=None):
     """Print one kernel check, raise above ``tol``, and keep the float32
-    numbers (the sampling dtype) in ``results``."""
+    numbers (the sampling dtype), with ``more`` (bound, yardstick), in
+    ``results``."""
     worst_part = max(errs, key=lambda p: errs[p][1])
     worst_rel = errs[worst_part][1]
     worst_abs = max(e[0] for e in errs.values())
@@ -230,7 +278,8 @@ def report(kname, dtype, errs, ms, plain_ms, tol, results, extra=""):
             f"{kname} {name} disagrees with its plain version: {worst_part} "
             f"relative error {worst_rel:.3e} > {tol:.0e}")
     if dtype == torch.float32:
-        results[kname] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+        results[kname] = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms,
+                              **(more or {}))
 
 
 def check_kernels(device, model="seir", N=161):
@@ -275,6 +324,7 @@ def check_kernels(device, model="seir", N=161):
                                ("grad", gr_p, gr_k)], N, D)
         torch.cuda.synchronize()
 
+        C, P = x["q"].shape[0], x["q"].shape[1] - N * D - D
         for kname, errs, fk, fp in (
             ("manifold_fwd", fwd_err,
              lambda: mf.manifold_fwd(*fwd_args),
@@ -286,8 +336,11 @@ def check_kernels(device, model="seir", N=161):
              lambda: bwd(mf.manifold_bwd, gc_k, gr_k),
              lambda: bwd(mf.manifold_bwd_plain, gc_p, gr_p)),
         ):
+            # no one PyTorch call computes a K1 kernel's fused epilogue
+            more = dict(k1_bound(kname, C, N, D, P, dtype), library_ms=None)
             report(kname + suffix, dtype, errs, _time_ms(fk), _time_ms(fp),
-                   TOL[dtype], results)
+                   TOL[dtype], results,
+                   extra=f", bound {more['bound_ms']:.4f} ms", more=more)
     return results
 
 
@@ -345,11 +398,18 @@ def check_leapfrog(device, C=256, dim=3081):
                 _time_ms(lambda: leapfrog_update_plain(qq, pp, gr, eps, mass,
                                                        2, True, False))))
         torch.cuda.synchronize()
+        # the timed diagonal case reads q, p, g and the diagonal and writes
+        # q and p: two kicks, the velocity and the drift, 7 operations an
+        # element; no one PyTorch call does the fused update
+        size = torch.finfo(dtype).bits // 8
+        more = dict(bound((5 * C * dim + dim) * size, 7 * C * dim, dtype),
+                    library_ms=None)
         report("leapfrog_update", dtype, errs, timing[0][0], timing[0][1],
                TOL[dtype], results,
                extra=f" (ms of the diagonal case; tail 3: {timing[1][0]:.4f}"
                      f" / {timing[1][1]:.4f}, dense 489: {timing[2][0]:.4f}"
-                     f" / {timing[2][1]:.4f})")
+                     f" / {timing[2][1]:.4f}; bound {more['bound_ms']:.4f}"
+                     " ms)", more=more)
     return results
 
 
@@ -467,16 +527,18 @@ def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The plain versions swapped into the sampler's target (K1, K3, K4)
-    and leapfrog (K2), which the wrappers never take on a CUDA tensor: the
-    baseline of the leapfrog timings below."""
+    """The plain versions swapped into the sampler's target (K1, K3, K4),
+    leapfrog (K2) and unwhitening of the draws (K4), which the wrappers
+    never take on a CUDA tensor: the baseline of the kernel checks and of
+    the leapfrog timings below."""
     from magi_v2_tpu_torch.ops import banded as bd
     from magi_v2_tpu_torch.ops import manifold as mf
-    from magi_v2_tpu_torch.sampler import hmc, precond
+    from magi_v2_tpu_torch.sampler import hmc, modes, precond
 
     swaps = [(precond, k, getattr(mf, f"{k}_plain")) for k in mf.KERNELS]
     swaps += [(precond, "banded_matvec", bd.banded_matvec_plain),
               (precond, "banded_solve", bd.banded_solve_plain),
+              (modes, "banded_solve", bd.banded_solve_plain),
               (hmc, "leapfrog_update", hmc.leapfrog_update_plain)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
@@ -503,7 +565,9 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
     per leapfrog with the kernels and with their plain versions
     (alternating), one target evaluation alone, the host time of each K1
     wrapper call, and torch.profiler's device time over one 50-leapfrog
-    transition."""
+    transition. Returns the device us per launch of each of the port's
+    kernels, by the profiler's name (empty if it recorded no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from magi_v2_tpu_torch.ops import manifold as mf
@@ -607,19 +671,43 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total:10.1f} us {e.count:5d} calls  "
               f"{e.key[:90]}")
+    per_launch = {}
     for e in kernels:
         if any(k in e.key for k in OWN_KERNELS):
-            print(f"  {e.self_device_time_total / max(e.count, 1):.2f} us of "
-                  f"device time per launch ({e.count} launches): "
-                  f"{e.key[:90]}")
+            per_launch[e.key] = e.self_device_time_total / max(e.count, 1)
+            print(f"  {per_launch[e.key]:.2f} us of device time per launch "
+                  f"({e.count} launches): {e.key[:90]}")
     if busy == 0:
         print("torch.profiler recorded no device time; the split above is "
               "not measured")
-        return
+        return per_launch
     print(f"{storage}: device busy {busy:.1f} us ({gemm / busy:.1%} in GEMMs)"
           f" of {profiled_us:.1f} us profiled wall and {wall_us:.1f} us "
           f"unprofiled wall; device idle {1 - busy / wall_us:.1%} of the "
           "unprofiled wall")
+    return per_launch
+
+
+def report_solve(timing, per_launch):
+    """K4's float32 ms per launch at the hybrid run's chains, back to back
+    (phase 8) and in the hybrid leapfrog (phase 12's profile), beside its
+    bound and one solve_triangular."""
+    in_leapfrog = {}
+    for key, us in per_launch.items():
+        if "banded_solve_kernel" in key:
+            side = "adjoint" if "true>" in key else "forward"
+            in_leapfrog[side] = f"{us / 1e3:.4f}"
+    parts = []
+    for side, k in (("forward", "banded_solve"),
+                    ("adjoint", "banded_solve_adjoint")):
+        t = timing[k]
+        parts.append(f"{side} {t['ms']:.4f} back to back, "
+                     f"{in_leapfrog.get(side, 'not measured')} in the hybrid "
+                     f"leapfrog, bound {t['bound_ms']:.4f} "
+                     f"({t['bound_by']}), solve_triangular "
+                     f"{t['library_ms']:.4f}")
+    print(f"K4 float32 at {LORENZ_CHAINS} chains, ms per launch: "
+          + "; ".join(parts))
 
 
 def lorenz_fit(device, n_obs=257):
@@ -668,17 +756,76 @@ def check_banded_kernels(model, device):
     """K3 and K4 (and adjoints) against their plain versions on the Lorenz
     fit's operators: the band-truncated R, m, S of storage="banded" and
     its banded Gauss-Newton factor U, float64 and float32, at the banded
-    run's and the hybrid run's chain counts; returns the float32 numbers
-    (K3 timed at the banded run's chains, K4 at the hybrid run's)."""
+    run's and the hybrid run's chain counts, and K4 as the unwhitening of
+    the hybrid run's draws calls it; returns the float32 numbers (K3 timed
+    at the banded run's chains, K4 at the hybrid run's)."""
     mode, data, _ = model._build_sampling_setup("precond", "banded",
                                                 torch.float64)
-    return check_banded_ops(
+    results = check_banded_ops(
         {"R": data.C_sqrt_blocks, "m": data.m_blocks, "S": data.K_sqrt_blocks},
-        mode.factor, model.mag_I, model.D, (BANDED_CHAINS, LORENZ_CHAINS),
+        mode.factor, model.mag_I, model.D,
+        (BANDED_CHAINS, LORENZ_CHAINS, RAGGED_CHAINS),
         device, timed={"banded_matvec": BANDED_CHAINS,
                        "banded_matvec_adjoint": BANDED_CHAINS,
                        "banded_solve": LORENZ_CHAINS,
                        "banded_solve_adjoint": LORENZ_CHAINS})
+    check_unwhiten(mode.factor, model.mag_I, model.D, LORENZ_STEPS,
+                   LORENZ_CHAINS, device)
+    return results
+
+
+def dense_banded(tiles, hw_lo, hw_hi, N):
+    """The dense (*B, N, N) matrices of block-banded tiles (*B, nb, nw, T,
+    T), by the plain matvec on the tiles' device: the yardsticks' operand."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    B = tuple(tiles.shape[:-4])
+    eye = torch.eye(N, dtype=tiles.dtype, device=tiles.device)
+    x = eye.reshape((N,) + (1,) * len(B) + (N,)).expand((N,) + B + (N,))
+    # cols[e, b, i] = A_b[i, e]
+    cols = bd.block_banded_matvec_plain(tiles, x, hw_lo, hw_hi)
+    return cols.movedim(0, -1).contiguous()
+
+
+def banded_yardsticks(ops, wh, C, dtype, device, kernels):
+    """For each of ``kernels``: its bound at C chains (the band's nonzeros, read
+    once, and two operations per nonzero and chain; the vectors in and
+    out) and the time of one PyTorch call that computes the same function
+    on the densified operator: torch.bmm for K3 (S dr and S' g_Ds, the
+    calls timed), torch.linalg.solve_triangular for K4 with the
+    right-hand sides in natural order."""
+    size = torch.finfo(dtype).bits // 8
+    N, D = wh.N, wh.D
+    g = torch.Generator(device="cpu").manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64).to(
+        device=device, dtype=dtype)
+    out = {}
+    if any(k.startswith("banded_matvec") for k in kernels):
+        S = ops.S
+        nnz = int(torch.count_nonzero(S.tiles))
+        S_dense = dense_banded(S.tiles, S.hw_lo, S.hw_hi, N)
+        v = r(D, C, N)
+        for k, fn in (("banded_matvec", lambda: torch.bmm(v, S_dense.mT)),
+                      ("banded_matvec_adjoint",
+                       lambda: torch.bmm(v, S_dense))):
+            out[k] = dict(bound((nnz + 2 * D * C * N) * size, 2 * C * nnz,
+                                dtype), library_ms=_time_ms(fn),
+                          band_nonzeros=nnz)
+    if any(k.startswith("banded_solve") for k in kernels):
+        U = wh.factor.tiles
+        nnz = int(torch.count_nonzero(U))
+        U_dense = dense_banded(U, 0, U.shape[1] - 1, N * D)
+        rhs = r(N * D, C)
+        for k, fn in (
+            ("banded_solve", lambda: torch.linalg.solve_triangular(
+                U_dense, rhs, upper=True)),
+            ("banded_solve_adjoint", lambda: torch.linalg.solve_triangular(
+                U_dense.mT, rhs, upper=False)),
+        ):
+            out[k] = dict(bound((nnz + 2 * C * N * D) * size, 2 * C * nnz,
+                                dtype), library_ms=_time_ms(fn, reps=20),
+                          band_nonzeros=nnz)
+    return {k: out[k] for k in kernels}
 
 
 def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
@@ -703,6 +850,7 @@ def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
     nwu = factor64.tiles.shape[1]
     ND = N * D
     results = {}
+    yard = {}
     for dtype in (torch.float64, torch.float32):
         ops = BandedOperators(*(blocks[k].to(dtype) for k in ("R", "m", "S")))
         wh = BandedWhitening(factor64.to(dtype), N, D)
@@ -760,23 +908,78 @@ def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
             extra["banded_solve_adjoint"] += (f", C{C} residual "
                                               f"||U'gy - g||/||g|| {res:.2e}")
 
-            # times of one launch: S dr, S' g_Ds, and the two solves
+            # times of one launch: S dr, S' g_Ds, and the two solves (these
+            # also at the chain counts not reported)
             for k, p in (("banded_matvec", "s"),
                          ("banded_matvec_adjoint", "s_adjoint"),
                          ("banded_solve", "x"), ("banded_solve_adjoint", "gy")):
+                fn = calls[k][p]
                 if C == timed.get(k, chains[0]):
-                    fn = calls[k][p]
                     ms = _time_ms(fn)
                     with plain_kernels():
                         plain_ms = _time_ms(fn)
                     times[k] = (ms, plain_ms)
                     extra[k] += f" (ms of {p} at C{C})"
+                elif k.startswith("banded_solve"):
+                    extra[k] += f", {_time_ms(fn):.4f} ms at C{C}"
+            here = [k for k in timed if timed[k] == C]
+            for k, more in banded_yardsticks(ops, wh, C, dtype, device,
+                                             here).items():
+                yard[k] = more
+                extra[k] += (f", bound {more['bound_ms']:.4f} ms "
+                             f"({more['bound_by']}, {more['band_nonzeros']} "
+                             f"band nonzeros), one PyTorch call "
+                             f"{more['library_ms']:.4f} ms")
         torch.cuda.synchronize()
         for k in bd.KERNELS:
             tol = SOLVE_TOL if k.startswith("banded_solve") else TOL
             report(k, dtype, errs[k], *times[k], tol[dtype], results,
-                   extra=extra[k])
+                   extra=extra[k], more=yard.get(k))
     return results
+
+
+def check_unwhiten(factor64, N, D, draws, chains, device, max_bytes=1 << 30):
+    """K4 as ``unwhiten_draws`` calls it on a large-grid run's draws:
+    (C, 1, N*D) contiguous right-hand sides, C = draws x chains of one
+    chunk of at most ``max_bytes`` of output, so many waves of clusters
+    (the hybrid run's 500 x 256 float32 draws go in chunks of 341 and 159
+    draws: 87,296 and 40,704 right-hand sides). On the card against the
+    same call with the plain version swapped in, float64 and float32, on
+    the float64 ``factor64``; returns {dtype: [relative error per
+    chunk]}."""
+    from types import SimpleNamespace
+
+    from magi_v2_tpu_torch.sampler.modes import unwhiten_draws
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        mode = SimpleNamespace(factor=factor64.to(dtype))
+        g = torch.Generator(device=device).manual_seed(7)
+        Z = torch.randn((draws, chains, N, D), generator=g, dtype=dtype,
+                        device=device)
+        mu = torch.zeros(D, dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        got = unwhiten_draws(mode, Z, mu, max_bytes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with plain_kernels():
+            ref = unwhiten_draws(mode, Z, mu, max_bytes)
+        chunk = max(1, max_bytes // (Z[0].numel() * Z.element_size()))
+        errs = [_relerr(ref[i: i + chunk], got[i: i + chunk])[1]
+                for i in range(0, draws, chunk)]
+        del Z, got, ref
+        name = str(dtype).replace("torch.", "")
+        tol = SOLVE_TOL[dtype]
+        print(f"banded_solve {name} in unwhiten_draws: {draws} x {chains} "
+              f"draws in chunks of {chunk * chains} right-hand sides, "
+              f"relative error per chunk "
+              + ", ".join(f"{e:.1e}" for e in errs)
+              + f" (tol {tol:.0e}); {wall:.3f} s")
+        if not max(errs) <= tol:
+            raise AssertionError(f"banded_solve {name} in unwhiten_draws "
+                                 "disagrees with its plain version")
+        out[dtype] = errs
+    return out
 
 
 LORENZ_PATH_KERNELS = {
@@ -869,9 +1072,11 @@ def main():
     lorenz_tail = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
     for storage in ("hybrid", "banded"):
         check_composed(lmodel, device, storage, tail=lorenz_tail)
-    profile_leapfrog(lmodel, device, "hybrid", tail=lorenz_tail,
-                     step_size=0.05, beta_temp=0.3, dense_mass=False,
-                     num_leapfrogs=64, reps=3, host_wrappers=False)
+    per_launch = profile_leapfrog(
+        lmodel, device, "hybrid", tail=lorenz_tail, step_size=0.05,
+        beta_temp=0.3, dense_mass=False, num_leapfrogs=64, reps=3,
+        host_wrappers=False)
+    report_solve(timing, per_launch)
 
     def entry(name, kernel, source, path, counts):
         return dict(name=name, route="cuda", source=SOURCES[source],

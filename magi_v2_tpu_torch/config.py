@@ -46,9 +46,11 @@ class MagiConfig:
     # Sampling dtype. Setup (hyperparameters, operators, whitening) always
     # runs in float64 on ``device``.
     dtype: torch.dtype = torch.float64
-    # Device for setup and sampling, e.g. "cpu" or "cuda:0". Nothing in
-    # the package probes for a card: the caller chooses.
-    device: str = "cpu"
+    # Device for setup and sampling: the card unless the caller asks for
+    # another ("cpu", "cuda:1"). Nothing in the package probes for a card
+    # or falls back to the CPU: without one, the first tensor placed on
+    # "cuda" raises PyTorch's own error.
+    device: str = "cuda"
     cholesky_jitter: float = 1e-6
 
     # --- preprocessing ---

@@ -59,7 +59,7 @@ def fourier_prior(X_filled: np.ndarray, t_range: float = 1.0) -> FourierPrior:
 
 
 def make_hparam_objective(I, X_filled, prior: FourierPrior, nu: float,
-                          jitter: float = 1e-6, device="cpu"):
+                          jitter: float = 1e-6, *, device):
     """Negative MAP objective over softplus pre-space (phi1, sigma^2, phi2),
     all D components batched: y_d ~ N(mu_d, phi1_d Matern_{phi2_d} +
     sigma_d^2 I) plus TruncatedNormal priors (unnormalized)."""
@@ -116,7 +116,8 @@ def fit_kernel_hparams(
     num_iters: int = 1000,
     cholesky_jitter: float = 1e-6,
     optimizer: str = "adam",
-    device="cpu",
+    *,
+    device,
 ):
     """Fit (phi1s, phi2s, sigma_sqs) for each column of X_filled by Adam,
     in float64 on ``device``. Returns host NumPy arrays like the JAX

@@ -38,7 +38,7 @@ SIGNATURES = {
     "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 2 + [_P],
     "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_P],
     "banded_matvec": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_D, _I] + [_P],
-    "banded_solve": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],
+    "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
     "leapfrog_update": [_P] * 7 + [_I] * 5 + [_P] + [_P],
 }
 

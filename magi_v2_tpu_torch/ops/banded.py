@@ -11,10 +11,13 @@ and the matrix. The symmetric window has hw_lo = hw_hi; the upper window
 Three groups of functions:
 
 - storage, run once at setup: ``dense_to_banded``, ``banded_to_blocks``,
-  ``banded_to_blocks_upper``, ``banded_diag_tile_inverses``;
+  ``banded_to_blocks_upper``, ``banded_diag_tile_inverses``, and
+  ``fold_factor`` (the diagonal-tile inverses folded into the tiles, the
+  form K4 reads);
 - plain PyTorch versions of the two kernels (the CPU path and the
   kernels' oracle): ``block_banded_matvec_plain`` and
-  ``block_banded_triangular_solve_upper_plain``, with their adjoints;
+  ``block_banded_triangular_solve_upper_plain``, with their adjoints, and
+  ``block_banded_solve_folded_plain``, K4's recurrence on the folded form;
 - the kernel wrappers ``banded_matvec`` (y = alpha op(A) x [+ y]) and
   ``banded_solve`` (x = U^{-1} y or U^{-T} y) on prepared operators
   (``BandedMatrix``, ``UpperFactor``), and the JAX package's functions
@@ -28,11 +31,11 @@ CUDA tensor, launches the hand-written kernel of csrc/banded.cu or raises:
 there is no fallback on the card. ``LAUNCH_COUNTS`` counts kernel
 launches only.
 
-The kernels read a tile element A[r][c] at ``tile[c*T + r]``, so that the
-128 threads of a block, one per row r, read consecutive addresses. The
-forward forms therefore read per-tile transposed copies (``tiles_t``),
-built once when an operator is prepared; the adjoint forms read the
-tiles as stored.
+The kernels read a tile element A[r][c] at ``tile[c*T + r]``, so that
+threads on consecutive rows r read consecutive addresses. K3's forward
+form therefore reads per-tile transposed copies (``tiles_t``), built once
+when an operator is prepared, and its adjoint the tiles as stored; K4
+reads the transposed tiles of ``fold_factor``.
 """
 
 from __future__ import annotations
@@ -213,6 +216,52 @@ def block_banded_triangular_solve_upper_adjoint_plain(tiles, g, diag_inv):
     return out.reshape(g.shape[0], nb * T)[:, :N]
 
 
+def fold_factor(tiles, diag_inv):
+    """The forms of U that K4 reads: the diagonal-tile inverses folded
+    into the tiles, computed in float64 and cast to the tiles' dtype, so
+    that the solve and its adjoint are each one recurrence over the block
+    rows, ``x_i = K[i,0] y_i + sum_{s>=1} K[i,s] x_{i+s}`` (forward, i
+    descending) and ``x_j = K'[j,0] y_j + sum_{s>=1} K'[j,s] x_{j-s}``
+    (adjoint, j ascending), with
+
+        K[i,0]  = D_i^{-1},   K[i,s]  = -D_i^{-1} U[i,s],
+        K'[j,0] = D_j^{-T},   K'[j,s] = -D_j^{-T} U[j-s,s]^T.
+
+    Returns (kt_fwd, kt_adj), each (nb, nwu, T, T) with every tile stored
+    transposed (``kt[i, s, k, r] = K[i,s][r, k]``): a CTA's share of a
+    tile, 16 of its columns, is then one contiguous slab."""
+    dt = tiles.dtype
+    U, Di = tiles.double(), diag_inv.double()
+    nb, nwu = U.shape[0], U.shape[1]
+    fwd = -(Di[:, None] @ U)
+    fwd[:, 0] = Di
+    DiT = Di.transpose(-1, -2)
+    adj = torch.zeros_like(U)
+    adj[:, 0] = DiT
+    for s in range(1, min(nwu, nb)):
+        adj[s:, s] = -(DiT[s:] @ U[: nb - s, s].transpose(-1, -2))
+    return tuple(k.transpose(-1, -2).to(dt).contiguous() for k in (fwd, adj))
+
+
+def block_banded_solve_folded_plain(kt, y, adjoint: bool = False):
+    """The recurrence K4 runs, in plain PyTorch, on a form of
+    ``fold_factor`` (``kt``, transposed tiles): x = U^{-1} y, or U^{-T} y
+    for ``adjoint`` with the adjoint form. y (B, N) -> x (B, N)."""
+    nb, nwu, T = kt.shape[0], kt.shape[1], kt.shape[2]
+    N = y.shape[-1]
+    yb = _pad_rows(y, nb, T)
+    xb = torch.zeros_like(yb)
+    for i in (range(nb) if adjoint else range(nb - 1, -1, -1)):
+        acc = yb[:, i] @ kt[i, 0]
+        for s in range(1, nwu):
+            j = i - s if adjoint else i + s
+            if not 0 <= j < nb:
+                break
+            acc = acc + xb[:, j] @ kt[i, s]
+        xb[:, i] = acc
+    return xb.reshape(y.shape[0], nb * T)[:, :N]
+
+
 # --------------------------------------------------------------------------
 # prepared operators
 # --------------------------------------------------------------------------
@@ -246,26 +295,27 @@ class BandedMatrix(NamedTuple):
 
 
 class UpperFactor(NamedTuple):
-    """An upper block-banded factor ready for K4: tiles (nb, nwu, T, T),
-    the float64-computed diagonal-tile inverses (nb, T, T), the per-tile
-    transposes of both (what the forward solve reads), and N."""
+    """An upper block-banded factor ready for K4: tiles (nb, nwu, T, T) and
+    the float64-computed diagonal-tile inverses (nb, T, T) (what the plain
+    versions read), the two folded forms of ``fold_factor`` (what the
+    kernel reads), and N. Make it from float64 tiles and cast it with
+    ``to``, so that the folding is done in float64."""
 
     tiles: torch.Tensor
-    tiles_t: torch.Tensor
     dinv: torch.Tensor
-    dinv_t: torch.Tensor
+    kt_fwd: torch.Tensor
+    kt_adj: torch.Tensor
     N: int
 
     @classmethod
     def make(cls, tiles, dinv, N: int):
-        tiles, dinv = tiles.contiguous(), dinv.contiguous()
-        return cls(tiles, tiles.transpose(-1, -2).contiguous(), dinv,
-                   dinv.transpose(-1, -2).contiguous(), int(N))
+        return cls(tiles.contiguous(), dinv.contiguous(),
+                   *fold_factor(tiles, dinv), int(N))
 
     def to(self, *args, **kwargs) -> "UpperFactor":
         return self._replace(**{k: getattr(self, k).to(*args, **kwargs)
-                                for k in ("tiles", "tiles_t", "dinv",
-                                          "dinv_t")})
+                                for k in ("tiles", "dinv", "kt_fwd",
+                                          "kt_adj")})
 
 
 # --------------------------------------------------------------------------
@@ -366,11 +416,22 @@ def banded_matvec(op: BandedMatrix, x, y, adjoint: bool = False,
     return y
 
 
-# shared memory of one K4 block: (nwu - 1) ring rows, one right-hand side
-# and _SOLVE_SPLIT partial sums, each TILE x _SOLVE_CHAINS_PER_BLOCK values
-_SOLVE_CHAINS_PER_BLOCK = 4
-_SOLVE_SPLIT = 4
+# K4 runs one cluster of _SOLVE_CLUSTER CTAs per group of up to
+# _SOLVE_MAX_CHAINS chains, each CTA owning TILE // _SOLVE_CLUSTER columns
+# of every tile (csrc/banded.cu picks the group size)
+_SOLVE_CLUSTER = 8
+_SOLVE_OWN = TILE // _SOLVE_CLUSTER
+_SOLVE_MAX_CHAINS = 20
 _SMEM_LIMIT = 227 * 1024
+
+
+def _solve_smem(ch: int, nwu: int, elem: int) -> int:
+    """The least shared memory of one K4 CTA (csrc/banded.cu: solve_smem):
+    a ring of two tile slabs (own x TILE each), the received partials
+    (2 x 2*cluster x own x ch), four y rows and the last nwu - 1 solved
+    rows (own x ch each), own = _SOLVE_OWN."""
+    rows = 4 * _SOLVE_CLUSTER + 4 + max(nwu - 1, 1)
+    return (2 * _SOLVE_OWN * TILE + rows * _SOLVE_OWN * ch) * elem
 
 
 def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
@@ -385,8 +446,8 @@ def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
     C, D, M = y.shape
     N = factor.N
     dev, dt = tiles.device, tiles.dtype
-    for name, t in (("y", y), ("x", x), ("tiles_t", factor.tiles_t),
-                    ("dinv", factor.dinv), ("dinv_t", factor.dinv_t)):
+    for name, t in (("y", y), ("x", x), ("dinv", factor.dinv),
+                    ("kt_fwd", factor.kt_fwd), ("kt_adj", factor.kt_adj)):
         _check_dtype_device(name, t, dt, dev)
     if M * D != N or tuple(x.shape) != (C, D, M) or not (
             (nb - 1) * T < N <= nb * T):
@@ -399,14 +460,12 @@ def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
         raise ValueError(f"banded_solve runs on cpu or cuda, not {dev}")
     if T != TILE:
         raise ValueError(f"the kernel takes {TILE}-wide tiles, not {T}")
-    smem = ((max(nwu - 1, 1) + 1 + _SOLVE_SPLIT) * T
-            * _SOLVE_CHAINS_PER_BLOCK * tiles.element_size())
+    smem = _solve_smem(_SOLVE_MAX_CHAINS, nwu, tiles.element_size())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{nwu} tile columns need {smem} bytes of shared "
                          f"memory, above the card's {_SMEM_LIMIT}")
     _launch("banded_solve_adjoint" if adjoint else "banded_solve", dt,
-            [tiles if adjoint else factor.tiles_t,
-             factor.dinv if adjoint else factor.dinv_t, y, x, C, D, N, nb,
+            [factor.kt_adj if adjoint else factor.kt_fwd, y, x, C, D, N, nb,
              nwu, y.stride(0), y.stride(1), y.stride(2), x.stride(0),
              x.stride(1), x.stride(2)], dev)
     return x

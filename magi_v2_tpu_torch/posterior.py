@@ -55,8 +55,8 @@ def _f64(a, device):
     return torch.as_tensor(np.asarray(a, np.float64), device=device)
 
 
-def make_ref_point(I, x0, mu_ds, thetas0, f_vec, R64, S64, m64, dtype,
-                   device="cpu"):
+def make_ref_point(I, x0, mu_ds, thetas0, f_vec, R64, S64, m64, dtype, *,
+                   device):
     """Build a RefPoint in float64 on ``device`` and cast to ``dtype``."""
     x0, mu = _f64(x0, device), _f64(mu_ds, device)
     R64, S64, m64 = _f64(R64, device), _f64(S64, device), _f64(m64, device)
@@ -71,7 +71,7 @@ def make_ref_point(I, x0, mu_ds, thetas0, f_vec, R64, S64, m64, dtype,
 
 def make_posterior_data(
     I, C_invs, m_ds, K_invs, mu_ds, beta, obs_index, sigma_sqs_LB, dtype,
-    C_inv_sqrts=None, K_inv_sqrts=None, device="cpu",
+    C_inv_sqrts=None, K_inv_sqrts=None, *, device,
 ) -> PosteriorData:
     """Assemble PosteriorData on ``device`` in ``dtype``."""
     asd = lambda x: _f64(x, device).to(dtype)

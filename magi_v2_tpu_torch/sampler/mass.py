@@ -29,7 +29,7 @@ class TailDenseMass(NamedTuple):
         return self.tail_inv.shape[-1]
 
 
-def identity_mass(dim: int, dense_tail_size: int, dtype, device="cpu"):
+def identity_mass(dim: int, dense_tail_size: int, dtype, device):
     diag = torch.ones(dim, dtype=dtype, device=device)
     if dense_tail_size <= 0:
         return diag

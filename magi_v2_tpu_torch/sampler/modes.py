@@ -132,15 +132,16 @@ def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
     ref = make_ref_point(model.I, anchor_X, model.mu_ds, anchor_th,
                          model.f_vec, R_ref, S_ref, m_ref, dtype, device=dev)
     z064 = whiten_X_banded(f64(anchor_X), f64(model.mu_ds), U_blocks64)
-    U_blocks, U_dinv = U_blocks64.to(dtype), U_dinv64.to(dtype)
+    # K4's folded tiles are formed in float64, then cast
+    factor = UpperFactor.make(U_blocks64, U_dinv64, N * D).to(dtype)
     z0 = z064.reshape(-1).to(dtype)
     maker = (make_tempered_logp_grad_gn_hybrid if exact
              else make_tempered_logp_grad_gn_banded)
-    lp = maker(data, model.f_vec, U_blocks, N, D, model.D_thetas,
-               diag_inv=U_dinv, ref=ref, z0=z0)
-    return lp, {"U_blocks": U_blocks, "U_dinv": U_dinv,
-                "factor": lp.whitening.factor, "ref": ref, "z0": z0,
-                "z064": z064, "info": gn_info}
+    lp = maker(data, model.f_vec, factor, N, D, model.D_thetas, ref=ref,
+               z0=z0)
+    return lp, {"U_blocks": factor.tiles, "U_dinv": factor.dinv,
+                "factor": factor, "ref": ref, "z0": z0, "z064": z064,
+                "info": gn_info}
 
 
 def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,

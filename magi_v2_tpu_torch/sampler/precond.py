@@ -485,21 +485,20 @@ def make_tempered_logp_grad_gn(data, f_vec, L, N_I: int, D: int,
     )
 
 
-def make_tempered_logp_grad_gn_hybrid(data, f_vec, U_blocks, N_I: int,
-                                      D: int, D_thetas: int, diag_inv, ref,
+def make_tempered_logp_grad_gn_hybrid(data, f_vec, factor: UpperFactor,
+                                      N_I: int, D: int, D_thetas: int, ref,
                                       z0):
-    """Hybrid storage: banded-GN coordinates (delta = U^{-1}(z - z0), K4)
-    against the EXACT dense operators of ``data`` (a dense PosteriorData
-    with C_inv_sqrts): the truncation touches the preconditioner only,
-    never the target. ``ref``/``z0`` must come from the same exact
-    operators."""
+    """Hybrid storage: banded-GN coordinates (delta = U^{-1}(z - z0), K4
+    on ``factor``) against the EXACT dense operators of ``data`` (a dense
+    PosteriorData with C_inv_sqrts): the truncation touches the
+    preconditioner only, never the target. ``ref``/``z0`` must come from
+    the same exact operators."""
     _relative_only(ref, z0)
     if data.C_inv_sqrts is None or data.K_inv_sqrts is None:
         raise ValueError(
             "hybrid mode needs the dense factored operators; build the "
             "data with C_inv_sqrts/K_inv_sqrts"
         )
-    factor = UpperFactor.make(U_blocks, diag_inv, N_I * D)
     return GNTarget(
         data, f_vec, BandedWhitening(factor, N_I, D),
         DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
@@ -507,13 +506,14 @@ def make_tempered_logp_grad_gn_hybrid(data, f_vec, U_blocks, N_I: int,
     )
 
 
-def make_tempered_logp_grad_gn_banded(data, f_vec, U_blocks, N_I: int,
-                                      D: int, D_thetas: int, diag_inv, ref,
+def make_tempered_logp_grad_gn_banded(data, f_vec, factor: UpperFactor,
+                                      N_I: int, D: int, D_thetas: int, ref,
                                       z0):
-    """Banded storage: every operator O(ND * b) — K4 for the whitening, K3
-    on the band-truncated square roots (``data`` a BandedPosteriorData
-    with C_sqrt_blocks/K_sqrt_blocks) for the energies. ``ref`` must be
-    built from the same band-truncated float64 operators."""
+    """Banded storage: every operator O(ND * b) — K4 on ``factor`` for the
+    whitening, K3 on the band-truncated square roots (``data`` a
+    BandedPosteriorData with C_sqrt_blocks/K_sqrt_blocks) for the
+    energies. ``ref`` must be built from the same band-truncated float64
+    operators."""
     _relative_only(ref, z0)
     if data.C_sqrt_blocks is None or data.K_sqrt_blocks is None:
         raise ValueError(
@@ -521,7 +521,6 @@ def make_tempered_logp_grad_gn_banded(data, f_vec, U_blocks, N_I: int,
             "data via to_banded_data(..., C_inv_sqrts_f64=..., "
             "K_inv_sqrts_f64=...)"
         )
-    factor = UpperFactor.make(U_blocks, diag_inv, N_I * D)
     return GNTarget(
         data, f_vec, BandedWhitening(factor, N_I, D),
         BandedOperators(data.C_sqrt_blocks, data.m_blocks,

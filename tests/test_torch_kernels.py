@@ -125,36 +125,46 @@ def test_leapfrog_kernel_matches_plain_version(device):
     assert hmc.launch_counts()["leapfrog_update"] > 0
 
 
+def synthetic_factor(device, N=1025, D=3, bw=1200, seed=0):
+    """A float64 K4 factor of the Lorenz shapes without a fit: an upper
+    band of width ``bw`` over N*D rows with a dominant diagonal."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ND = N * D
+    band = torch.zeros((2 * bw + 1, ND), dtype=torch.float64)
+    band[bw] = 1.0 + torch.rand((ND,), generator=g, dtype=torch.float64)
+    for k in range(1, bw + 1):
+        band[bw + k, : ND - k] = 0.02 / k ** 0.5 * torch.randn(
+            (ND - k,), generator=g, dtype=torch.float64)
+    tiles = bd.banded_to_blocks_upper(band.to(device))
+    return bd.UpperFactor.make(tiles, bd.banded_diag_tile_inverses(tiles, ND),
+                               ND)
+
+
 def synthetic_banded_ops(device, N=1025, D=3, b=100, bw=1200, seed=0):
     """Float64 operators of the Lorenz shapes without a fit: K3 tiles
-    {"R", "m", "S"} of random (D, N, N) matrices at half-bandwidth b, and a
-    K4 factor: an upper band of width bw over N*D rows with a dominant
-    diagonal."""
+    {"R", "m", "S"} of random (D, N, N) matrices at half-bandwidth b, and
+    the K4 factor of ``synthetic_factor``."""
     from magi_v2_tpu_torch.ops import banded as bd
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     A = torch.randn((D, N, N), generator=g, dtype=torch.float64).to(device)
     blocks = {k: bd.banded_to_blocks(bd.dense_to_banded(A * s, b))
               for k, s in (("R", 1.0), ("m", 0.3), ("S", 2.0))}
-    ND = N * D
-    band = torch.zeros((2 * bw + 1, ND), dtype=torch.float64)
-    band[bw] = 1.0 + torch.rand((ND,), generator=g, dtype=torch.float64)
-    for k in range(1, bw + 1):
-        band[bw + k, : ND - k] = 0.02 / np.sqrt(k) * torch.randn(
-            (ND - k,), generator=g, dtype=torch.float64)
-    tiles = bd.banded_to_blocks_upper(band.to(device))
-    factor = bd.UpperFactor.make(tiles, bd.banded_diag_tile_inverses(tiles,
-                                                                     ND), ND)
-    return blocks, factor
+    return blocks, synthetic_factor(device, N, D, bw, seed)
 
 
-@pytest.mark.parametrize("N,D,b,bw,chains", [(1025, 3, 100, 1200, (64, 256)),
-                                             (65, 3, 4, 48, (7,)),
-                                             (300, 1, 40, 0, (1,))])
+@pytest.mark.parametrize("N,D,b,bw,chains", [
+    (1025, 3, 100, 1200, (1, 33, 64, 65, 128, 256, 257)),
+    (65, 3, 4, 48, (7,)),
+    (300, 1, 40, 0, (1,))])
 def test_banded_kernels_match_plain_versions(device, N, D, b, bw, chains):
     """K3 and K4, forward and adjoint, through the banded target's stages
     at the Lorenz shapes and at ragged sizes (a part-filled last tile, a
-    diagonal-only factor, one chain)."""
+    diagonal-only factor, one chain). At the Lorenz shapes the chain
+    counts cross K4's group sizes (8 chains per cluster up to 120 chains,
+    20 above) and fill one cluster partly (1, 33, 65, 257)."""
     from magi_v2_tpu_torch.ops import banded as bd
 
     blocks, factor = synthetic_banded_ops(device, N, D, b, bw)
@@ -163,6 +173,21 @@ def test_banded_kernels_match_plain_versions(device, N, D, b, bw, chains):
                                           device)
     assert set(results) == set(bd.KERNELS)
     assert all(n > 0 for n in bd.launch_counts().values())
+
+
+def test_unwhiten_solve_matches_plain_version(device):
+    """K4 as ``unwhiten_draws`` gives it (C, 1, N*D) right-hand sides, C
+    draws x chains: 20 draws x 256 chains in chunks of 4 draws (float32,
+    1024 right-hand sides) and 2 draws (float64, 512), each more than one
+    wave of clusters."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    factor = synthetic_factor(device)
+    bd.reset_launch_counts()
+    errs = chip_smoke.check_unwhiten(factor, 1025, 3, 20, 256, device,
+                                     max_bytes=4 * 256 * 3075 * 4)
+    assert len(errs[torch.float32]) == 5 and len(errs[torch.float64]) == 10
+    assert bd.launch_counts()["banded_solve"] == 15
 
 
 def test_banded_wrappers_raise_instead_of_falling_back(device):
@@ -176,6 +201,38 @@ def test_banded_wrappers_raise_instead_of_falling_back(device):
     y = torch.zeros((2, 1, 195), dtype=torch.float64, device=device)
     with pytest.raises(ValueError, match="expected"):
         bd.banded_solve(factor, y.cpu(), torch.empty_like(y))
+
+
+def test_refused_solve_launch_raises_and_does_not_fall_back(device,
+                                                            monkeypatch):
+    """A K4 cluster launch that the card refuses (here: more shared memory
+    per CTA than an SM has, with the wrapper's own check lifted) raises:
+    x stays unwritten, no launch is counted, and the next launch runs."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    N, nwu, C = 256, 360, 256
+    tiles = torch.zeros((2, nwu, 128, 128), dtype=torch.float64,
+                        device=device)
+    tiles[:, 0] = 2.0 * torch.eye(128, dtype=torch.float64, device=device)
+    factor = bd.UpperFactor.make(tiles, bd.banded_diag_tile_inverses(tiles,
+                                                                     N), N)
+    # too much even for the smallest chain group
+    assert bd._solve_smem(8, nwu, 8) > 232448
+    y = torch.ones((C, 1, N), dtype=torch.float64, device=device)
+    x = torch.full_like(y, float("nan"))
+    monkeypatch.setattr(bd, "_SMEM_LIMIT", 1 << 30)
+    bd.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch of banded_solve failed"):
+        bd.banded_solve(factor, y, x)
+    torch.cuda.synchronize()
+    assert torch.isnan(x).all()
+    assert bd.launch_counts()["banded_solve"] == 0
+    _, small = synthetic_banded_ops(device, 65, 3, 4, 48)
+    y = torch.ones((C, 3, 65), dtype=torch.float64, device=device)
+    x = bd.banded_solve(small, y, torch.empty_like(y))
+    ref = bd.banded_solve_plain(small, y, torch.empty_like(y))
+    assert torch.allclose(x, ref, rtol=0, atol=1e-12)
+    assert bd.launch_counts()["banded_solve"] == 1
 
 
 def test_large_grid_targets_on_card_match_cpu(device):

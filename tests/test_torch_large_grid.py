@@ -55,7 +55,7 @@ def jax_fit():
 def _port(jm, dtype=torch.float64, **kw):
     arrays = {f: np.asarray(getattr(jm, f)) for f in FIT_FIELDS}
     return from_fit_arrays(arrays, tlorenz, 3, bandsize=jm.BANDSIZE,
-                           config=T.MagiConfig(dtype=dtype),
+                           config=T.MagiConfig(dtype=dtype, device="cpu"),
                            exact_operators=jm._exact_operators(), **kw)
 
 
@@ -336,7 +336,8 @@ def test_exact_operators_carried_and_rebuilt(jax_fit):
     assert tm._exact_operators()[0] is tm._exact_operators()[0]
     rebuilt = from_fit_arrays({f: np.asarray(getattr(jm, f))
                                for f in FIT_FIELDS}, tlorenz, 3,
-                              bandsize=4)._exact_operators()
+                              bandsize=4, config=T.MagiConfig(device="cpu")
+                              )._exact_operators()
     xc = (jm.Xhat_init - jm.mu_ds).T
     for a, b in zip(rebuilt, ops_j):
         ra, rb = np.einsum("dnm,dm->dn", a, xc), np.einsum("dnm,dm->dn", b, xc)
@@ -363,7 +364,7 @@ def test_banded_log_posterior_given_t1_matches_jax(jax_fit, branch):
         jm.obs_index, lb, jnp.float64), b, **sqrts)
     tdata = tpo.to_banded_data(tpo.make_posterior_data(
         jm.I, jm.C_d_invs, jm.m_ds, jm.K_d_invs, jm.mu_ds, jm.beta,
-        jm.obs_index, lb, torch.float64), b, **sqrts)
+        jm.obs_index, lb, torch.float64, device="cpu"), b, **sqrts)
     ref_j = ref_t = None
     if branch == "relative":
         i = np.arange(jm.mag_I)
@@ -371,7 +372,8 @@ def test_banded_log_posterior_given_t1_matches_jax(jax_fit, branch):
         ops = (np.where(band, R64, 0.0), np.where(band, S64, 0.0), jm.m_ds)
         args = (jm.I, jm.Xhat_init, jm.mu_ds, jm.thetas_init)
         ref_j = jpo.make_ref_point(*args, jlorenz, *ops, jnp.float64)
-        ref_t = tpo.make_ref_point(*args, tlorenz, *ops, torch.float64)
+        ref_t = tpo.make_ref_point(*args, tlorenz, *ops, torch.float64,
+                                   device="cpu")
     rng = np.random.default_rng(9)
     X = jm.Xhat_init[None] + 0.05 * rng.standard_normal(
         (3,) + jm.Xhat_init.shape)

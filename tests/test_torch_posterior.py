@@ -45,7 +45,7 @@ def _targets(jm, jdt, tdt):
     jmode, *_ = jm._build_sampling_setup("precond", "dense", jdt)
     arrays = {f: np.asarray(getattr(jm, f)) for f in FIT_FIELDS}
     tm = from_fit_arrays(arrays, tseir, 3, bandsize=jm.BANDSIZE,
-                         config=T.MagiConfig(dtype=tdt))
+                         config=T.MagiConfig(dtype=tdt, device="cpu"))
     tmode, tdata, _ = tm._build_sampling_setup("precond", "dense", tdt)
     return jmode, tmode, tm, tdata
 
@@ -101,7 +101,7 @@ def test_k1_matches_autograd_of_plain_log_posterior(jax_fit):
     L = tmode.factor
     ref = tpo.make_ref_point(tm.I, tm.Xhat_init, tm.mu_ds, tm.thetas_init,
                              tseir, R, data.K_inv_sqrts, data.m_ds,
-                             torch.float64)
+                             torch.float64, device="cpu")
     z0 = tmode.X0.reshape(-1)
 
     def lp(q):
@@ -140,7 +140,7 @@ def test_log_posterior_given_t1_matches_jax(jax_fit):
                               data.K_inv_sqrts.numpy(), jm.m_ds, jnp.float64)
     tref = tpo.make_ref_point(jm.I, jm.Xhat_init, jm.mu_ds, jm.thetas_init,
                               tseir, data.C_inv_sqrts, data.K_inv_sqrts,
-                              data.m_ds, torch.float64)
+                              data.m_ds, torch.float64, device="cpu")
     for a, b in zip(jref, tref):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-10,
                                    atol=1e-10 * np.abs(np.asarray(a)).max())

@@ -15,6 +15,7 @@ from magi_v2_tpu.sampler import mass as jmass
 from magi_v2_tpu.sampler import run as jrun
 from magi_v2_tpu.sampler.hmc import make_hmc_step
 from magi_v2_tpu.utils.data import simulate_ode
+from magi_v2_tpu_torch import MagiConfig
 from magi_v2_tpu_torch.models import seir_f_vec as tseir
 from magi_v2_tpu_torch.sampler import mass as tmass
 from magi_v2_tpu_torch.sampler import run as trun
@@ -63,7 +64,7 @@ def test_mass_helpers_match_jax(k):
     np.testing.assert_allclose(tmass.momentum_from_normal(tm, _t(z)).numpy(),
                                pj, rtol=1e-12, atol=1e-14)
     idj = jmass.identity_mass(dim, k, jnp.float64)
-    idt = tmass.identity_mass(dim, k, torch.float64)
+    idt = tmass.identity_mass(dim, k, torch.float64, "cpu")
     np.testing.assert_array_equal(tmass.mass_diag(idt).numpy(),
                                   np.asarray(jmass.mass_diag(idj)))
 
@@ -78,7 +79,7 @@ def magi_targets():
     jm.initial_fit(discretization=1)
     jmode, *_ = jm._build_sampling_setup("precond", "dense", jnp.float64)
     arrays = {f: np.asarray(getattr(jm, f)) for f in FIT_FIELDS}
-    tm = from_fit_arrays(arrays, tseir, 3)
+    tm = from_fit_arrays(arrays, tseir, 3, config=MagiConfig(device="cpu"))
     tmode, _, _ = tm._build_sampling_setup("precond", "dense", torch.float64)
     q0 = np.concatenate([np.asarray(jmode.X0).ravel(), [-10.5, -9.0, -9.5],
                          np.log(np.expm1(jm.thetas_init))])

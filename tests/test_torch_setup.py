@@ -25,7 +25,8 @@ from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, load_fit
 torch.set_num_threads(2)
 
 TINY_J = J.MagiConfig().replace(hparam_num_iters=50, init_num_iters=100)
-TINY_T = T.MagiConfig().replace(hparam_num_iters=50, init_num_iters=100)
+TINY_T = T.MagiConfig(device="cpu").replace(hparam_num_iters=50,
+                                             init_num_iters=100)
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +53,7 @@ def test_hparam_objective_and_gradient_match_jax(seir_data):
     for a, b in zip(prior_j, prior_t):
         np.testing.assert_array_equal(b, a)
     fj, pj = jhp.make_hparam_objective(ts, X, prior_j, 2.01)
-    ft, pt = thp.make_hparam_objective(ts, X, prior_t, 2.01)
+    ft, pt = thp.make_hparam_objective(ts, X, prior_t, 2.01, device="cpu")
     for k in pj:
         np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]),
                                    rtol=1e-14)
@@ -183,7 +184,24 @@ def test_unported_branches_raise(seir_data):
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         T.MAGI_v2(3, ts, X, None, tseir, TINY_T).initial_fit(1)
     with pytest.raises(NotImplementedError, match="item 11"):
-        thp.fit_kernel_hparams(ts, X[:, :1], optimizer="lbfgs")
+        thp.fit_kernel_hparams(ts, X[:, :1], optimizer="lbfgs",
+                               device="cpu")
     # NUTS is not ported, so the config has no tree depth to set and ignore
     with pytest.raises(TypeError, match="max_tree_depth"):
-        T.MagiConfig(max_tree_depth=4)
+        T.MagiConfig(max_tree_depth=4, device="cpu")
+
+
+def test_config_defaults_to_the_card():
+    assert T.MagiConfig().device == "cuda"
+    assert T.MagiConfig().torch_device.type == "cuda"
+    assert TINY_T.torch_device.type == "cpu"
+
+
+def test_default_config_does_not_fall_back_to_the_cpu(seir_data):
+    """Nothing probes for a card: without one, a model made with the
+    default config fails at its first tensor with PyTorch's own error."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card, so the default config runs")
+    ts, X, _ = seir_data
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        T.MAGI_v2(3, ts, X, 20, tseir).initial_fit(1)

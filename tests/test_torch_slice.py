@@ -11,6 +11,7 @@ import magi_v2_tpu as J
 from magi_v2_tpu.models import seir_f_vec as jseir
 from magi_v2_tpu.sampler.precond import unwhiten_Z_full
 from magi_v2_tpu.utils.data import simulate_ode
+from magi_v2_tpu_torch import MagiConfig
 from magi_v2_tpu_torch.models import seir_f_vec as tseir
 from magi_v2_tpu_torch.sampler.modes import unwhiten_draws
 from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
@@ -37,7 +38,8 @@ def fitted():
         hparam_num_iters=50, init_num_iters=100))
     jm.initial_fit(discretization=1)
     arrays = {f: np.asarray(getattr(jm, f)) for f in FIT_FIELDS}
-    tm = from_fit_arrays(arrays, tseir, 3, bandsize=20)
+    tm = from_fit_arrays(arrays, tseir, 3, bandsize=20,
+                         config=MagiConfig(device="cpu"))
     return jm, tm
 
 
