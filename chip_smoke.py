@@ -9,10 +9,14 @@ only when all of them passed):
    nvidia-smi reports them, and the torch and CUDA versions.
 2. Build: compiles the hand-written kernels (csrc/*.cu, one nvcc process
    per source, in parallel, sm_90a).
-3. Kernels vs plain: each K1 kernel against its plain PyTorch version on
-   the same inputs at the SEIR bench shapes (256 chains, N_I = 161, D = 3),
-   and K2 (the leapfrog update) at the Lorenz shapes (256 chains, 3081
-   coordinates), in float32 and float64, timed with CUDA events.
+3. Kernels vs plain: each K1 kernel, launched as the sampler's target
+   launches it (``ManifoldPlan``: arguments checked once, fixed buffers)
+   and through its one-shot wrapper, against its plain PyTorch version on
+   the same inputs at the SEIR bench shapes (256 chains, N_I = 161, D = 3)
+   and at a chain count and grid that fill no tile (37 chains, N_I = 333);
+   two runs of one launch must agree bit for bit. K2 (the leapfrog update)
+   at the Lorenz shapes (256 chains, 3081 coordinates). Float32 and
+   float64, timed with CUDA events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -20,23 +24,29 @@ only when all of them passed):
 5. The composed float64 SEIR target on the card against the same target on
    the CPU (plain versions), for 8 states near the fit.
 6. Leapfrog profile of the SEIR path: ms per leapfrog with the kernels and
-   with their plain versions swapped in, host time per wrapper call, and
+   with their plain versions swapped in, host time of each bound call of
+   the target (the K1 launches, the stages around them), and
    torch.profiler's device time by kernel over one transition.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
    ``initial_fit(2, thetas_init=...)`` (see ``lorenz_fit``).
 8. Lorenz kernels vs plain: K1 with the Lorenz model; K3 (block-banded
-   matvec and adjoint) on the fit's band-truncated R, m, S and K4 (the
+   matvec and adjoint, single and paired: [R; m] delta and [R' | -m'] gcat
+   are one launch each) on the fit's band-truncated R, m, S and K4 (the
    block-banded solve and adjoint) on its banded Gauss-Newton factor,
    both called through the banded target's own stages (so on the strided
    views the sampler passes) at 64, 256 and 257 chains, in float64 and
-   float32; K4 also prints its residual ||Ux - y|| / ||y|| and its time
-   at each chain count. K4 is also checked as ``unwhiten_draws`` calls it
-   on the hybrid run's 500 x 256 draws: (C, 1, N) right-hand sides in
-   chunks of up to 87,296, many waves of clusters. Each kernel's
+   float32, each launch run twice and compared bit for bit; K3 and K4
+   print their time at each chain count, K4 also its residual
+   ||Ux - y|| / ||y||, and 300 launches at 257 chains must all agree with
+   the first. K4 is also checked as
+   ``unwhiten_draws`` calls it on the hybrid run's 500 x 256 draws:
+   (C, 1, N) right-hand sides in chunks of up to 87,296, many waves of
+   clusters. Each kernel's
    time is printed beside one PyTorch call that computes the same function
-   (the yardstick: torch.bmm with the densified operator for K3,
+   (the yardstick: torch.bmm with the densified operator for K3, for a
+   pair the faster of two such calls and one on the stacked operators;
    torch.linalg.solve_triangular on the densified factor for K4).
 9. Hybrid path: ``predict(storage="hybrid")``, 256 chains, L <= 64,
    500 + 500 steps, reference annealing at a 0.3 floor, sigma pinned at
@@ -51,6 +61,9 @@ only when all of them passed):
 12. Leapfrog profile of the hybrid path, and K4's float32 time per launch
    at 256 chains back to back and in that leapfrog, beside its bound and
    solve_triangular's time.
+13. Leapfrog profile of the banded path at its 64 chains: leapfrog wall
+   with the kernels and with the plain versions, device busy share, device
+   time per launch by kernel, host time of each bound call.
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it), error, times,
@@ -79,6 +92,10 @@ TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # (magi_v2_tpu/ops/banded.py), so the kernel and the plain version each
 # carry that much
 SOLVE_TOL = {torch.float32: 5e-4, torch.float64: 1e-12}
+# K3 sums each row's products in another order than the plain version's
+# GEMM (four column quarters per tile, then the quarters): a few ulps of a
+# sum of some 300 terms, relative to max |y|
+MATVEC_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 # composed float64 target, card vs CPU, relative to max |value|
 COMPOSED_TOL = 1e-9
 TRUE_THETAS = np.array([6.0, 0.6, 1.8])
@@ -96,6 +113,8 @@ REPLACES = {
     "leapfrog_update": "magi_v2_tpu/sampler/hmc.py:63",
     "banded_matvec": "magi_v2_tpu/ops/banded.py:212",
     "banded_matvec_adjoint": "magi_v2_tpu/ops/banded.py:212",
+    "banded_matvec_pair": "magi_v2_tpu/ops/banded.py:212",
+    "banded_matvec_adjoint_pair": "magi_v2_tpu/ops/banded.py:212",
     "banded_solve": "magi_v2_tpu/ops/banded.py:315",
     "banded_solve_adjoint": "magi_v2_tpu/ops/banded.py:315",
 }
@@ -282,65 +301,122 @@ def report(kname, dtype, errs, ms, plain_ms, tol, results, extra="",
                               **(more or {}))
 
 
-def check_kernels(device, model="seir", N=161):
-    """Each K1 kernel against its plain version, float32 and float64;
-    returns {name: {max_abs_err, ms, plain_ms}} for float32 (the sampling
-    dtype); names carry a ``_lorenz`` suffix for the Lorenz model."""
+K1_CONSTS = ("x0T", "a0", "f0", "s0", "mask", "y", "sigma_lb", "n_ds")
+
+
+def make_plan(f, x, device, dtype):
+    """The K1 plan of the sampler's target on ``kernel_inputs`` ``x``:
+    delta, RmD, Ds and gdr are the inputs, the other buffers new. Returns
+    (plan, buffers, I)."""
+    from magi_v2_tpu_torch.ops import manifold as mf
+
+    C, D, N = x["delta"].shape
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+    bufs = dict(delta=x["delta"], RmD=x["RmD"], Ds=x["Ds"], gdr=x["gdr"],
+                gcat=new(D, C, 2 * N), t14=new(C, 2),
+                **{k: new(D, C, N) for k in ("dr", "gDs", "gpart")})
+    I = torch.zeros((N, 1), dtype=dtype, device=device)
+    plan = mf.ManifoldPlan(f, I, {k: x[k] for k in K1_CONSTS}, x["beta"],
+                           x["q"].shape[1], bufs)
+    return plan, bufs, I
+
+
+def same_twice(run, outputs, what):
+    """Two runs of one launch must write the same bits: no sum may depend
+    on the order in which blocks finish."""
+    run()
+    first = [t.clone() for t in outputs()]
+    run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, outputs())):
+        raise AssertionError(f"{what}: two runs of the same launch differ")
+
+
+def check_kernels(device, model="seir", N=161, C=256, tag=""):
+    """Each K1 kernel against its plain version, float32 and float64, as
+    the target launches it (``ManifoldPlan``) and through its one-shot
+    wrapper (the same kernel: the same bits); returns {name: {max_abs_err,
+    ms, plain_ms}} for float32 (the sampling dtype); names carry a
+    ``_lorenz`` suffix for the Lorenz model, and ``tag`` after it."""
     from magi_v2_tpu_torch.models import MODEL_REGISTRY
     from magi_v2_tpu_torch.ops import manifold as mf
 
     f = MODEL_REGISTRY[model].f_vec
-    suffix = "" if model == "seir" else f"_{model}"
+    suffix = ("" if model == "seir" else f"_{model}") + tag
     results = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
     for dtype in (torch.float64, torch.float32):
-        x = kernel_inputs(dtype, device, N=N, model=model)
+        x = kernel_inputs(dtype, device, C=C, N=N, model=model)
         D, N = x["x0T"].shape
-        I = torch.zeros((N, 1), dtype=dtype, device=device)
-        fwd_args = (f, I, x["delta"], x["RmD"], x["q"], x["x0T"], x["a0"],
-                    x["f0"], x["mask"], x["y"], x["sigma_lb"],
-                    x["beta_temp"], x["beta"])
-        dr, gcat, t14 = mf.manifold_fwd(*fwd_args)
+        plan, b, I = make_plan(f, x, device, dtype)
+        q, bt = x["q"], x["beta_temp"]
+        lp = torch.empty((C,), dtype=dtype, device=device)
+        grad = torch.zeros_like(q)
+
+        fwd_args = (f, I, x["delta"], x["RmD"], q, x["x0T"], x["a0"],
+                    x["f0"], x["mask"], x["y"], x["sigma_lb"], bt, x["beta"])
+        fwd = lambda: plan.fwd(q, bt, stream)
+        same_twice(fwd, lambda: (b["dr"], b["t14"], b["gcat"][..., :N]),
+                   f"manifold_fwd{suffix}")
         pdr, pgcat, pt14 = mf.manifold_fwd_plain(*fwd_args)
         # manifold_fwd writes only the first half of gcat
-        fwd_err = part_errors([("dr", pdr, dr), ("t14", pt14, t14),
-                               ("g_Rd", pgcat[..., :N], gcat[..., :N])], N, D)
+        fwd_err = part_errors([("dr", pdr, b["dr"]), ("t14", pt14, b["t14"]),
+                               ("g_Rd", pgcat[..., :N], b["gcat"][..., :N])],
+                              N, D)
+        dr1, gcat1, t141 = mf.manifold_fwd(*fwd_args)
+        one_shot = (torch.equal(dr1, b["dr"]) and torch.equal(t141, b["t14"])
+                    and torch.equal(gcat1[..., :N], b["gcat"][..., :N]))
 
-        en_args = (f, x["Ds"], x["s0"], pt14, x["q"], x["sigma_lb"],
-                   x["n_ds"], x["beta_temp"], x["beta"])
-        lp, gDs = mf.manifold_energy(*en_args)
+        # the next kernels on the plain version's outputs, as their plain
+        # versions
+        b["t14"].copy_(pt14)
+        en_args = (f, x["Ds"], x["s0"], pt14, q, x["sigma_lb"], x["n_ds"],
+                   bt, x["beta"])
+        energy = lambda: plan.energy(q, bt, lp, stream)
+        same_twice(energy, lambda: (lp, b["gDs"]),
+                   f"manifold_energy{suffix}")
         plp, pgDs = mf.manifold_energy_plain(*en_args)
-        en_err = part_errors([("lp", plp, lp), ("gDs", pgDs, gDs)], N, D)
+        en_err = part_errors([("lp", plp, lp), ("gDs", pgDs, b["gDs"])], N, D)
+        lp1, gDs1 = mf.manifold_energy(*en_args)
+        one_shot = (one_shot and torch.equal(lp1, lp)
+                    and torch.equal(gDs1, b["gDs"]))
 
-        def bwd(fn, gc, gr):
-            return fn(f, I, x["gdr"], x["delta"], x["q"], x["x0T"],
-                      x["mask"], x["y"], x["sigma_lb"], x["n_ds"],
-                      x["beta_temp"], gc, gr)
-
-        gc_k, gr_k = pgcat.clone(), torch.zeros_like(x["q"])
-        gc_p, gr_p = pgcat.clone(), torch.zeros_like(x["q"])
-        gp_k = bwd(mf.manifold_bwd, gc_k, gr_k)
-        gp_p = bwd(mf.manifold_bwd_plain, gc_p, gr_p)
-        bwd_err = part_errors([("gpart", gp_p, gp_k), ("gcat", gc_p, gc_k),
-                               ("grad", gr_p, gr_k)], N, D)
+        b["gcat"].copy_(pgcat)
+        bwd = lambda: plan.bwd(q, bt, grad, stream)
+        same_twice(bwd, lambda: (b["gpart"], b["gcat"], grad),
+                   f"manifold_bwd{suffix}")
+        bwd_args = (f, I, x["gdr"], x["delta"], q, x["x0T"], x["mask"],
+                    x["y"], x["sigma_lb"], x["n_ds"], bt)
+        gc_p, gr_p = pgcat.clone(), torch.zeros_like(q)
+        gp_p = mf.manifold_bwd_plain(*bwd_args, gc_p, gr_p)
+        bwd_err = part_errors([("gpart", gp_p, b["gpart"]),
+                               ("gcat", gc_p, b["gcat"]),
+                               ("grad", gr_p, grad)], N, D)
+        gc1, gr1 = pgcat.clone(), torch.zeros_like(q)
+        gp1 = mf.manifold_bwd(*bwd_args, gc1, gr1)
+        one_shot = (one_shot and torch.equal(gp1, b["gpart"])
+                    and torch.equal(gc1, b["gcat"]) and torch.equal(gr1, grad))
         torch.cuda.synchronize()
+        if not one_shot:
+            raise AssertionError(f"K1 {model}: the one-shot wrappers and the "
+                                 "plan launch one kernel and must agree "
+                                 "bit for bit")
 
-        C, P = x["q"].shape[0], x["q"].shape[1] - N * D - D
+        P = q.shape[1] - N * D - D
         for kname, errs, fk, fp in (
-            ("manifold_fwd", fwd_err,
-             lambda: mf.manifold_fwd(*fwd_args),
+            ("manifold_fwd", fwd_err, fwd,
              lambda: mf.manifold_fwd_plain(*fwd_args)),
-            ("manifold_energy", en_err,
-             lambda: mf.manifold_energy(*en_args),
+            ("manifold_energy", en_err, energy,
              lambda: mf.manifold_energy_plain(*en_args)),
-            ("manifold_bwd", bwd_err,
-             lambda: bwd(mf.manifold_bwd, gc_k, gr_k),
-             lambda: bwd(mf.manifold_bwd_plain, gc_p, gr_p)),
+            ("manifold_bwd", bwd_err, bwd,
+             lambda: mf.manifold_bwd_plain(*bwd_args, gc_p, gr_p)),
         ):
             # no one PyTorch call computes a K1 kernel's fused epilogue
             more = dict(k1_bound(kname, C, N, D, P, dtype), library_ms=None)
             report(kname + suffix, dtype, errs, _time_ms(fk), _time_ms(fp),
                    TOL[dtype], results,
-                   extra=f", bound {more['bound_ms']:.4f} ms", more=more)
+                   extra=f" at {C} chains, N {N}, bound "
+                         f"{more['bound_ms']:.4f} ms", more=more)
     return results
 
 
@@ -461,7 +537,8 @@ def main_path(device, num_steps=NUM_STEPS):
     evals = 2 * num_steps * mean_L * NUM_CHAINS / wall
     theta_mean = thetas.reshape(-1, 3).mean(axis=0)
     print(f"predict wall: {wall:.2f} s ({num_steps}+{num_steps} steps, "
-          f"{NUM_CHAINS} chains, L<={NUM_LEAPFROGS})")
+          f"{NUM_CHAINS} chains, L<={NUM_LEAPFROGS}); "
+          f"{predict_phases(model, wall)}")
     print(f"mean acceptance {kr['accept_probs'].mean():.4f}, divergence "
           f"rate {kr['divergences'].mean():.5f}, step size "
           f"{float(kr['step_size']):.5f}")
@@ -482,6 +559,18 @@ def main_path(device, num_steps=NUM_STEPS):
     if not np.all(rel <= 0.15):
         raise AssertionError(f"theta means {theta_mean} off truth by {rel}")
     return model, counts
+
+
+def predict_phases(model, wall):
+    """The last predict's phases on the host's clock, the device waited
+    for at each end (``predict_timings``): building the target and its
+    whitening (for banded storage the Gauss-Newton precision and its
+    Cholesky on the host), the sampler's loop, unwhitening the draws and
+    copying them to the host; the rest is the conversion of the results."""
+    t = model.predict_timings
+    rest = wall - sum(t.values())
+    return ("phases (s): " + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+            + f", rest {rest:.2f}")
 
 
 def check_launched(counts, kernels, path):
@@ -527,19 +616,19 @@ def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The plain versions swapped into the sampler's target (K1, K3, K4),
-    leapfrog (K2) and unwhitening of the draws (K4), which the wrappers
-    never take on a CUDA tensor: the baseline of the kernel checks and of
-    the leapfrog timings below."""
+    """The plain versions in place of the kernels on CUDA tensors, which
+    the package itself never does: whatever is bound or called inside
+    takes the plain versions of K1 (in a target's plan), K3 and K4, and
+    the leapfrog calls K2's. A target bound outside keeps its launches,
+    so take a fresh copy (``target.to(device)``) inside. The baseline of
+    the kernel checks and of the leapfrog timings below."""
     from magi_v2_tpu_torch.ops import banded as bd
     from magi_v2_tpu_torch.ops import manifold as mf
-    from magi_v2_tpu_torch.sampler import hmc, modes, precond
+    from magi_v2_tpu_torch.sampler import hmc
 
-    swaps = [(precond, k, getattr(mf, f"{k}_plain")) for k in mf.KERNELS]
-    swaps += [(precond, "banded_matvec", bd.banded_matvec_plain),
-              (precond, "banded_solve", bd.banded_solve_plain),
-              (modes, "banded_solve", bd.banded_solve_plain),
-              (hmc, "leapfrog_update", hmc.leapfrog_update_plain)]
+    always = lambda device: True
+    swaps = [(bd, "_takes_plain", always), (mf, "_takes_plain", always),
+             (hmc, "leapfrog_update", hmc.leapfrog_update_plain)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -560,23 +649,25 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
                                                            0.6),
                      step_size=0.2, beta_temp=0.15, dense_mass=True,
                      num_chains=NUM_CHAINS, num_leapfrogs=100, reps=5,
-                     host_wrappers=True):
+                     host_calls=True):
     """Where a leapfrog's time goes, at a path's float32 shapes: the wall
     per leapfrog with the kernels and with their plain versions
-    (alternating), one target evaluation alone, the host time of each K1
-    wrapper call, and torch.profiler's device time over one 50-leapfrog
-    transition. Returns the device us per launch of each of the port's
-    kernels, by the profiler's name (empty if it recorded no device
-    time)."""
+    (alternating), one target evaluation alone, the host time of each
+    bound call of the target's workspace (K1's three launches and the
+    stages around them), and torch.profiler's device time over one
+    50-leapfrog transition. Returns the device us per launch of each of
+    the port's kernels, by the profiler's name (empty if it recorded no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from magi_v2_tpu_torch.ops import manifold as mf
     from magi_v2_tpu_torch.sampler.hmc import hmc_step
     from magi_v2_tpu_torch.sampler.mass import identity_mass
 
     mode, _, _ = model._build_sampling_setup("precond", storage,
                                              torch.float32)
     target = mode.logp_grad
+    with plain_kernels():
+        plain_target = target.to(device)
     N, D = model.mag_I, model.D
     dim = N * D + D + model.D_thetas
     g = torch.Generator(device=device).manual_seed(0)
@@ -591,16 +682,16 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
     eps = torch.tensor(step_size, device=device)
     bt = torch.tensor(beta_temp, device=device)
 
-    def transition(L):
-        return hmc_step(lambda q: target(q, bt), qs, eps, inv_mass, L,
+    def transition(L, tgt=target):
+        return hmc_step(lambda q: tgt(q, bt), qs, eps, inv_mass, L,
                         normals, unif)
 
-    def ms_per_leapfrog():
-        transition(num_leapfrogs)
+    def ms_per_leapfrog(tgt):
+        transition(num_leapfrogs, tgt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            transition(num_leapfrogs)
+            transition(num_leapfrogs, tgt)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / (reps * num_leapfrogs) * 1e3
 
@@ -608,46 +699,49 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
     for order in [("kernels", "plain"), ("plain", "kernels")] * 2:
         for name in order:
             if name == "plain":
+                # bound at its first call, so inside the context
                 with plain_kernels():
-                    walls[name].append(ms_per_leapfrog())
+                    walls[name].append(ms_per_leapfrog(plain_target))
             else:
-                walls[name].append(ms_per_leapfrog())
+                walls[name].append(ms_per_leapfrog(target))
     print(f"{storage}: ms per leapfrog ({num_chains} chains, float32), with "
           f"the kernels {walls['kernels']}, with the plain versions "
           f"{walls['plain']}")
     print(f"{storage}: ms per target evaluation alone: "
           f"{_time_ms(lambda: target(qs, bt))}")
 
-    if host_wrappers:
-        # host time of each wrapper (the kernels are a few us on the card,
-        # so back-to-back calls are bound by the host)
-        x = kernel_inputs(torch.float32, device, C=num_chains, N=N, D=D)
-        I = torch.zeros((N, 1), dtype=torch.float32, device=device)
-        gc, gr = torch.zeros_like(x["RmD"]), torch.zeros_like(x["q"])
-        t14 = torch.zeros((num_chains, 2), dtype=torch.float32,
-                          device=device)
+    if host_calls:
+        # host time of each bound call of the target's workspace, back to
+        # back (the kernels are a few us on the card, so a leapfrog is
+        # bound by the host where these add up to more)
+        ws = getattr(target, "logp_grad", target)._workspaces[num_chains]
+        stream = torch.cuda.current_stream(device).cuda_stream
+        lp = torch.empty((num_chains,), dtype=torch.float32, device=device)
+        grad = torch.empty_like(qs)
         calls = {
-            "manifold_fwd": lambda: mf.manifold_fwd(
-                model.f_vec, I, x["delta"], x["RmD"], x["q"], x["x0T"],
-                x["a0"], x["f0"], x["mask"], x["y"], x["sigma_lb"],
-                x["beta_temp"], x["beta"]),
-            "manifold_energy": lambda: mf.manifold_energy(
-                model.f_vec, x["Ds"], x["s0"], t14,
-                x["q"], x["sigma_lb"], x["n_ds"], x["beta_temp"], x["beta"]),
-            "manifold_bwd": lambda: mf.manifold_bwd(
-                model.f_vec, I, x["gdr"], x["delta"], x["q"], x["x0T"],
-                x["mask"], x["y"], x["sigma_lb"], x["n_ds"], x["beta_temp"],
-                gc, gr),
+            "whitening.forward": lambda: ws.whitening.forward(stream),
+            "operators.rm": lambda: ws.operators.rm(stream),
+            "manifold_fwd": lambda: ws.k1.fwd(qs, bt, stream),
+            "operators.s": lambda: ws.operators.s(stream),
+            "manifold_energy": lambda: ws.k1.energy(qs, bt, lp, stream),
+            "operators.s_adjoint": lambda: ws.operators.s_adjoint(stream),
+            "manifold_bwd": lambda: ws.k1.bwd(qs, bt, grad, stream),
+            "operators.rm_adjoint": lambda: ws.operators.rm_adjoint(stream),
+            "whitening.backward": lambda: ws.whitening.backward(grad,
+                                                                stream),
         }
+        host = {}
         for name, fn in calls.items():
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(500):
+            for _ in range(200):
                 fn()
-            host_us = (time.perf_counter() - t0) / 500 * 1e6
+            host[name] = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
-            print(f"{name} wrapper: {host_us:.2f} us of host time per call")
+        print(f"{storage}: host us per bound call, 200 back to back: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+              + f"; sum {sum(host.values()):.1f}")
 
     transition(50)
     torch.cuda.synchronize()
@@ -767,8 +861,13 @@ def check_banded_kernels(model, device):
         (BANDED_CHAINS, LORENZ_CHAINS, RAGGED_CHAINS),
         device, timed={"banded_matvec": BANDED_CHAINS,
                        "banded_matvec_adjoint": BANDED_CHAINS,
+                       "banded_matvec_pair": BANDED_CHAINS,
+                       "banded_matvec_adjoint_pair": BANDED_CHAINS,
                        "banded_solve": LORENZ_CHAINS,
-                       "banded_solve_adjoint": LORENZ_CHAINS})
+                       "banded_solve_adjoint": LORENZ_CHAINS},
+        library_at=(BANDED_CHAINS, LORENZ_CHAINS, RAGGED_CHAINS))
+    solve_repeatability(mode.factor, model.mag_I, model.D, RAGGED_CHAINS,
+                        device)
     check_unwhiten(mode.factor, model.mag_I, model.D, LORENZ_STEPS,
                    LORENZ_CHAINS, device)
     return results
@@ -791,26 +890,56 @@ def banded_yardsticks(ops, wh, C, dtype, device, kernels):
     """For each of ``kernels``: its bound at C chains (the band's nonzeros, read
     once, and two operations per nonzero and chain; the vectors in and
     out) and the time of one PyTorch call that computes the same function
-    on the densified operator: torch.bmm for K3 (S dr and S' g_Ds, the
-    calls timed), torch.linalg.solve_triangular for K4 with the
-    right-hand sides in natural order."""
+    on the densified operator: torch.bmm for K3 (S dr and S' g_Ds; for the
+    pairs [R; m] delta and gpart + [R' | -m'] gcat the faster of two such
+    calls and one call on the stacked operators),
+    torch.linalg.solve_triangular for K4 with the right-hand sides in
+    natural order."""
     size = torch.finfo(dtype).bits // 8
     N, D = wh.N, wh.D
     g = torch.Generator(device="cpu").manual_seed(5)
     r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64).to(
         device=device, dtype=dtype)
+    nonzeros = lambda op: int(torch.count_nonzero(op.tiles))
+    dense = lambda op: dense_banded(op.tiles, op.hw_lo, op.hw_hi, N)
+    vec = D * C * N
     out = {}
-    if any(k.startswith("banded_matvec") for k in kernels):
-        S = ops.S
-        nnz = int(torch.count_nonzero(S.tiles))
-        S_dense = dense_banded(S.tiles, S.hw_lo, S.hw_hi, N)
+    if any(k in ("banded_matvec", "banded_matvec_adjoint") for k in kernels):
+        nnz = nonzeros(ops.S)
+        S_dense = dense(ops.S)
         v = r(D, C, N)
         for k, fn in (("banded_matvec", lambda: torch.bmm(v, S_dense.mT)),
                       ("banded_matvec_adjoint",
                        lambda: torch.bmm(v, S_dense))):
-            out[k] = dict(bound((nnz + 2 * D * C * N) * size, 2 * C * nnz,
-                                dtype), library_ms=_time_ms(fn),
-                          band_nonzeros=nnz)
+            out[k] = dict(bound((nnz + 2 * vec) * size, 2 * C * nnz, dtype),
+                          library_ms=_time_ms(fn), band_nonzeros=nnz)
+    if any(k.endswith("_pair") for k in kernels):
+        nnz = nonzeros(ops.R) + nonzeros(ops.m)
+        R_dense, m_dense = dense(ops.R), dense(ops.m)
+        W_fwd = torch.cat([R_dense.mT, m_dense.mT], dim=2).contiguous()
+        W_bwd = torch.cat([R_dense, -m_dense], dim=1).contiguous()
+        v, v2, acc = r(D, C, N), r(D, C, 2 * N), r(D, C, N)
+
+        def two_forward():
+            return torch.bmm(v, R_dense.mT), torch.bmm(v, m_dense.mT)
+
+        def two_adjoint():
+            return torch.baddbmm(
+                torch.baddbmm(acc, v2[..., :N], R_dense), v2[..., N:],
+                m_dense, alpha=-1.0)
+
+        for k, fns, nvec in (
+            ("banded_matvec_pair",
+             (two_forward, lambda: torch.bmm(v, W_fwd)), 3),
+            ("banded_matvec_adjoint_pair",
+             (two_adjoint, lambda: torch.baddbmm(acc, v2, W_bwd)), 4),
+        ):
+            two_ms, stacked_ms = (_time_ms(fn) for fn in fns)
+            out[k] = dict(bound((nnz + nvec * vec) * size, 2 * C * nnz,
+                                dtype),
+                          library_ms=min(two_ms, stacked_ms),
+                          band_nonzeros=nnz, two_calls_ms=two_ms,
+                          stacked_ms=stacked_ms)
     if any(k.startswith("banded_solve") for k in kernels):
         U = wh.factor.tiles
         nnz = int(torch.count_nonzero(U))
@@ -828,18 +957,82 @@ def banded_yardsticks(ops, wh, C, dtype, device, kernels):
     return {k: out[k] for k in kernels}
 
 
-def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
-    """K3 and K4 against their plain versions through the target's own
-    stages, so on the strided views the sampler passes: K3 through
-    ``BandedOperators`` (R delta and m delta into the halves of the
-    (D, C, 2N) RmD, S dr, S' g_Ds and the accumulating [R' | -m'] gcat on
-    (D, C, N) <-> (C, D, N) transposes) on ``blocks`` ({"R", "m", "S"}:
-    float64 (D, nb, nw, T, T) tiles), K4 through ``BandedWhitening`` (the
-    interleaved <-> component-major permutation) on the float64
-    ``factor64``. The plain side is the same calls with the plain versions
-    swapped in. Float64 and float32, for each chain count of ``chains``;
-    ``timed`` maps a kernel to the chain count whose times are reported
-    (default the first)."""
+def bind_stages(ops, wh, x, stream):
+    """The banded target's stages bound to buffers of their own, as
+    ``GNTarget._bind`` binds them, on the inputs ``x`` (dz (C, ND); delta
+    (C, D, N); dr, gDs, gpart, g_delta (D, C, N); gcat (D, C, 2N)). Returns
+    {kernel: {part: (prepare, run)}}: ``prepare`` restores what the launch
+    reads from a buffer that another launch writes, ``run`` launches once
+    and returns the tensor written. The first part of each kernel is the
+    one the sampler runs."""
+    from magi_v2_tpu_torch.ops import banded as bd
+
+    C, D, N = x["delta"].shape
+    ND = N * D
+    new = lambda *shape: torch.empty(shape, dtype=x["dz"].dtype,
+                                     device=x["dz"].device)
+    b = dict(dz=x["dz"], dr=x["dr"], gDs=x["gDs"], gcat=x["gcat"],
+             delta=new(C, D, N), RmD=new(D, C, 2 * N), grad0=new(C, ND + D + 3),
+             **{k: new(D, C, N) for k in ("Ds", "gdr", "gpart")})
+    bo, bw = ops.bind(b), wh.bind(b)
+
+    def to(buffer, launch):
+        def run():
+            launch(stream)
+            return b[buffer]
+        return run
+
+    def whiten_adjoint():
+        # into the leading ND columns of a new (C, ND + D + P) gradient,
+        # P = 3 theta, as the target passes it: the launch is rebound
+        grad = new(C, ND + D + 3)
+        bw.backward(grad, stream)
+        return grad[:, :ND]
+
+    def scaled_into_half():
+        out = torch.ones((D, C, 2 * N), dtype=x["dz"].dtype,
+                         device=x["dz"].device)
+        bd.banded_matvec(ops.R, x["delta"], out[..., N:].transpose(0, 1),
+                         alpha=-2.0, accumulate=True)
+        return out
+
+    nothing = lambda: None
+    return {
+        "banded_matvec": {"s": (nothing, to("Ds", bo.s)),
+                          "r_half": (nothing, scaled_into_half)},
+        "banded_matvec_pair": {
+            "rm": (lambda: b["delta"].copy_(x["delta"]), to("RmD", bo.rm))},
+        "banded_matvec_adjoint": {
+            "s_adjoint": (nothing, to("gdr", bo.s_adjoint))},
+        # both read gpart, which the operator stage accumulates into and
+        # the whitening stage takes as g_delta
+        "banded_matvec_adjoint_pair": {
+            "rm_adjoint": (lambda: b["gpart"].copy_(x["gpart"]),
+                           to("gpart", bo.rm_adjoint))},
+        "banded_solve": {"x": (nothing, to("delta", bw.forward))},
+        "banded_solve_adjoint": {
+            "gy": (lambda: b["gpart"].copy_(x["g_delta"]), whiten_adjoint)},
+    }
+
+
+def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None,
+                     library_at=()):
+    """K3 and K4 against their plain versions as the sampler launches
+    them: each stage of the banded target bound to fixed buffers
+    (``bind_stages``), so on its strided views. K3 through
+    ``BandedOperators`` (the pair [R; m] delta into the halves of the
+    (D, C, 2N) RmD, S dr, S' g_Ds and the accumulating pair [R' | -m'] gcat
+    on (D, C, N) <-> (C, D, N) transposes, and one unbound launch with
+    alpha and accumulate into a half of RmD) on ``blocks`` ({"R", "m",
+    "S"}: float64 (D, nb, nw, T, T) tiles), K4 through ``BandedWhitening``
+    (the interleaved <-> component-major permutation; the adjoint rebound
+    to a new gradient each call) on the float64 ``factor64``. The plain
+    side is the same stages bound with the plain versions swapped in; each
+    launch runs twice and must give the same bits. Float64 and float32,
+    for each chain count of ``chains``. Every kernel is timed at every
+    chain count; ``timed`` maps a kernel to the chain count whose times are
+    reported (default the first), and K3's yardsticks are also timed and
+    printed at the chain counts of ``library_at``."""
     from magi_v2_tpu_torch.ops import banded as bd
     from magi_v2_tpu_torch.sampler.precond import (
         BandedOperators,
@@ -851,6 +1044,16 @@ def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
     ND = N * D
     results = {}
     yard = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run_parts(stages):
+        out = {}
+        for k, parts in stages.items():
+            for p, (prepare, run) in parts.items():
+                prepare()
+                out[k, p] = run().clone()
+        return out
+
     for dtype in (torch.float64, torch.float32):
         ops = BandedOperators(*(blocks[k].to(dtype) for k in ("R", "m", "S")))
         wh = BandedWhitening(factor64.to(dtype), N, D)
@@ -860,82 +1063,130 @@ def check_banded_ops(blocks, factor64, N, D, chains, device, timed=None):
             g = torch.Generator(device="cpu").manual_seed(4)
             r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64).to(
                 device=device, dtype=dtype)
-            delta, dr, gDs = 1e-2 * r(C, D, N), r(D, C, N), r(D, C, N)
-            gpart, gcat, dz, g_delta = (r(D, C, N), r(D, C, 2 * N), r(C, ND),
-                                        r(D, C, N))
-
-            def whiten_adjoint():
-                # grad[:, :ND] of a (C, ND + D + P) gradient, P = 3 θ, as
-                # the target passes it
-                out = torch.empty((C, ND + D + 3), dtype=dtype,
-                                  device=device)[:, :ND]
-                wh.backward(g_delta, out)
-                return out
-
-            calls = {
-                "banded_matvec": {"rm": lambda: ops.rm(delta),
-                                  "s": lambda: ops.s(dr)},
-                "banded_matvec_adjoint": {
-                    "s_adjoint": lambda: ops.s_adjoint(gDs),
-                    "rm_adjoint": lambda: ops.rm_adjoint(gpart.clone(), gcat)},
-                "banded_solve": {"x": lambda: wh.forward(dz)},
-                "banded_solve_adjoint": {"gy": whiten_adjoint},
-            }
-            got = {k: {p: fn() for p, fn in parts.items()}
-                   for k, parts in calls.items()}
+            x = dict(delta=1e-2 * r(C, D, N), dr=r(D, C, N), gDs=r(D, C, N),
+                     gpart=r(D, C, N), gcat=r(D, C, 2 * N), dz=r(C, ND),
+                     g_delta=r(D, C, N))
+            fast = bind_stages(ops, wh, x, stream)
+            got, again = run_parts(fast), run_parts(fast)
             with plain_kernels():
-                ref = {k: {p: fn() for p, fn in parts.items()}
-                       for k, parts in calls.items()}
-            for k, parts in got.items():
-                for p, t in parts.items():
-                    errs[k][f"{p}_C{C}"] = _relerr(ref[k][p], t)
+                slow = bind_stages(ops, wh, x, stream)
+                ref = run_parts(slow)
+            for (k, p), t in got.items():
+                errs[k][f"{p}_C{C}"] = _relerr(ref[k, p], t)
+                if not torch.equal(t, again[k, p]):
+                    raise AssertionError(
+                        f"{k} ({p}, {C} chains, {dtype}): two runs of the "
+                        "same launch differ")
 
             # the solves' residuals against the float64 factor
-            x_nat = got["banded_solve"]["x"].permute(0, 2, 1).reshape(
+            x_nat = got["banded_solve", "x"].permute(0, 2, 1).reshape(
                 C, ND).double()
             Ux = bd.block_banded_matvec_plain(factor64.tiles, x_nat, 0,
                                               nwu - 1)
-            res = float(torch.linalg.norm(Ux - dz.double())
-                        / torch.linalg.norm(dz.double()))
+            res = float(torch.linalg.norm(Ux - x["dz"].double())
+                        / torch.linalg.norm(x["dz"].double()))
             extra["banded_solve"] += (f", C{C} residual ||Ux - y||/||y|| "
                                       f"{res:.2e}")
-            g_nat = g_delta.permute(1, 2, 0).reshape(C, ND).double()
+            g_nat = x["g_delta"].permute(1, 2, 0).reshape(C, ND).double()
             Utg = bd.block_banded_matvec_adjoint_plain(
-                factor64.tiles, got["banded_solve_adjoint"]["gy"].double(), 0,
+                factor64.tiles, got["banded_solve_adjoint", "gy"].double(), 0,
                 nwu - 1)
             res = float(torch.linalg.norm(Utg - g_nat)
                         / torch.linalg.norm(g_nat))
             extra["banded_solve_adjoint"] += (f", C{C} residual "
                                               f"||U'gy - g||/||g|| {res:.2e}")
 
-            # times of one launch: S dr, S' g_Ds, and the two solves (these
-            # also at the chain counts not reported)
-            for k, p in (("banded_matvec", "s"),
-                         ("banded_matvec_adjoint", "s_adjoint"),
-                         ("banded_solve", "x"), ("banded_solve_adjoint", "gy")):
-                fn = calls[k][p]
+            # times of one launch of each kernel's first part, back to back
+            first = lambda stages, k: next(iter(stages[k].values()))[1]
+            for k in bd.KERNELS:
+                ms = _time_ms(first(fast, k))
                 if C == timed.get(k, chains[0]):
-                    ms = _time_ms(fn)
                     with plain_kernels():
-                        plain_ms = _time_ms(fn)
+                        plain_ms = _time_ms(first(slow, k),
+                                            reps=20 if "solve" in k else 200)
                     times[k] = (ms, plain_ms)
-                    extra[k] += f" (ms of {p} at C{C})"
-                elif k.startswith("banded_solve"):
-                    extra[k] += f", {_time_ms(fn):.4f} ms at C{C}"
-            here = [k for k in timed if timed[k] == C]
+                    extra[k] += f" (ms at C{C})"
+                else:
+                    extra[k] += f", {ms:.4f} ms at C{C}"
+            here = [k for k in bd.KERNELS
+                    if timed.get(k, chains[0]) == C
+                    or (C in library_at and "matvec" in k)]
             for k, more in banded_yardsticks(ops, wh, C, dtype, device,
                                              here).items():
-                yard[k] = more
-                extra[k] += (f", bound {more['bound_ms']:.4f} ms "
+                if timed.get(k, chains[0]) == C:
+                    yard[k] = more
+                extra[k] += (f", C{C}: bound {more['bound_ms']:.4f} ms "
                              f"({more['bound_by']}, {more['band_nonzeros']} "
                              f"band nonzeros), one PyTorch call "
                              f"{more['library_ms']:.4f} ms")
+                if "stacked_ms" in more:
+                    extra[k] += (f" (two calls {more['two_calls_ms']:.4f}, "
+                                 f"stacked {more['stacked_ms']:.4f})")
         torch.cuda.synchronize()
         for k in bd.KERNELS:
-            tol = SOLVE_TOL if k.startswith("banded_solve") else TOL
+            tol = SOLVE_TOL if k.startswith("banded_solve") else MATVEC_TOL
+            more = {key: v for key, v in (yard.get(k) or {}).items()
+                    if key not in ("two_calls_ms", "stacked_ms")}
             report(k, dtype, errs[k], *times[k], tol[dtype], results,
-                   extra=extra[k], more=yard.get(k))
+                   extra=extra[k], more=more or None)
     return results
+
+
+def solve_repeatability(factor64, N, D, chains, device, runs=300):
+    """K4 launched ``runs`` times on one input, through the whitening stage
+    bound as the sampler binds it, each result held bit for bit against
+    the first; raises if any differs. Two runs of a launch are not enough
+    here: before the slab ring's release was fenced against the copy
+    engine (csrc/banded.cu: fence_proxy_async), one float64 adjoint launch
+    in some 500 at 257 chains read a slab half refilled and came out wrong
+    by 1e-3 of max|x|. Returns {(dtype, direction): differing runs}, all
+    0."""
+    from magi_v2_tpu_torch.sampler.precond import BandedWhitening
+
+    ND = N * D
+    out = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for dtype in (torch.float64, torch.float32):
+        wh = BandedWhitening(factor64.to(dtype), N, D)
+        g = torch.Generator(device="cpu").manual_seed(4)
+        r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64).to(
+            device=device, dtype=dtype)
+        new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+        b = dict(dz=r(chains, ND), g_delta=r(D, chains, N),
+                 delta=new(chains, D, N), grad0=new(chains, ND + D + 3))
+        bw = wh.bind(b)
+
+        def forward():
+            bw.forward(stream)
+            return b["delta"].reshape(chains, -1)
+
+        def adjoint():
+            grad = new(chains, ND + D + 3)
+            bw.backward(grad, stream)
+            return grad[:, :ND]
+
+        for side, fn in (("forward", forward), ("adjoint", adjoint)):
+            first = fn().clone()
+            differing, worst, where = 0, 0.0, None
+            for _ in range(runs):
+                diff = (fn() - first).abs()
+                top = float(diff.max())
+                if top > 0.0:
+                    differing += 1
+                    if top > worst:
+                        worst = top
+                        where = divmod(int(diff.argmax()), diff.shape[1])
+            name = str(dtype).replace("torch.", "")
+            print(f"banded_solve {side} {name}, {chains} chains: {differing} "
+                  f"of {runs} launches differ from the first; largest "
+                  f"difference {worst:.3e} of max|x| "
+                  f"{float(first.abs().max()):.3e}"
+                  + (f" at (chain, entry) {where}" if where else ""))
+            out[(dtype, side)] = differing
+    if any(out.values()):
+        raise AssertionError("banded_solve is not repeatable: launches on "
+                             "one input differ")
+    return out
 
 
 def check_unwhiten(factor64, N, D, draws, chains, device, max_bytes=1 << 30):
@@ -987,7 +1238,8 @@ LORENZ_PATH_KERNELS = {
                "leapfrog_update", "banded_solve", "banded_solve_adjoint"),
     "banded": ("manifold_fwd", "manifold_energy", "manifold_bwd",
                "leapfrog_update", "banded_solve", "banded_solve_adjoint",
-               "banded_matvec", "banded_matvec_adjoint"),
+               "banded_matvec", "banded_matvec_adjoint",
+               "banded_matvec_pair", "banded_matvec_adjoint_pair"),
 }
 
 
@@ -1020,7 +1272,8 @@ def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
     step = float(kr["step_size"])
     accept = float(kr["accept_probs"].mean())
     print(f"Lorenz {storage} predict wall: {wall:.2f} s ({num_steps}+"
-          f"{num_steps} steps, {num_chains} chains, L<={LORENZ_LEAPFROGS})")
+          f"{num_steps} steps, {num_chains} chains, L<={LORENZ_LEAPFROGS}); "
+          f"{predict_phases(model, wall)}")
     print(f"Lorenz {storage}: mean acceptance {accept:.4f}, divergence rate "
           f"{kr['divergences'].mean():.5f}, step size {step:.5f}")
     print(f"Lorenz {storage}: theta pooled means "
@@ -1036,6 +1289,17 @@ def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
             and np.all(np.isfinite(thetas))):
         raise AssertionError(f"Lorenz {storage}: non-finite draws")
     check_launched(counts, LORENZ_PATH_KERNELS[storage], f"Lorenz {storage}")
+    if storage == "banded":
+        # K3 per target evaluation: S dr, [R; m] delta, S' g_Ds and
+        # [R' | -m'] gcat, one launch each
+        evals = counts["manifold_fwd"]
+        k3 = {k: counts[k] for k in counts if k.startswith("banded_matvec")}
+        print(f"Lorenz banded: {evals} target evaluations, K3 launches {k3}: "
+              f"{sum(k3.values()) / evals:.4f} per evaluation")
+        # (and the whitening of the start, one banded_matvec at setup)
+        if any(not evals <= n <= evals + 1 for n in k3.values()):
+            raise AssertionError("the banded path must launch each of K3's "
+                                 "four entries once per evaluation")
     if not step >= MIN_STEP_SIZE:
         raise AssertionError(f"Lorenz {storage}: step size {step:.3e} < "
                              f"{MIN_STEP_SIZE:.0e}")
@@ -1056,6 +1320,8 @@ def main():
     build()
     print(f"build phase: {time.perf_counter() - t0:.1f} s")
     timing = check_kernels(device)
+    # a chain count and a grid that fill no tile of K1's or K3's
+    check_kernels(device, N=333, C=37)
     timing.update(check_leapfrog(device))
     model, counts_seir = main_path(device)
     check_composed(model, device)
@@ -1064,6 +1330,11 @@ def main():
 
     lmodel = lorenz_fit(device)
     timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I))
+    # K1's grid follows the chain count: the banded run's 64 chains take
+    # more CTAs a chain than the hybrid run's 256, and 257 fill no wave
+    timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I,
+                                C=BANDED_CHAINS, tag=f"_c{BANDED_CHAINS}"))
+    check_kernels(device, model="lorenz", N=lmodel.mag_I, C=RAGGED_CHAINS)
     timing.update(check_banded_kernels(lmodel, device))
     counts_h = lorenz_path(lmodel, device, "hybrid", LORENZ_CHAINS,
                            LORENZ_STEPS, gate_theta=True)
@@ -1074,9 +1345,12 @@ def main():
         check_composed(lmodel, device, storage, tail=lorenz_tail)
     per_launch = profile_leapfrog(
         lmodel, device, "hybrid", tail=lorenz_tail, step_size=0.05,
-        beta_temp=0.3, dense_mass=False, num_leapfrogs=64, reps=3,
-        host_wrappers=False)
+        beta_temp=0.3, dense_mass=False, num_leapfrogs=64, reps=3)
     report_solve(timing, per_launch)
+    profile_leapfrog(
+        lmodel, device, "banded", tail=lorenz_tail, step_size=0.03,
+        beta_temp=0.3, dense_mass=False, num_chains=BANDED_CHAINS,
+        num_leapfrogs=64, reps=3)
 
     def entry(name, kernel, source, path, counts):
         return dict(name=name, route="cuda", source=SOURCES[source],
@@ -1088,12 +1362,17 @@ def main():
     kernels += [entry(f"{k}_lorenz", k, "manifold", "lorenz_hybrid",
                       counts_h)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels += [entry(f"{k}_lorenz_c{BANDED_CHAINS}", k, "manifold",
+                      "lorenz_banded", counts_b)
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
     kernels += [entry("leapfrog_update", "leapfrog_update", "leapfrog",
                       "lorenz_hybrid", counts_h)]
     kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
                 for k in ("banded_solve", "banded_solve_adjoint")]
     kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)
-                for k in ("banded_matvec", "banded_matvec_adjoint")]
+                for k in ("banded_matvec", "banded_matvec_adjoint",
+                          "banded_matvec_pair",
+                          "banded_matvec_adjoint_pair")]
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

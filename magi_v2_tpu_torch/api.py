@@ -443,7 +443,9 @@ class MAGI_v2:
         the band-truncated posterior), ``sigma_sqs_fixed`` (known noise
         variances, pinned) and ``gn_anchor`` (banded/hybrid only); the
         other values raise NotImplementedError. With num_chains > 1 the
-        ``*_samps`` arrays carry a chain axis at position 1."""
+        ``*_samps`` arrays carry a chain axis at position 1. Host wall
+        seconds per phase land in ``predict_timings`` (the device is waited
+        for at the end of each: three waits per call)."""
         if algorithm != "hmc":
             raise _not_ported(f"algorithm={algorithm!r} (NUTS)", "7")
         if reparam != "precond":
@@ -480,10 +482,20 @@ class MAGI_v2:
         sig_fix64, sigma_pre_fix = self._sigma_bounds(sigma_sqs_LB,
                                                       sigma_sqs_fixed)[1:]
         dense_tail_size = self._dense_tail_size(mass_matrix, sigma_sqs_fixed)
+        timings = self.predict_timings = {}
+
+        def phase_done(name, t0):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings[name] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
         mode, data, sigma_sqs_LB = self._build_sampling_setup(
             reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB,
             sigma_sqs_fixed=sigma_sqs_fixed, gn_anchor=gn_anchor,
         )
+        t0 = phase_done("sampling_setup", t0)
 
         def pre_init(vals, lower):
             above = vals > lower
@@ -535,16 +547,19 @@ class MAGI_v2:
             mass_window1_diag=mass_window1_diag,
         )
         start = time.time()
+        t0 = time.perf_counter()
         samples, stats = run_hmc_chains(
             mode.logp_grad,
             torch.as_tensor(q0, dtype=dtype, device=dev),
             seed,
             sampler_config,
         )
+        t0 = phase_done("sampling", t0)
         Z, sigma_pre, theta_pre = unflatten_samples(
             samples, self.mag_I, self.D, self.D_thetas
         )
         X_samps = unwhiten_draws(mode, Z, data.mu_ds).cpu().numpy()
+        phase_done("unwhiten", t0)
         minutes = np.round((time.time() - start) / 60, 2)
         squeeze = num_chains == 1
 

@@ -9,20 +9,55 @@
 //
 // Storage (ops/banded.py): a banded matrix is (nb, nw, T, T) tiles, T = 128,
 // tile[q, s, r, c] = A[q*T + r, (q + s - hw_lo)*T + c]. Every kernel here
-// reads a tile element A[r][c] at tile[c*T + r]: threads on consecutive rows
-// r then read consecutive addresses. K3's forward form gets per-tile
-// transposed copies made once at setup and its adjoint reads the tiles as
-// stored, since A^T[r][c] = A[c][r] is exactly that access; K4 reads the
-// transposed tiles of fold_factor.
+// reads a tile element A[r][c] at [c][r], so that a thread's four rows are
+// one 16-byte read. K3 reads the slab order of ops/banded.py:slab_order
+// (every 32-row chunk of a tile contiguous, column-major: the unit one CTA
+// copies), of A for the forward form and of A^T (transpose_blocks) for the
+// adjoint, so that both directions are one kernel; K4 reads the transposed
+// tiles of fold_factor. All are made once, when an operator is prepared.
 //
 // K3  y = alpha op(A) x (+ y), op(A) = A or A^T, x, y (E, B, N) with chains
-//     (E) as the free dimension. One block per (chain tile, tile row,
-//     component): it sums its nw tile products into registers, with no
-//     atomics. The source rows of x are staged in shared memory (one T-long
-//     row per chain), each tile element is read once per block from L2 and
-//     used for kMvChains chains. At the Lorenz shapes (B = 3, nb = 9,
-//     nw = 3, 256 chains) that is 432 blocks reading 83 MB of tiles from L2
-//     and 0.3 GFMA: L2-bandwidth bound.
+//     (E) as the free dimension, and two paired forms in one launch:
+//     y1 = a1 A1 x, y2 = a2 A2 x ([R; m] delta of the sampler's target) and
+//     y (+)= a1 A1 x1 + a2 A2 x2 ([R' | -m'] gcat).
+//
+//     What bounds it. At the banded run's shapes (64 chains, B = 3, nb = 9,
+//     nw = 3) one product is 85 MFMA on 2.4 MB of tiles and 1.6 MB of
+//     vectors: 1.2 us of HBM traffic, 2.5 us of float32 FMAs on an H100
+//     SXM. So it is a question of filling the card for a few microseconds:
+//     enough CTAs, all their bytes in flight at once, and an inner loop
+//     that keeps the FMA units fed. The first port of this kernel (108
+//     CTAs of 128 threads, a thread per row reading its tile elements one
+//     4-byte load at a time from L2, one shared load per FMA) took 31 us,
+//     more than torch.bmm with the densified operator (29 us).
+//
+//     Design. One CTA of 256 threads per (32 chains, 32 rows of a tile
+//     row, component): 198 CTAs with work at 64 chains, two on an SM (16
+//     warps), 864 at 256 chains. The tiles of the window (of both operators
+//     for a pair) pass through a ring of three stages in shared memory: the
+//     CTA's 16 KB slab of a tile by one cp.async.bulk on the stage's
+//     mbarrier, the 32 x 128 source block of x by 4-byte cp.async, chain-
+//     major as it lies in memory (x's rows are not 16-byte aligned: N =
+//     1025), with 16 bytes of padding a row so that a warp's eight chains
+//     hit distinct banks. With nw = 3 every byte the CTA needs is in flight
+//     before the first FMA; a wider window (the upper window of a factor)
+//     refills a stage when all threads have left it. Each thread holds 4
+//     rows x 4 chains and one column quarter of every tile: per four
+//     columns, four 16-byte reads of the slab and four of x feed 64 FMAs
+//     (one shared load per 8 FMAs). The four column quarters are summed
+//     through shared memory in a fixed order and written by threads on
+//     consecutive rows: no atomics, results independent of timing. A pair
+//     on one x keeps the x blocks of the first operator in the ring for the
+//     second where the window fills it. Rows and chains of padding (N =
+//     1025 leaves the ninth tile row one row; 257 chains a ninth chain
+//     tile of one) are zero-filled on the way in and skipped on the way
+//     out; a chunk of 32 rows that holds no row of the matrix returns at
+//     once. Measured on an H100 SXM at 700 W, float32 (PERF.md): 0.012 ms
+//     per product at 64 chains and 0.031 ms at 256 (torch.bmm 0.029 and
+//     0.063), the pairs 0.019 and 0.023 ms at 64 chains; bounds 0.0012 and
+//     0.0045 ms. What holds it now: at 64 chains the launch and the one
+//     round trip to L2 before the first FMA; at 256 chains the FMA stream
+//     (about a third of the float32 peak) behind 3.3 waves of CTAs.
 //
 // K4  x = U^{-1} y (back substitution) and its adjoint x = U^{-T} y (forward
 //     substitution), U upper in (nb, nwu, T, T) tiles. Setup folds the
@@ -69,8 +104,11 @@
 //     H100 SXM at 700 W, 256 chains in float32 take 0.13 ms per launch
 //     against a 0.023 ms bound, and variants built only to time it took the
 //     same 0.13 ms with the slab copies removed and 0.055 ms with the FMAs
-//     removed (PERF.md). Plain FP32/FP64 FMAs: no TF32 tensor cores, which
-//     would cost the solve its accuracy. The sampler's interleaved (n*D + d)
+//     removed (PERF.md). Since then every thread fences its reads of a
+//     slab before the slot's release (fence_proxy_async below: the refill
+//     comes through the async proxy), which made it 0.14 ms. Plain
+//     FP32/FP64 FMAs: no TF32 tensor cores, which would cost the solve its
+//     accuracy. The sampler's interleaved (n*D + d)
 //     to component-major permutation is folded into the loads of y and the
 //     stores of x through three strides per side. Padded rows (index >= N)
 //     and padded chains solve to exactly 0. A launch the card refuses
@@ -85,59 +123,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kT = 128;          // tile width
-constexpr int kMvChains = 16;    // K3 chains per block
 constexpr int kSolveCluster = 8;                  // K4 CTAs per cluster
 constexpr int kOwn = kT / kSolveCluster;          // tile columns per CTA
 constexpr int kHalf = kOwn / 2;                   // columns per thread
 constexpr int kRows = 4;                          // rows per thread
-
-template <typename T, bool kAdjoint>
-__global__ void __launch_bounds__(kT)
-banded_matvec_kernel(const T* __restrict__ tiles, const T* __restrict__ x,
-                     T* __restrict__ y, int E, int B, int N, int nb, int nw,
-                     int hw, long long xs_e, long long xs_b, long long ys_e,
-                     long long ys_b, T alpha, int accumulate) {
-  __shared__ T xs[kMvChains][kT];
-  const int r = threadIdx.x;
-  const int e0 = blockIdx.x * kMvChains;
-  const int p = blockIdx.y;  // output tile row
-  const int b = blockIdx.z;  // component
-  T acc[kMvChains];
-#pragma unroll
-  for (int c = 0; c < kMvChains; ++c) acc[c] = T(0);
-
-  for (int j = 0; j < nw; ++j) {
-    const int q = p + j - hw;  // source tile (block-uniform)
-    if (q < 0 || q >= nb) continue;
-    // forward: A^T-stored tile (b, p, j); adjoint: tile (b, q, nw-1-j)
-    const T* A = kAdjoint
-        ? tiles + (((size_t)b * nb + q) * nw + (nw - 1 - j)) * kT * kT
-        : tiles + (((size_t)b * nb + p) * nw + j) * kT * kT;
-    __syncthreads();  // the previous source rows are consumed
-    const int col = q * kT + r;
-#pragma unroll
-    for (int c = 0; c < kMvChains; ++c) {
-      const int e = e0 + c;
-      xs[c][r] = (e < E && col < N) ? x[e * xs_e + b * xs_b + col] : T(0);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < kT; ++t) {
-      const T a = A[t * kT + r];
-#pragma unroll
-      for (int c = 0; c < kMvChains; ++c) acc[c] += a * xs[c][t];
-    }
-  }
-  const int row = p * kT + r;
-  if (row >= N) return;
-#pragma unroll
-  for (int c = 0; c < kMvChains; ++c) {
-    const int e = e0 + c;
-    if (e >= E) break;
-    T* out = y + e * ys_e + b * ys_b + row;
-    *out = accumulate ? *out + alpha * acc[c] : alpha * acc[c];
-  }
-}
 
 // element g = m*D + d of chain c in a (C, D, M) view with strides s
 __device__ __forceinline__ long long view_offset(int c, int g, int D,
@@ -295,10 +284,277 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
         : "memory");
 }
 
+// Orders this thread's reads of shared memory before a bulk copy that a
+// later synchronisation lets overwrite them: the copy engine writes through
+// the async proxy, which an mbarrier arrival or a barrier alone does not
+// order against reads under way through the generic one. (Without it,
+// one float64 solve in some 500 at 20 chains a cluster, where the ring
+// holds 6 slabs, read a slab half refilled.)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // a barrier of the first n threads of the CTA (the loader warp is not in it)
 __device__ __forceinline__ void sync_threads(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// K3: the block-banded matvec
+// ---------------------------------------------------------------------------
+
+constexpr int kMvRows = 32;      // rows of a tile row per CTA
+constexpr int kMvChunks = kT / kMvRows;
+constexpr int kMvChains = 32;    // chains per CTA
+constexpr int kMvStages = 3;     // ring of (tile slab, x block) stages
+constexpr int kMvThreads = 256;
+constexpr int kMvSplit = 4;      // column quarters of a tile, 64 threads each
+constexpr int kMvCols = kT / kMvSplit;
+
+// Row stride of a staged x block: 16 bytes of padding, so that the eight
+// chains a warp reads at one column lie in distinct banks.
+template <typename T>
+__host__ __device__ constexpr int mv_x_stride() {
+  return kT + 16 / (int)sizeof(T);
+}
+
+// One stage: a slab (kT columns x kMvRows rows) and an x block (kMvChains
+// chains x kT columns, padded).
+template <typename T>
+__host__ __device__ constexpr int mv_stage_elems() {
+  return kMvRows * kT + kMvChains * mv_x_stride<T>();
+}
+
+// mode 0: y[0] = alpha[0] A0 x[0]; mode 1: y[o] = alpha[o] A_o x[0] for
+// o = 0, 1; mode 2: y[0] = alpha[0] A0 x[0] + alpha[1] A1 x[1]; each added
+// to what y holds when `accumulate`.
+template <typename T>
+struct MvArgs {
+  const T* k[2];   // slab-ordered tiles of each operator
+  const T* x[2];
+  T* y[2];
+  long long xs_e[2], xs_b[2], ys_e[2], ys_b[2];
+  T alpha[2];
+  int mode, E, B, N, nb, nw, hw, accumulate;
+};
+
+// every committed cp.async group complete but the kPending most recent
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One CTA per (kMvChains chains, kMvRows rows of a tile row, component). The
+// window's tiles (of both operators in modes 1 and 2) pass through the ring
+// as items: the CTA's slab of the tile by the bulk copy engine on the
+// stage's mbarrier, the source rows of x by cp.async, chain-major as they
+// lie in memory. The slab-ordered tiles hold element (row r, column c) of
+// the CTA's chunk at [c][r], so four rows are one 16-byte read. Thread
+// (ks, rg, cq) owns rows 4rg..4rg+3, chains cq, cq+8, cq+16, cq+24 and the
+// column quarter ks of every tile: per four columns, four 16-byte reads of
+// the slab and four of x feed 64 FMAs. The quarters are summed through
+// shared memory in the order ks = 0..3.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kMvThreads, sizeof(T) == 4 ? 2 : 1)
+banded_matvec_kernel(const MvArgs<T> a) {
+  constexpr int kSums = kMode == 0 ? 1 : 2;  // operators, and their sums
+  constexpr int XS = mv_x_stride<T>();
+  constexpr int kStage = mv_stage_elems<T>();
+  constexpr int kRed = kMvRows + 4;  // padded row of the partial sums
+  extern __shared__ __align__(128) unsigned char mv_smem[];
+  __shared__ unsigned long long full[kMvStages];
+  T* stages = reinterpret_cast<T*>(mv_smem);
+
+  const int t = threadIdx.x;
+  const int e0 = blockIdx.x * kMvChains;
+  const int p = blockIdx.y / kMvChunks;   // output tile row
+  const int rc = blockIdx.y % kMvChunks;  // its chunk of rows
+  const int b = blockIdx.z;               // component
+  const int row0 = p * kT + rc * kMvRows;
+  if (row0 >= a.N) return;  // a chunk of padding only
+  // the window slots whose source tile lies in the matrix
+  const int j_lo = a.hw - p > 0 ? a.hw - p : 0;
+  const int j_hi = a.nb + a.hw - p < a.nw ? a.nb + a.hw - p : a.nw;
+  const int nvalid = j_hi - j_lo;
+  const int nitems = kSums * nvalid;
+  // mode 1 with a window that fills the ring: the second operator finds
+  // each x block where the first one staged it
+  const bool reuse_x = kMode == 1 && nvalid == kMvStages;
+
+  auto fetch = [&](int n) {  // item n into stage n % kMvStages
+    const int o = n / nvalid, j = j_lo + n % nvalid;
+    const int s = n % kMvStages;
+    T* st = stages + (size_t)s * kStage;
+    if (t == 0) {
+      mbar_expect(&full[s], kMvRows * kT * sizeof(T));
+      bulk_load(st,
+                a.k[o] + ((((size_t)b * a.nb + p) * a.nw + j) * kMvChunks +
+                          rc) * (kMvRows * kT),
+                kMvRows * kT * sizeof(T), &full[s]);
+    }
+    if (reuse_x && o == 1) return;
+    const int xo = kMode == 2 ? o : 0;
+    const T* xsrc = a.x[xo];
+    const int col = (p + j - a.hw) * kT + t % kT;
+    T* xd = st + kMvRows * kT + t % kT;
+#pragma unroll
+    for (int i = 0; i < kMvChains * kT / kMvThreads; ++i) {
+      const int c = t / kT + (kMvThreads / kT) * i;
+      const int e = e0 + c;
+      const bool in = e < a.E && col < a.N;
+      cp_async_elem(xd + c * XS,
+                    in ? xsrc + e * a.xs_e[xo] + b * a.xs_b[xo] + col : xsrc,
+                    in);
+    }
+  };
+
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < kMvStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // one cp.async group per item, empty where there is none, so that the
+  // group of item n is always the kMvStages-th most recent at its wait
+#pragma unroll
+  for (int n = 0; n < kMvStages; ++n) {
+    if (n < nitems) fetch(n);
+    cp_async_commit();
+  }
+
+  const int ks = t / 64;
+  const int rg = (t % 64) / 8;
+  const int cq = t % 8;
+  T acc[kSums][4][4];
+#pragma unroll
+  for (int o = 0; o < kSums; ++o)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[o][r][i] = T(0);
+
+  auto run = [&](T (&sum)[4][4], int n_begin, int n_end) {
+    for (int n = n_begin; n < n_end; ++n) {
+      const int s = n % kMvStages;
+      cp_async_wait_pending<kMvStages - 1>();
+      __syncthreads();  // the x block, staged by every thread, is visible
+      mbar_wait<false>(&full[s], (n / kMvStages) & 1);
+      const T* As =
+          stages + (size_t)s * kStage + ks * kMvCols * kMvRows + rg * 4;
+      const T* Xs = stages + (size_t)s * kStage + kMvRows * kT + cq * XS +
+                    ks * kMvCols;
+#pragma unroll 2
+      for (int c4 = 0; c4 < kMvCols; c4 += 4) {
+        Vec<T, 4> xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          xv[i] = *reinterpret_cast<const Vec<T, 4>*>(Xs + 8 * i * XS + c4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const Vec<T, 4> av = *reinterpret_cast<const Vec<T, 4>*>(
+              As + (c4 + kk) * kMvRows);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sum[r][i] += av.v[r] * xv[i].v[kk];
+        }
+      }
+      if (n + kMvStages < nitems) {
+        fence_proxy_async();
+        __syncthreads();  // every thread is done with stage s
+        fetch(n + kMvStages);
+      }
+      cp_async_commit();
+    }
+  };
+  run(acc[0], 0, nvalid);
+  if constexpr (kMode != 0) run(acc[1], nvalid, nitems);
+
+  // the column quarters through shared memory (the ring is free: every
+  // item was waited for by every thread), summed in the order ks = 0..3
+  __syncthreads();
+  T* red = stages;  // [kSums][kMvSplit][kMvChains][kRed]
+#pragma unroll
+  for (int o = 0; o < kSums; ++o) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Vec<T, 4> v;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v.v[r] = acc[o][r][i];
+      *reinterpret_cast<Vec<T, 4>*>(
+          red + ((size_t)(o * kMvSplit + ks) * kMvChains + cq + 8 * i) *
+                    kRed + rg * 4) = v;
+    }
+  }
+  __syncthreads();
+  const int row = row0 + t % kMvRows;
+  if (row >= a.N) return;
+#pragma unroll
+  for (int i = 0; i < kMvChains * kMvRows / kMvThreads; ++i) {
+    const int c = t / kMvRows + (kMvThreads / kMvRows) * i;
+    const int e = e0 + c;
+    if (e >= a.E) break;
+    T sum[kSums];
+#pragma unroll
+    for (int o = 0; o < kSums; ++o) {
+      sum[o] = T(0);
+#pragma unroll
+      for (int q = 0; q < kMvSplit; ++q)
+        sum[o] += red[((size_t)(o * kMvSplit + q) * kMvChains + c) * kRed +
+                      t % kMvRows];
+    }
+    if constexpr (kMode == 1) {
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        T* out = a.y[o] + e * a.ys_e[o] + b * a.ys_b[o] + row;
+        const T v = a.alpha[o] * sum[o];
+        *out = a.accumulate ? *out + v : v;
+      }
+    } else {
+      T* out = a.y[0] + e * a.ys_e[0] + b * a.ys_b[0] + row;
+      T v = a.alpha[0] * sum[0];
+      if constexpr (kMode == 2) v += a.alpha[1] * sum[1];
+      *out = a.accumulate ? *out + v : v;
+    }
+  }
+}
+
+template <typename T, int kMode>
+int launch_matvec_mode(const MvArgs<T>& a, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)kMvStages * mv_stage_elems<T>() * sizeof(T);
+  auto kernel = banded_matvec_kernel<T, kMode>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    ready = true;
+  }
+  const dim3 grid((a.E + kMvChains - 1) / kMvChains, a.nb * kMvChunks, a.B);
+  kernel<<<grid, kMvThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_matvec(const MvArgs<T>& a, cudaStream_t stream) {
+  switch (a.mode) {
+    case 0: return launch_matvec_mode<T, 0>(a, stream);
+    case 1: return launch_matvec_mode<T, 1>(a, stream);
+    case 2: return launch_matvec_mode<T, 2>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K4: the block-banded triangular solve
+// ---------------------------------------------------------------------------
 
 constexpr int kMaxRing = 24;               // slabs in the ring, at most
 constexpr int kSlab = kOwn * kT;           // elements of one CTA's slab
@@ -436,6 +692,7 @@ banded_solve_kernel(const T* __restrict__ kt, const T* __restrict__ y,
     const int q = n % S;
     mbar_wait<false>(&full[q], (n / S) & 1);
     fma_slab<T, CH>(acc, slabs + (size_t)q * kSlab + w_off, src + src_off);
+    fence_proxy_async();  // the slot is refilled once every warp arrived
     __syncwarp();
     if ((t & 31) == 0) mbar_arrive(&empty[q]);
     ++n;
@@ -592,24 +849,16 @@ int launch_solve_fit(const T* kt, const T* y, T* x, const SolveArgs& a,
 
 #define MAGI_BANDED_ENTRY_POINTS(T, SUF)                                      \
   extern "C" int magi_banded_matvec_##SUF(                                    \
-      const T* tiles, const T* x, T* y, int E, int B, int N, int nb, int nw,  \
-      int hw, long long xs_e, long long xs_b, long long ys_e, long long ys_b, \
-      double alpha, int accumulate, void* stream) {                           \
-    const dim3 grid((E + kMvChains - 1) / kMvChains, nb, B);                  \
-    banded_matvec_kernel<T, false><<<grid, kT, 0, (cudaStream_t)stream>>>(    \
-        tiles, x, y, E, B, N, nb, nw, hw, xs_e, xs_b, ys_e, ys_b, (T)alpha,   \
-        accumulate);                                                          \
-    return (int)cudaGetLastError();                                           \
-  }                                                                           \
-  extern "C" int magi_banded_matvec_adjoint_##SUF(                            \
-      const T* tiles, const T* x, T* y, int E, int B, int N, int nb, int nw,  \
-      int hw, long long xs_e, long long xs_b, long long ys_e, long long ys_b, \
-      double alpha, int accumulate, void* stream) {                           \
-    const dim3 grid((E + kMvChains - 1) / kMvChains, nb, B);                  \
-    banded_matvec_kernel<T, true><<<grid, kT, 0, (cudaStream_t)stream>>>(     \
-        tiles, x, y, E, B, N, nb, nw, hw, xs_e, xs_b, ys_e, ys_b, (T)alpha,   \
-        accumulate);                                                          \
-    return (int)cudaGetLastError();                                           \
+      const T* k0, const T* k1, const T* x0, const T* x1, T* y0, T* y1,       \
+      int mode, int E, int B, int N, int nb, int nw, int hw,                  \
+      long long x0s_e, long long x0s_b, long long x1s_e, long long x1s_b,     \
+      long long y0s_e, long long y0s_b, long long y1s_e, long long y1s_b,     \
+      double alpha0, double alpha1, int accumulate, void* stream) {           \
+    const MvArgs<T> a = {{k0, k1},       {x0, x1},       {y0, y1},            \
+                         {x0s_e, x1s_e}, {x0s_b, x1s_b}, {y0s_e, y1s_e},      \
+                         {y0s_b, y1s_b}, {(T)alpha0, (T)alpha1},              \
+                         mode, E, B, N, nb, nw, hw, accumulate};              \
+    return launch_matvec<T>(a, (cudaStream_t)stream);                         \
   }                                                                           \
   extern "C" int magi_banded_solve_##SUF(                                     \
       const T* kt, const T* y, T* x, int C, int D, int N, int nb, int nwu,    \

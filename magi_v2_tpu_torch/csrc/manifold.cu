@@ -18,17 +18,38 @@
 //                    the theta_pre and sigma_pre gradients, and g_dr copied
 //                    beside g_Rd for the stacked [R^T | -m^T] product
 //
-// What bounds it on the card: latency and launch count, not bandwidth or
-// flops. At the SEIR bench shapes (256 chains, N_I = 161, D = 3) each kernel
-// moves 1-3 MB and does O(10) flops per element, which the H100 streams
-// in under a microsecond; measured device time is 3-6 us per kernel
-// (torch.profiler, H100 SXM), so a kernel is dominated by its launch and
-// the short per-chain reductions. The design reads and writes every
-// element once (each thread owns one (chain, n) point and all D
-// components, so f and its Jacobian are evaluated once per point from
-// registers), replaces some thirty small eager launches with three, and
-// reduces per chain in one block's shared memory (no atomics, no second
-// pass, results independent of scheduling).
+// What bounds it on the card. Each kernel streams a few (C, D, N) blocks
+// once and does O(10) operations an element: at the Lorenz shapes (256
+// chains, N_I = 1025) 6-16 MB, 1.9-4.7 us at the H100's memory rate; at the
+// SEIR shapes (256 chains, N_I = 161) 1-3 MB, under a microsecond. So a
+// kernel's time is its launch, one round trip to memory, and the chain's
+// sums, and the design is about bytes in flight and a short tail. The first
+// port gave a chain one CTA of 128 threads walking its points: at the
+// Lorenz shapes 256 CTAs on 132 SMs, eight warps an SM with one 4-byte load
+// each in flight, 24.6 + 7.3 + 14.6 us of device time.
+//
+// Design. A thread owns one (chain, n) point and all D components (f and
+// its Jacobian are evaluated once per point from registers) and starts all
+// of the point's loads before it uses any. A chain has ceil(N / 128) CTAs
+// of 128 points (nine at Lorenz: 2304 CTAs), fewer where the card could not
+// hold them all at once (then a thread walks two or more points, so that no
+// CTA waits for a second wave: 1280 CTAs at 256 Lorenz chains), and one
+// where a chain has at most 256 points (SEIR), which spares it the pass
+// below. Loads are 4 bytes: the rows are N or 2N long, 1025 and 2050 at
+// Lorenz, so only every fourth row is 16-byte aligned. What needs q alone
+// (softplus theta, 1 / sigma^2, the log-Jacobians, the factors of the tail
+// gradients) is made by the first P + D threads while the others load, so
+// that after the sums only a few FMAs remain. A chain's sums: each CTA sums
+// over its threads (block_sum), stores its partials in the chain's row of
+// a scratch buffer and takes a ticket; the CTA that draws the chain's last
+// ticket reads the rows in one round trip, adds them in a fixed order and
+// writes the result (chain_sum). No float atomics: draws do not depend on
+// scheduling. On an H100 SXM at 700 W, float32, device time in the
+// sampler's leapfrog (PERF.md has the runs): Lorenz at 256 chains 8.2 + 7.0
+// + 9.3 us against bounds of 4.7 + 1.9 + 3.8, of which some 5 us are the
+// floor a launch with a ticket pass costs at any size (5.3 + 5.5 + 5.9 us
+// at 64 chains); SEIR 3.2 + 3.6 + 4.4 us. The launch itself is prepared
+// once (ops/manifold.py: ManifoldPlan), 5-11 us of host time a call.
 //
 // Layouts (row-major, contiguous): delta (C, D, N); RmD and gcat (D, C, 2N);
 // dr, Ds, g_Ds, g_dr, gpart (D, C, N); q and grad (C, dim) with
@@ -158,6 +179,51 @@ struct Lorenz {
   }
 };
 
+// The sums of one chain over its CTAs. Each CTA sums its NV values over
+// its threads; its thread 0 stores them in the chain's row of `part` and
+// takes a ticket (an integer atomic). The CTA that draws the last ticket
+// adds the G stored rows: thread t takes rows t, t + blockDim, ... in that
+// order and the block sums the threads' values as block_sum always does, so
+// the total does not depend on which CTA came last, and the rows are read
+// in one round trip. Returns true in thread 0 of that CTA, with the totals
+// in v. `ticket` is 0 before the launch and is left 0.
+template <typename T, int NV>
+__device__ bool chain_sum(T (&v)[NV], T* part, int* ticket, int G, int g) {
+  __shared__ int last;
+  block_sum<T, NV>(v);
+  if (G == 1) return threadIdx.x == 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) __stcg(part + g * NV + i, v[i]);
+    __threadfence();
+    last = atomicAdd(ticket, 1) == G - 1;
+  }
+  __syncthreads();  // also: block_sum's shared memory is free again
+  if (!last) return false;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = T(0);
+  for (int h = threadIdx.x; h < G; h += blockDim.x)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += __ldcg(part + h * NV + i);
+  block_sum<T, NV>(v);
+  if (threadIdx.x != 0) return false;
+  *ticket = 0;
+  return true;
+}
+
+// softplus(theta) in par[0..P) and 1 / (softplus(sigma) + lb) in par[P..P+D),
+// once per CTA; the caller synchronises
+template <int D, int P, typename T>
+__device__ __forceinline__ void stage_parameters(const T* qc, const T* lb,
+                                                 int ND, T* par) {
+  const int i = threadIdx.x;
+  if (i < P)
+    par[i] = softplus(qc[ND + D + i]);
+  else if (i < P + D)
+    par[i] = T(1) / (softplus(qc[ND + i - P]) + lb[i - P]);
+}
+
 template <class M, typename T>
 __global__ void __launch_bounds__(kThreads)
 manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
@@ -165,41 +231,57 @@ manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
                     const T* __restrict__ a0, const T* __restrict__ f0,
                     const T* __restrict__ mask, const T* __restrict__ y,
                     const T* __restrict__ lb, const T* __restrict__ beta_temp,
-                    T beta, int C, int N, int dim, T* __restrict__ dr,
-                    T* __restrict__ gcat, T* __restrict__ t14) {
+                    T beta, int C, int N, int G, int dim, T* __restrict__ dr,
+                    T* __restrict__ gcat, T* __restrict__ t14,
+                    T* __restrict__ part, int* __restrict__ ticket) {
   constexpr int D = M::D, P = M::P;
-  const int c = blockIdx.x;
-  const int ND = N * D;
+  __shared__ T par[P + D];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
   const T* qc = q + (size_t)c * dim;
-  T th[P], inv_var[D];
-#pragma unroll
-  for (int k = 0; k < P; ++k) th[k] = softplus(qc[ND + D + k]);
-#pragma unroll
-  for (int d = 0; d < D; ++d) inv_var[d] = T(1) / (softplus(qc[ND + d]) + lb[d]);
   const T scale = beta_temp[0] / beta;
+  stage_parameters<D, P>(qc, lb, N * D, par);
 
   T acc[2] = {T(0), T(0)};
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    T x[D], f[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      x[d] = x0T[d * N + n] + delta[((size_t)c * D + d) * N + n];
-    M::f(x, th, f);
+  bool staged = false;
+  // a block-uniform loop: the barrier inside is reached by every thread
+  for (int base = g * kThreads; base < N; base += G * kThreads) {
+    const int n = base + threadIdx.x;
+    const bool in = n < N;
+    // every load of the point first, so that all are in flight together
+    // and under way while the parameters are staged
+    T dl[D], Rd[D], md[D], xr[D], a[D], fr[D], yv[D], mk[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const size_t row = (size_t)d * C + c;
-      const T Rd = RmD[row * 2 * N + n];
-      const T md = RmD[row * 2 * N + N + n];
-      const T a = a0[d * N + n];
-      dr[row * N + n] = (f[d] - f0[d * N + n]) - md;
-      gcat[row * 2 * N + n] = -scale * (Rd + a);
-      acc[0] += Rd * (Rd + T(2) * a);
-      const T r = x[d] - y[d * N + n];
-      acc[1] += mask[d * N + n] * r * r * inv_var[d];
+      dl[d] = in ? delta[((size_t)c * D + d) * N + n] : T(0);
+      Rd[d] = in ? RmD[row * 2 * N + n] : T(0);
+      md[d] = in ? RmD[row * 2 * N + N + n] : T(0);
+      xr[d] = in ? x0T[d * N + n] : T(0);
+      a[d] = in ? a0[d * N + n] : T(0);
+      fr[d] = in ? f0[d * N + n] : T(0);
+      yv[d] = in ? y[d * N + n] : T(0);
+      mk[d] = in ? mask[d * N + n] : T(0);
+    }
+    if (!staged) {
+      __syncthreads();
+      staged = true;
+    }
+    if (!in) continue;
+    T x[D], f[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = xr[d] + dl[d];
+    M::f(x, par, f);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const size_t row = (size_t)d * C + c;
+      dr[row * N + n] = (f[d] - fr[d]) - md[d];
+      gcat[row * 2 * N + n] = -scale * (Rd[d] + a[d]);
+      acc[0] += Rd[d] * (Rd[d] + T(2) * a[d]);
+      const T r = x[d] - yv[d];
+      acc[1] += mk[d] * r * r * par[P + d];
     }
   }
-  block_sum<T, 2>(acc);
-  if (threadIdx.x == 0) {
+  if (chain_sum<T, 2>(acc, part + (size_t)c * G * 2, ticket + c, G, g)) {
     t14[2 * c] = acc[0];
     t14[2 * c + 1] = acc[1];
   }
@@ -211,35 +293,45 @@ manifold_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
                        const T* __restrict__ t14, const T* __restrict__ q,
                        const T* __restrict__ lb, const T* __restrict__ n_ds,
                        const T* __restrict__ beta_temp, T beta, int C, int N,
-                       int dim, T* __restrict__ lp, T* __restrict__ gDs) {
+                       int G, int dim, T* __restrict__ lp,
+                       T* __restrict__ gDs, T* __restrict__ part,
+                       int* __restrict__ ticket) {
   constexpr int D = M::D, P = M::P;
-  const int c = blockIdx.x;
+  // what the log-posterior needs of q alone, one term a thread, while the
+  // others load: t3's terms in [0, D), the log-Jacobians in [D, 2D + P)
+  __shared__ T term[2 * D + P];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
   const T bt = beta_temp[0];
   const T scale = bt / beta;
+  if (threadIdx.x < D + P) {
+    const int i = threadIdx.x;
+    const T v = q[(size_t)c * dim + N * D + i];
+    term[D + i] = log_sigmoid(v);
+    if (i < D)
+      term[i] = n_ds[i] * lg(T(2.0 * 3.14159265358979323846) *
+                             (softplus(v) + lb[i]));
+  }
   T acc[1] = {T(0)};
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  for (int n = g * kThreads + threadIdx.x; n < N; n += G * kThreads) {
+    T v[D], s[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const size_t o = ((size_t)d * C + c) * N + n;
-      const T v = Ds[o];
-      const T s = s0[d * N + n];
-      acc[0] += v * (v + T(2) * s);
-      gDs[o] = -scale * (v + s);
+      v[d] = Ds[((size_t)d * C + c) * N + n];
+      s[d] = s0[d * N + n];
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      acc[0] += v[d] * (v[d] + T(2) * s[d]);
+      gDs[((size_t)d * C + c) * N + n] = -scale * (v[d] + s[d]);
     }
   }
-  block_sum<T, 1>(acc);
-  if (threadIdx.x == 0) {
-    const T* qc = q + (size_t)c * dim;
-    const int ND = N * D;
+  // (the barriers inside chain_sum order the terms before this read)
+  if (chain_sum<T, 1>(acc, part + (size_t)c * G, ticket + c, G, g)) {
     T t3 = T(0), lj = T(0);
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const T sp = qc[ND + d];
-      t3 += n_ds[d] * lg(T(2.0 * 3.14159265358979323846) * (softplus(sp) + lb[d]));
-      lj += log_sigmoid(sp);
-    }
+    for (int d = 0; d < D; ++d) t3 += term[d];
 #pragma unroll
-    for (int k = 0; k < P; ++k) lj += log_sigmoid(qc[ND + D + k]);
+    for (int i = 0; i < D + P; ++i) lj += term[D + i];
     lp[c] = bt * (T(-0.5) * ((t14[2 * c] + acc[0]) / beta + t3 + t14[2 * c + 1]) + lj);
   }
 }
@@ -250,61 +342,103 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
                     const T* __restrict__ q, const T* __restrict__ x0T,
                     const T* __restrict__ mask, const T* __restrict__ y,
                     const T* __restrict__ lb, const T* __restrict__ n_ds,
-                    const T* __restrict__ beta_temp, int C, int N, int dim,
-                    T* __restrict__ gcat, T* __restrict__ gpart,
-                    T* __restrict__ grad) {
+                    const T* __restrict__ beta_temp, int C, int N, int G,
+                    int dim, T* __restrict__ gcat, T* __restrict__ gpart,
+                    T* __restrict__ grad, T* __restrict__ part,
+                    int* __restrict__ ticket) {
   constexpr int D = M::D, P = M::P;
-  const int c = blockIdx.x;
+  __shared__ T par[P + D];
+  // gradient entry i of the theta_pre (i < P) and sigma_pre tail is
+  // c0[i] + c1[i] * (the chain's sum i): the factors need q alone and are
+  // made while the other threads load
+  __shared__ T c0[P + D], c1[P + D];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
   const int ND = N * D;
   const T* qc = q + (size_t)c * dim;
   const T bt = beta_temp[0];
-  T th[P], inv_var[D];
-#pragma unroll
-  for (int k = 0; k < P; ++k) th[k] = softplus(qc[ND + D + k]);
-#pragma unroll
-  for (int d = 0; d < D; ++d) inv_var[d] = T(1) / (softplus(qc[ND + d]) + lb[d]);
+  stage_parameters<D, P>(qc, lb, ND, par);
+  if (threadIdx.x < P) {
+    const T tp = qc[ND + D + threadIdx.x];
+    c1[threadIdx.x] = sigmoid(tp);
+    c0[threadIdx.x] = bt * sigmoid(-tp);
+  } else if (threadIdx.x < P + D) {
+    // g_s2 = -bt/2 (n_d / s2 - ssr / s2^2), times d s2 / d sigma_pre
+    const int d = threadIdx.x - P;
+    const T sp = qc[ND + d];
+    const T inv = T(1) / (softplus(sp) + lb[d]);
+    const T half = T(0.5) * bt * sigmoid(sp) * inv;
+    c1[P + d] = half * inv;
+    c0[P + d] = bt * sigmoid(-sp) - half * n_ds[d];
+  }
 
   // acc[0..P) theta cotangent sums, acc[P..P+D) observed squared residuals
   T acc[P + D];
 #pragma unroll
   for (int i = 0; i < P + D; ++i) acc[i] = T(0);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    T x[D], g[D], gx[D], gth[P];
+  bool staged = false;
+  for (int base = g * kThreads; base < N; base += G * kThreads) {
+    const int n = base + threadIdx.x;
+    const bool in = n < N;
+    T x[D], gv[D], yv[D], mk[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const size_t row = (size_t)d * C + c;
-      x[d] = x0T[d * N + n] + delta[((size_t)c * D + d) * N + n];
-      g[d] = gdr[row * N + n];
-      gcat[row * 2 * N + N + n] = g[d];
+      x[d] = in ? x0T[d * N + n] + delta[((size_t)c * D + d) * N + n] : T(0);
+      gv[d] = in ? gdr[((size_t)d * C + c) * N + n] : T(0);
+      yv[d] = in ? y[d * N + n] : T(0);
+      mk[d] = in ? mask[d * N + n] : T(0);
     }
-    M::vjp_x(x, th, g, gx);
-    M::vjp_theta(x, th, g, gth);
+    if (!staged) {
+      __syncthreads();
+      staged = true;
+    }
+    if (!in) continue;
+    T gx[D], gth[P];
+    M::vjp_x(x, par, gv, gx);
+    M::vjp_theta(x, par, gv, gth);
 #pragma unroll
     for (int k = 0; k < P; ++k) acc[k] += gth[k];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const T m = mask[d * N + n];
-      const T r = x[d] - y[d * N + n];
-      acc[P + d] += m * r * r;
-      gpart[((size_t)d * C + c) * N + n] = gx[d] - bt * m * r * inv_var[d];
+      const size_t row = (size_t)d * C + c;
+      gcat[row * 2 * N + N + n] = gv[d];
+      const T r = x[d] - yv[d];
+      acc[P + d] += mk[d] * r * r;
+      gpart[row * N + n] = gx[d] - bt * mk[d] * r * par[P + d];
     }
   }
-  block_sum<T, P + D>(acc);
-  if (threadIdx.x == 0) {
+  if (chain_sum<T, P + D>(acc, part + (size_t)c * G * (P + D), ticket + c, G,
+                          g)) {
     T* gc = grad + (size_t)c * dim;
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const T tp = qc[ND + D + k];
-      gc[ND + D + k] = acc[k] * sigmoid(tp) + bt * sigmoid(-tp);
-    }
+    for (int k = 0; k < P; ++k) gc[ND + D + k] = c0[k] + c1[k] * acc[k];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const T sp = qc[ND + d];
-      const T s2 = softplus(sp) + lb[d];
-      const T g_s2 = T(-0.5) * bt * (n_ds[d] / s2 - acc[P + d] / (s2 * s2));
-      gc[ND + d] = g_s2 * sigmoid(sp) + bt * sigmoid(-sp);
-    }
+    for (int d = 0; d < D; ++d)
+      gc[ND + d] = c0[P + d] + c1[P + d] * acc[P + d];
   }
+}
+
+// The CTAs of one chain. A chain of at most two points a thread stays in
+// one CTA, where the second point costs less than the pass of the sums
+// through global memory. Otherwise one CTA per kThreads points, a point a
+// thread, unless the card cannot hold all the CTAs at once (16 of kThreads
+// threads on each SM): then as few points a thread as let it, so that no
+// CTA waits for a second wave.
+inline int chunks_of(int N, int C) {
+  if (N <= 2 * kThreads) return 1;
+  static int slots = 0;
+  if (slots == 0) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 1;
+    cudaGetLastError();
+    slots = sms * (2048 / kThreads);
+  }
+  int G = (N + kThreads - 1) / kThreads;
+  for (int ppt = 2; (long long)C * G > slots && ppt <= 8; ++ppt)
+    G = (N + ppt * kThreads - 1) / (ppt * kThreads);
+  return G;
 }
 
 }  // namespace
@@ -314,30 +448,35 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
       const T* delta, const T* RmD, const T* q, const T* x0T, const T* a0,    \
       const T* f0, const T* mask, const T* y, const T* lb,                    \
       const T* beta_temp, double beta, int C, int N, int dim, T* dr,          \
-      T* gcat, T* t14, void* stream) {                                        \
-    manifold_fwd_kernel<MODEL, T><<<C, kThreads, 0, (cudaStream_t)stream>>>(  \
-        delta, RmD, q, x0T, a0, f0, mask, y, lb, beta_temp, (T)beta, C, N,    \
-        dim, dr, gcat, t14);                                                  \
+      T* gcat, T* t14, T* part, int* ticket, void* stream) {                  \
+    const int G = chunks_of(N, C);                                               \
+    manifold_fwd_kernel<MODEL, T>                                             \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            delta, RmD, q, x0T, a0, f0, mask, y, lb, beta_temp, (T)beta, C,   \
+            N, G, dim, dr, gcat, t14, part, ticket);                          \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_energy_##NAME##_##SUF(                          \
       const T* Ds, const T* s0, const T* t14, const T* q, const T* lb,        \
       const T* n_ds, const T* beta_temp, double beta, int C, int N, int dim,  \
-      T* lp, T* gDs, void* stream) {                                          \
+      T* lp, T* gDs, T* part, int* ticket, void* stream) {                    \
+    const int G = chunks_of(N, C);                                               \
     manifold_energy_kernel<MODEL, T>                                          \
-        <<<C, kThreads, 0, (cudaStream_t)stream>>>(                           \
-            Ds, s0, t14, q, lb, n_ds, beta_temp, (T)beta, C, N, dim, lp,      \
-            gDs);                                                             \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            Ds, s0, t14, q, lb, n_ds, beta_temp, (T)beta, C, N, G, dim, lp,   \
+            gDs, part, ticket);                                               \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_bwd_##NAME##_##SUF(                             \
       const T* gdr, const T* delta, const T* q, const T* x0T,                 \
       const T* mask, const T* y, const T* lb, const T* n_ds,                  \
       const T* beta_temp, int C, int N, int dim, T* gcat, T* gpart,           \
-      T* grad, void* stream) {                                                \
-    manifold_bwd_kernel<MODEL, T><<<C, kThreads, 0, (cudaStream_t)stream>>>(  \
-        gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, C, N, dim, gcat,    \
-        gpart, grad);                                                         \
+      T* grad, T* part, int* ticket, void* stream) {                          \
+    const int G = chunks_of(N, C);                                               \
+    manifold_bwd_kernel<MODEL, T>                                             \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, C, N, G, dim,   \
+            gcat, gpart, grad, part, ticket);                                 \
     return (int)cudaGetLastError();                                           \
   }
 

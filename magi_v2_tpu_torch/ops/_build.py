@@ -34,13 +34,47 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C signatures of the entry points, by family (pointers and stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
-    "manifold_fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 3 + [_P],
-    "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 2 + [_P],
-    "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 3 + [_P],
-    "banded_matvec": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_D, _I] + [_P],
+    "manifold_fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 5 + [_P],
+    "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 4 + [_P],
+    "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_P],
+    "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],
     "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
     "leapfrog_update": [_P] * 7 + [_I] * 5 + [_P] + [_P],
 }
+
+
+class Launch:
+    """One kernel launch with its argument list made once: ``args`` (all
+    but the stream; tensors stand for their pointers) are converted to
+    ctypes values here, so that a call converts nothing. ``rebind`` points
+    one argument at another tensor (the caller keeps that tensor alive; the
+    tensors given here are kept by the object); a call takes the stream,
+    raises when the launch is refused, and adds one to ``counts[key]``."""
+
+    __slots__ = ("fn", "cargs", "counts", "key", "keep")
+
+    def __init__(self, fn, args, counts: dict, key: str):
+        import torch
+
+        self.fn, self.counts, self.key = fn, counts, key
+        self.keep = [a for a in args if isinstance(a, torch.Tensor)]
+        if len(args) + 1 != len(fn.argtypes):
+            raise TypeError(f"{key} takes {len(fn.argtypes) - 1} arguments "
+                            f"and the stream, got {len(args)}")
+        self.cargs = [ctype(a.data_ptr() if isinstance(a, torch.Tensor)
+                            else a)
+                      for ctype, a in zip(fn.argtypes, args)] + [_P(0)]
+
+    def rebind(self, index: int, tensor) -> None:
+        self.cargs[index].value = tensor.data_ptr()
+
+    def __call__(self, stream: int) -> None:
+        self.cargs[-1].value = stream
+        err = self.fn(*self.cargs)
+        if err != 0:
+            raise RuntimeError(f"CUDA launch of {self.key} failed: error "
+                               f"{err}")
+        self.counts[self.key] += 1
 
 
 def _nvcc() -> str:

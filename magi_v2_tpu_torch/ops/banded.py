@@ -18,10 +18,12 @@ Three groups of functions:
   kernels' oracle): ``block_banded_matvec_plain`` and
   ``block_banded_triangular_solve_upper_plain``, with their adjoints, and
   ``block_banded_solve_folded_plain``, K4's recurrence on the folded form;
-- the kernel wrappers ``banded_matvec`` (y = alpha op(A) x [+ y]) and
-  ``banded_solve`` (x = U^{-1} y or U^{-T} y) on prepared operators
-  (``BandedMatrix``, ``UpperFactor``), and the JAX package's functions
-  ``block_banded_matvec``, ``block_banded_matvec_upper`` and
+- the kernel wrappers ``banded_matvec`` (y = alpha op(A) x [+ y]), its
+  paired forms ``banded_matvec_pair`` (y1 = a1 op(A1) x, y2 = a2 op(A2) x)
+  and ``banded_matvec_sum`` (y = a1 op(A1) x1 + a2 op(A2) x2 [+ y]), one
+  launch each, and ``banded_solve`` (x = U^{-1} y or U^{-T} y) on prepared
+  operators (``BandedMatrix``, ``UpperFactor``), and the JAX package's
+  functions ``block_banded_matvec``, ``block_banded_matvec_upper`` and
   ``block_banded_triangular_solve_upper`` as ``torch.autograd.Function``s
   whose backward is the adjoint kernel (gradients flow to x or y, not to
   the tiles).
@@ -31,11 +33,22 @@ CUDA tensor, launches the hand-written kernel of csrc/banded.cu or raises:
 there is no fallback on the card. ``LAUNCH_COUNTS`` counts kernel
 launches only.
 
-The kernels read a tile element A[r][c] at ``tile[c*T + r]``, so that
-threads on consecutive rows r read consecutive addresses. K3's forward
-form therefore reads per-tile transposed copies (``tiles_t``), built once
-when an operator is prepared, and its adjoint the tiles as stored; K4
-reads the transposed tiles of ``fold_factor``.
+What is checked when. A wrapper checks its arguments (dtype, device,
+shapes, strides) on every call. ``bind_matvec`` and ``bind_solve`` check
+once and return the call bound to those tensors: on the card a launch
+whose argument list is already converted (``_build.Launch``), on the CPU
+the plain version; calling it takes the stream and checks nothing. The
+sampler's target binds its stages to fixed buffers this way
+(sampler/precond.py), so a bound call reads and writes the tensors it was
+given at binding time, whatever they hold by then. The wrappers are a
+bind followed by one call.
+
+The kernels read a tile element A[r][c] at ``[c][r]``, so that four rows
+are one 16-byte read. K3 reads the slab-ordered tiles of ``slab_order``
+(each 32-row chunk of a tile contiguous, the copy engine's unit), of A for
+the forward form and of A^T (``transpose_blocks``) for the adjoint, both
+built once when an operator is prepared; K4 reads the transposed tiles of
+``fold_factor``.
 """
 
 from __future__ import annotations
@@ -46,7 +59,8 @@ import torch
 
 TILE = 128
 
-KERNELS = ("banded_matvec", "banded_matvec_adjoint", "banded_solve",
+KERNELS = ("banded_matvec", "banded_matvec_adjoint", "banded_matvec_pair",
+           "banded_matvec_adjoint_pair", "banded_solve",
            "banded_solve_adjoint")
 LAUNCH_COUNTS = {k: 0 for k in KERNELS}
 
@@ -267,12 +281,32 @@ def block_banded_solve_folded_plain(kt, y, adjoint: bool = False):
 # --------------------------------------------------------------------------
 
 
+# K3 gives one CTA _MV_ROWS rows of a tile row (csrc/banded.cu: kMvRows)
+_MV_ROWS = 32
+
+
+def slab_order(tiles):
+    """The layout K3 reads: each tile cut into chunks of _MV_ROWS rows,
+    every chunk stored column-major and contiguous,
+    ``out[..., k, c, r] = tile[..., k*_MV_ROWS + r, c]``, so that a CTA's
+    share of a tile is one contiguous slab. Tiles of another width than
+    TILE, which the kernel does not take, are returned as they are."""
+    T = tiles.shape[-1]
+    if T != TILE:
+        return tiles
+    lead = tuple(tiles.shape[:-2])
+    chunks = tiles.reshape(lead + (T // _MV_ROWS, _MV_ROWS, T))
+    return chunks.transpose(-1, -2).contiguous()
+
+
 class BandedMatrix(NamedTuple):
-    """A block-banded operator ready for K3: tiles (B, nb, nw, T, T) and
-    their per-tile transposes (what the forward kernel reads)."""
+    """A block-banded operator ready for K3: tiles (B, nb, nw, T, T) (what
+    the plain versions read) and the slab-ordered tiles of A and of A^T
+    (what the forward and the adjoint kernel read)."""
 
     tiles: torch.Tensor
-    tiles_t: torch.Tensor
+    kt_fwd: torch.Tensor
+    kt_adj: torch.Tensor
     hw_lo: int
     hw_hi: int
 
@@ -287,11 +321,13 @@ class BandedMatrix(NamedTuple):
             raise ValueError(f"window ({hw_lo}, {hw_hi}) does not match "
                              f"{nw} tile columns")
         tiles = tiles.reshape((-1,) + tuple(tiles.shape[-4:])).contiguous()
-        return cls(tiles, tiles.transpose(-1, -2).contiguous(), hw_lo, hw_hi)
+        return cls(tiles, slab_order(tiles),
+                   slab_order(transpose_blocks(tiles, hw_lo, hw_hi)),
+                   hw_lo, hw_hi)
 
     def to(self, *args, **kwargs) -> "BandedMatrix":
-        return self._replace(tiles=self.tiles.to(*args, **kwargs),
-                             tiles_t=self.tiles_t.to(*args, **kwargs))
+        return self._replace(**{k: getattr(self, k).to(*args, **kwargs)
+                                for k in ("tiles", "kt_fwd", "kt_adj")})
 
 
 class UpperFactor(NamedTuple):
@@ -343,7 +379,7 @@ def _suffix(dtype):
 _ENTRIES = {}
 
 
-def _launch(kernel, dtype, args, device):
+def _entry(kernel, dtype):
     name = f"magi_{kernel}_{_suffix(dtype)}"
     fn = _ENTRIES.get(name)
     if fn is None:
@@ -351,12 +387,20 @@ def _launch(kernel, dtype, args, device):
 
         fn = _ENTRIES[name] = load_library().entry(
             name, kernel.replace("_adjoint", ""))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*conv, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of {kernel} failed: error {err}")
-    LAUNCH_COUNTS[kernel] += 1
+    return fn
+
+
+def _takes_plain(device) -> bool:
+    """Whether a call on ``device`` runs the plain version: on the CPU
+    only."""
+    return device.type == "cpu"
+
+
+def launch_stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as the integer a launch
+    takes (0 on the CPU, where nothing is launched)."""
+    return (torch.cuda.current_stream(device).cuda_stream
+            if device.type == "cuda" else 0)
 
 
 def banded_matvec_plain(op: BandedMatrix, x, y, adjoint: bool = False,
@@ -372,6 +416,22 @@ def banded_matvec_plain(op: BandedMatrix, x, y, adjoint: bool = False,
     return y
 
 
+def banded_matvec_pair_plain(op1, op2, x, y1, y2, adjoint: bool = False,
+                             alpha=(1.0, 1.0), accumulate: bool = False):
+    """``banded_matvec_pair`` in plain PyTorch, on any device."""
+    banded_matvec_plain(op1, x, y1, adjoint, alpha[0], accumulate)
+    banded_matvec_plain(op2, x, y2, adjoint, alpha[1], accumulate)
+    return y1, y2
+
+
+def banded_matvec_sum_plain(op1, op2, x1, x2, y, adjoint: bool = False,
+                            alpha=(1.0, 1.0), accumulate: bool = False):
+    """``banded_matvec_sum`` in plain PyTorch, on any device."""
+    banded_matvec_plain(op1, x1, y, adjoint, alpha[0], accumulate)
+    banded_matvec_plain(op2, x2, y, adjoint, alpha[1], True)
+    return y
+
+
 def banded_solve_plain(factor: UpperFactor, y, x, adjoint: bool = False):
     """``banded_solve`` in plain PyTorch, on any device."""
     C, D, M = y.shape
@@ -382,37 +442,109 @@ def banded_solve_plain(factor: UpperFactor, y, x, adjoint: bool = False):
     return x
 
 
+def bind_matvec(ops, xs, ys, adjoint: bool = False, alpha=(1.0, 1.0),
+                accumulate: bool = False):
+    """K3 bound to its operands, checked here once: a callable of the
+    stream that runs one launch (on the CPU the plain version) on the
+    tensors given now.
+
+    ``ops`` one or two ``BandedMatrix`` of one shape and window; with one,
+    y = alpha[0] op(A) x; with two and one x, ys[o] = alpha[o] op(A_o) x
+    (``banded_matvec_pair``); with two and two xs, y = alpha[0] op(A_0)
+    x_0 + alpha[1] op(A_1) x_1 (``banded_matvec_sum``); each added to what
+    y holds when ``accumulate``. op(A) = A^T when ``adjoint``."""
+    ops, xs, ys = tuple(ops), tuple(xs), tuple(ys)
+    shape = (len(ops), len(xs), len(ys))
+    if shape not in ((1, 1, 1), (2, 1, 2), (2, 2, 1)):
+        raise ValueError(f"{shape} operators, inputs and outputs are not a "
+                         "matvec, a pair or a sum")
+    mode = {(1, 1, 1): 0, (2, 1, 2): 1, (2, 2, 1): 2}[shape]
+    tiles = ops[0].tiles
+    Bn, nb, nw, T = tiles.shape[:4]
+    E, B, N = xs[0].shape
+    dev, dt = tiles.device, tiles.dtype
+    for i, op in enumerate(ops):
+        for name in ("tiles", "kt_fwd", "kt_adj"):
+            _check_dtype_device(f"{name} of operator {i}", getattr(op, name),
+                                dt, dev)
+        if (tuple(op.tiles.shape) != tuple(tiles.shape)
+                or (op.hw_lo, op.hw_hi) != (ops[0].hw_lo, ops[0].hw_hi)):
+            raise ValueError("paired operators need one shape and window")
+        if not (op.tiles.is_contiguous() and op.kt_fwd.is_contiguous()
+                and op.kt_adj.is_contiguous()):
+            raise ValueError("tiles need a contiguous layout")
+    for name, t in [(f"x{i}", t) for i, t in enumerate(xs)] + [
+            (f"y{i}", t) for i, t in enumerate(ys)]:
+        _check_dtype_device(name, t, dt, dev)
+        if B != Bn or tuple(t.shape) != (E, B, N) or N > nb * T or (
+                N <= (nb - 1) * T):
+            raise ValueError(
+                f"{name} {tuple(t.shape)} (x {tuple(xs[0].shape)}) do not "
+                f"match tiles {tuple(tiles.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError("x and y need a contiguous last dimension")
+    alpha = tuple(float(a) for a in alpha)
+    accumulate = bool(accumulate)
+    if _takes_plain(dev):
+        if mode == 0:
+            return lambda stream=None: banded_matvec_plain(
+                ops[0], xs[0], ys[0], adjoint, alpha[0], accumulate)
+        if mode == 1:
+            return lambda stream=None: banded_matvec_pair_plain(
+                ops[0], ops[1], xs[0], ys[0], ys[1], adjoint, alpha,
+                accumulate)
+        return lambda stream=None: banded_matvec_sum_plain(
+            ops[0], ops[1], xs[0], xs[1], ys[0], adjoint, alpha, accumulate)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_matvec runs on cpu or cuda, not {dev}")
+    if T != TILE:
+        raise ValueError(f"the kernel takes {TILE}-wide tiles, not {T}")
+    from magi_v2_tpu_torch.ops._build import Launch
+
+    two = lambda seq: (seq[0], seq[-1])
+    kt = [op.kt_adj if adjoint else op.kt_fwd for op in ops]
+    x2, y2 = two(xs), two(ys)
+    name = "banded_matvec" + ("_adjoint" if adjoint else "")
+    return Launch(
+        _entry("banded_matvec", dt),
+        [*two(kt), *x2, *y2, mode, E, B, N, nb, nw,
+         ops[0].hw_hi if adjoint else ops[0].hw_lo,
+         x2[0].stride(0), x2[0].stride(1), x2[1].stride(0), x2[1].stride(1),
+         y2[0].stride(0), y2[0].stride(1), y2[1].stride(0), y2[1].stride(1),
+         *two(alpha), int(accumulate)],
+        LAUNCH_COUNTS, name + ("_pair" if mode else ""))
+
+
 def banded_matvec(op: BandedMatrix, x, y, adjoint: bool = False,
                   alpha: float = 1.0, accumulate: bool = False):
     """K3: y = alpha * op(A) x (+ y when ``accumulate``), op(A) = A or A^T,
     over x, y of shape (E, B, N) (E a free dimension such as chains, B the
     operator's batch); the last dimension must be contiguous, the other
     two may have any strides. Writes y and returns it."""
-    tiles = op.tiles
-    Bn, nb, nw, T = tiles.shape[:4]
-    E, B, N = x.shape
-    dev, dt = tiles.device, tiles.dtype
-    for name, t in (("x", x), ("y", y), ("tiles_t", op.tiles_t)):
-        _check_dtype_device(name, t, dt, dev)
-    if B != Bn or tuple(y.shape) != (E, B, N) or N > nb * T or (
-            N <= (nb - 1) * T):
-        raise ValueError(
-            f"x {tuple(x.shape)} / y {tuple(y.shape)} do not match tiles "
-            f"{tuple(tiles.shape)}")
-    if x.stride(-1) != 1 or y.stride(-1) != 1 or not tiles.is_contiguous():
-        raise ValueError("x and y need a contiguous last dimension, tiles "
-                         "a contiguous layout")
-    if dev.type == "cpu":
-        return banded_matvec_plain(op, x, y, adjoint, alpha, accumulate)
-    if dev.type != "cuda":
-        raise ValueError(f"banded_matvec runs on cpu or cuda, not {dev}")
-    if T != TILE:
-        raise ValueError(f"the kernel takes {TILE}-wide tiles, not {T}")
-    hw = op.hw_hi if adjoint else op.hw_lo
-    _launch("banded_matvec_adjoint" if adjoint else "banded_matvec", dt,
-            [op.tiles if adjoint else op.tiles_t, x, y, E, B, N, nb, nw, hw,
-             x.stride(0), x.stride(1), y.stride(0), y.stride(1),
-             float(alpha), int(bool(accumulate))], dev)
+    bind_matvec((op,), (x,), (y,), adjoint, (alpha,), accumulate)(
+        launch_stream(y.device))
+    return y
+
+
+def banded_matvec_pair(op1: BandedMatrix, op2: BandedMatrix, x, y1, y2,
+                       adjoint: bool = False, alpha=(1.0, 1.0),
+                       accumulate: bool = False):
+    """K3 on two operators and one x in one launch: y1 = alpha[0] op(A1) x,
+    y2 = alpha[1] op(A2) x (each + y when ``accumulate``); shapes and
+    strides as ``banded_matvec``. Writes and returns (y1, y2)."""
+    bind_matvec((op1, op2), (x,), (y1, y2), adjoint, alpha, accumulate)(
+        launch_stream(y1.device))
+    return y1, y2
+
+
+def banded_matvec_sum(op1: BandedMatrix, op2: BandedMatrix, x1, x2, y,
+                      adjoint: bool = False, alpha=(1.0, 1.0),
+                      accumulate: bool = False):
+    """K3 on two operators and two inputs in one launch:
+    y = alpha[0] op(A1) x1 + alpha[1] op(A2) x2 (+ y when ``accumulate``);
+    shapes and strides as ``banded_matvec``. Writes y and returns it."""
+    bind_matvec((op1, op2), (x1, x2), (y,), adjoint, alpha, accumulate)(
+        launch_stream(y.device))
     return y
 
 
@@ -434,13 +566,11 @@ def _solve_smem(ch: int, nwu: int, elem: int) -> int:
     return (2 * _SOLVE_OWN * TILE + rows * _SOLVE_OWN * ch) * elem
 
 
-def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
-    """K4: x = U^{-1} y (``adjoint``: x = U^{-T} y) for each of C chains.
-    y and x are (C, D, M) views with any strides: entry (c, d, m) is
-    element g = m*D + d of chain c's length-N vector, N = M*D (D = 1 for
-    a plain (C, 1, N) vector). So the interleaved-to-component-major
-    permutation of the sampler's state is folded into the loads and
-    stores. Writes x and returns it."""
+def bind_solve(factor: UpperFactor, y, x, adjoint: bool = False):
+    """K4 bound to its operands, checked here once: ``run(stream, x=None)``
+    runs one launch (on the CPU the plain version) reading y as given now
+    and writing x, or another tensor of x's shape and strides passed to the
+    call (the caller keeps it alive until the launch has run)."""
     tiles = factor.tiles
     nb, nwu, T = tiles.shape[0], tiles.shape[1], tiles.shape[2]
     C, D, M = y.shape
@@ -454,8 +584,9 @@ def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
         raise ValueError(
             f"y {tuple(y.shape)} / x {tuple(x.shape)} do not match a "
             f"factor of size {N} with tiles {tuple(tiles.shape)}")
-    if dev.type == "cpu":
-        return banded_solve_plain(factor, y, x, adjoint)
+    if _takes_plain(dev):
+        return lambda stream=None, x=x: banded_solve_plain(factor, y, x,
+                                                           adjoint)
     if dev.type != "cuda":
         raise ValueError(f"banded_solve runs on cpu or cuda, not {dev}")
     if T != TILE:
@@ -464,10 +595,31 @@ def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{nwu} tile columns need {smem} bytes of shared "
                          f"memory, above the card's {_SMEM_LIMIT}")
-    _launch("banded_solve_adjoint" if adjoint else "banded_solve", dt,
-            [factor.kt_adj if adjoint else factor.kt_fwd, y, x, C, D, N, nb,
-             nwu, y.stride(0), y.stride(1), y.stride(2), x.stride(0),
-             x.stride(1), x.stride(2)], dev)
+    from magi_v2_tpu_torch.ops._build import Launch
+
+    kernel = "banded_solve_adjoint" if adjoint else "banded_solve"
+    launch = Launch(
+        _entry(kernel, dt),
+        [factor.kt_adj if adjoint else factor.kt_fwd, y, x, C, D, N, nb,
+         nwu, y.stride(0), y.stride(1), y.stride(2), x.stride(0),
+         x.stride(1), x.stride(2)], LAUNCH_COUNTS, kernel)
+
+    def run(stream, x=None):
+        if x is not None:
+            launch.rebind(2, x)
+        launch(stream)
+
+    return run
+
+
+def banded_solve(factor: UpperFactor, y, x, adjoint: bool = False):
+    """K4: x = U^{-1} y (``adjoint``: x = U^{-T} y) for each of C chains.
+    y and x are (C, D, M) views with any strides: entry (c, d, m) is
+    element g = m*D + d of chain c's length-N vector, N = M*D (D = 1 for
+    a plain (C, 1, N) vector). So the interleaved-to-component-major
+    permutation of the sampler's state is folded into the loads and
+    stores. Writes x and returns it."""
+    bind_solve(factor, y, x, adjoint)(launch_stream(x.device))
     return x
 
 

@@ -18,6 +18,25 @@ for tensors on the CPU, and on a CUDA tensor launches the hand-written
 kernel of csrc/manifold.cu or raises: there is no fallback on the card.
 ``LAUNCH_COUNTS`` counts kernel launches only.
 
+What is checked when, and which buffers are reused. The three wrapper
+functions check every argument on every call and allocate their outputs
+(and the kernels' scratch) anew. ``ManifoldPlan`` is the sampler's form:
+it checks the target's constants and one chain count's buffers once, when
+it is made, and keeps the three launches with their argument lists
+converted (``_build.Launch``); a call then fills in what changes (the
+pointers of q and beta_temp, of lp or grad, and the stream) and checks
+nothing. Its intermediates (dr, gcat, t14, gDs, gpart and the scratch)
+are the buffers it was given and are overwritten by every call; lp and
+grad belong to the caller and are never kept. On the CPU the plan runs
+the plain versions into the same buffers.
+
+The kernels give a chain of more than 256 points up to ceil(N / 128) CTAs
+(csrc/manifold.cu: chunks_of); a chain's sums pass through ``part`` (one
+row of partials per CTA) and are added in a fixed order by the CTA that
+draws the last of the chain's ``ticket``s (an integer atomic), so results
+do not depend on scheduling. ``ticket`` must be zero before a launch and
+is left zero.
+
 Layouts: delta (C, D, N); RmD, gcat (D, C, 2N); dr, Ds, gDs, gdr, gpart
 (D, C, N); q, grad (C, dim), dim = N*D + D + P; x0T, a0, f0, s0, mask, y
 (D, N); sigma_lb, n_ds (D,); beta_temp a 0-dim tensor; beta a float.
@@ -139,6 +158,11 @@ def _check_all(args, dtype, device):
 # ctypes entry points by (kernel, f_vec, dtype), resolved on first launch
 _ENTRIES = {}
 
+# points of a chain per CTA (csrc/manifold.cu: kThreads) and the widest row
+# of per-CTA partial sums (manifold_bwd: P + D values, at most _PART_WIDTH)
+_CHUNK = 128
+_PART_WIDTH = 8
+
 
 def _entry(kernel, f_vec, dtype):
     fn = _ENTRIES.get((kernel, f_vec, dtype))
@@ -163,14 +187,30 @@ def _entry(kernel, f_vec, dtype):
     return fn
 
 
+def _takes_plain(device) -> bool:
+    """Whether a call on ``device`` runs the plain version: on the CPU
+    only."""
+    return device.type == "cpu"
+
+
+def make_scratch(C: int, N: int, dtype, device):
+    """(part (C, G, _PART_WIDTH), ticket (C,) int32 zeros), G the most CTAs
+    a chain gets: what the kernels pass a chain's partial sums through."""
+    G = -(-N // _CHUNK)
+    return (torch.empty((C, G, _PART_WIDTH), dtype=dtype, device=device),
+            torch.zeros((C,), dtype=torch.int32, device=device))
+
+
+def _prepare(kernel, f_vec, dtype, args):
+    from magi_v2_tpu_torch.ops._build import Launch
+
+    return Launch(_entry(kernel, f_vec, dtype), args, LAUNCH_COUNTS,
+                  f"manifold_{kernel}")
+
+
 def _launch(kernel, f_vec, dtype, args):
-    fn = _entry(kernel, f_vec, dtype)
-    stream = torch.cuda.current_stream(args[0].device).cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*conv, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of manifold_{kernel} failed: error {err}")
-    LAUNCH_COUNTS[f"manifold_{kernel}"] += 1
+    _prepare(kernel, f_vec, dtype, args)(
+        torch.cuda.current_stream(args[0].device).cuda_stream)
 
 
 def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
@@ -195,7 +235,8 @@ def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
     t14 = torch.empty((C, 2), dtype=dt, device=dev)
     _launch("fwd", f_vec, dt,
             [delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp,
-             float(beta), C, N, dim, dr, gcat, t14])
+             float(beta), C, N, dim, dr, gcat, t14,
+             *make_scratch(C, N, dt, dev)])
     return dr, gcat, t14
 
 
@@ -219,7 +260,7 @@ def manifold_energy(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
     gDs = torch.empty((D, C, N), dtype=dt, device=dev)
     _launch("energy", f_vec, dt,
             [Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, float(beta), C, N,
-             dim, lp, gDs])
+             dim, lp, gDs, *make_scratch(C, N, dt, dev)])
     return lp, gDs
 
 
@@ -244,5 +285,112 @@ def manifold_bwd(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
     gpart = torch.empty((D, C, N), dtype=dt, device=dev)
     _launch("bwd", f_vec, dt,
             [gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp, C, N,
-             dim, gcat, gpart, grad])
+             dim, gcat, gpart, grad, *make_scratch(C, N, dt, dev)])
     return gpart
+
+
+class ManifoldPlan:
+    """The three K1 kernels bound to a target's constants and to the
+    buffers of one chain count.
+
+    ``consts``: x0T, a0, f0, s0, mask, y (D, N), sigma_lb, n_ds (D,).
+    ``bufs``: delta (C, D, N), RmD, gcat (D, C, 2N), dr, Ds, gDs, gdr,
+    gpart (D, C, N), t14 (C, 2); the operator stages around the kernels
+    write delta, RmD, Ds and gdr, the kernels the rest. Everything is
+    checked here, once. ``fwd``, ``energy`` and ``bwd`` then take the
+    state q (C, dim), the 0-dim beta_temp, the output that belongs to the
+    caller (lp (C,), grad (C, dim)) and the stream, trust them (the
+    caller checks q once per evaluation), and overwrite the buffers."""
+
+    def __init__(self, f_vec, I, consts: dict, beta: float, dim: int,
+                 bufs: dict):
+        delta = bufs["delta"]
+        C, D, N = delta.shape
+        dev, dt = delta.device, delta.dtype
+        row, blk = (D, N), (D, C, N)
+        _check_all(
+            tuple((k, consts[k], row)
+                  for k in ("x0T", "a0", "f0", "s0", "mask", "y"))
+            + tuple((k, consts[k], (D,)) for k in ("sigma_lb", "n_ds"))
+            + (("delta", delta, (C, D, N)), ("t14", bufs["t14"], (C, 2)))
+            + tuple((k, bufs[k], (D, C, 2 * N)) for k in ("RmD", "gcat"))
+            + tuple((k, bufs[k], blk)
+                    for k in ("dr", "Ds", "gDs", "gdr", "gpart")),
+            dt, dev)
+        if dim < N * D + D:
+            raise ValueError(f"a state of {dim} entries does not hold "
+                             f"{N} x {D} points and {D} noise levels")
+        self.f_vec, self.I, self.beta = f_vec, I, float(beta)
+        self.consts, self.bufs = dict(consts), dict(bufs)
+        self.plain = _takes_plain(dev)
+        if self.plain:
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"the manifold kernels run on cpu or cuda, not "
+                             f"{dev}")
+        c, b = self.consts, self.bufs
+        self.scratch = make_scratch(C, N, dt, dev)
+        # q and beta_temp (and lp, grad) are bound at each call: the
+        # pointers given here stand in for them
+        q0 = bt0 = out0 = delta
+        self._fwd = _prepare("fwd", f_vec, dt, [
+            delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"], c["mask"],
+            c["y"], c["sigma_lb"], bt0, self.beta, C, N, dim, b["dr"],
+            b["gcat"], b["t14"], *self.scratch])
+        self._energy = _prepare("energy", f_vec, dt, [
+            b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"], c["n_ds"], bt0,
+            self.beta, C, N, dim, out0, b["gDs"], *self.scratch])
+        self._bwd = _prepare("bwd", f_vec, dt, [
+            b["gdr"], delta, q0, c["x0T"], c["mask"], c["y"], c["sigma_lb"],
+            c["n_ds"], bt0, C, N, dim, b["gcat"], b["gpart"], out0,
+            *self.scratch])
+
+    def fwd(self, q, beta_temp, stream) -> None:
+        """dr, gcat[..., :N] and t14 from delta and RmD."""
+        if self.plain:
+            c, b = self.consts, self.bufs
+            dr, gcat, t14 = manifold_fwd_plain(
+                self.f_vec, self.I, b["delta"], b["RmD"], q, c["x0T"],
+                c["a0"], c["f0"], c["mask"], c["y"], c["sigma_lb"],
+                beta_temp, self.beta)
+            N = dr.shape[-1]
+            b["dr"].copy_(dr)
+            b["gcat"][..., :N].copy_(gcat[..., :N])
+            b["t14"].copy_(t14)
+            return
+        launch = self._fwd
+        launch.rebind(2, q)
+        launch.rebind(9, beta_temp)
+        launch(stream)
+
+    def energy(self, q, beta_temp, lp, stream) -> None:
+        """lp (the caller's) and gDs from Ds and t14."""
+        if self.plain:
+            c, b = self.consts, self.bufs
+            lp_, gDs = manifold_energy_plain(
+                self.f_vec, b["Ds"], c["s0"], b["t14"], q, c["sigma_lb"],
+                c["n_ds"], beta_temp, self.beta)
+            lp.copy_(lp_)
+            b["gDs"].copy_(gDs)
+            return
+        launch = self._energy
+        launch.rebind(3, q)
+        launch.rebind(6, beta_temp)
+        launch.rebind(11, lp)
+        launch(stream)
+
+    def bwd(self, q, beta_temp, grad, stream) -> None:
+        """gpart, gcat[..., N:] and grad[:, N*D:] (the caller's) from gdr
+        and delta."""
+        if self.plain:
+            c, b = self.consts, self.bufs
+            b["gpart"].copy_(manifold_bwd_plain(
+                self.f_vec, self.I, b["gdr"], b["delta"], q, c["x0T"],
+                c["mask"], c["y"], c["sigma_lb"], c["n_ds"], beta_temp,
+                b["gcat"], grad))
+            return
+        launch = self._bwd
+        launch.rebind(2, q)
+        launch.rebind(8, beta_temp)
+        launch.rebind(14, grad)
+        launch(stream)

@@ -16,7 +16,11 @@ design.
 ``GNTarget`` is the per-leapfrog target of all three storage modes: the
 tempered log-posterior and its gradient for a batch of chains, in the
 relative-energy form around a ``RefPoint``. It is one pipeline with two
-pluggable linear stages around the three K1 kernels of ops/manifold.py:
+pluggable linear stages around the three K1 kernels of ops/manifold.py.
+For each chain count it sees, the target keeps one workspace: the
+intermediates in fixed buffers and every stage bound to them once
+(arguments checked and, on the card, argument lists converted then), so
+that an evaluation only launches. The two stages:
 
 - the whitening stage, delta = W (z - z0) and its adjoint: a dense GEMM
   with L (``DenseWhitening``) or the K4 solve with U (``BandedWhitening``);
@@ -33,18 +37,18 @@ import torch
 
 import numpy as np
 
+from types import SimpleNamespace
+
 from magi_v2_tpu_torch.ops.banded import (
     BandedMatrix,
     UpperFactor,
-    banded_matvec,
+    launch_stream,
     banded_solve,
+    bind_matvec,
+    bind_solve,
     block_banded_matvec_upper,
 )
-from magi_v2_tpu_torch.ops.manifold import (
-    manifold_bwd,
-    manifold_energy,
-    manifold_fwd,
-)
+from magi_v2_tpu_torch.ops.manifold import ManifoldPlan
 
 
 def pointwise_ode_jacobian(f_vec, I, Xhat, thetas):
@@ -267,14 +271,25 @@ def unwhiten_Z_banded(Z, mu_ds, factor: UpperFactor):
 
 def _to(obj, device):
     """A copy of ``obj`` (a stage or target) with every tensor, and every
-    member that has ``to``, on ``device``."""
+    member that has ``to``, on ``device``; a target's copy starts with no
+    workspace."""
     out = object.__new__(type(obj))
     out.__dict__ = {
         k: (v.to(device) if isinstance(v, torch.Tensor) or hasattr(v, "to")
             else v)
         for k, v in obj.__dict__.items()
     }
+    if "_workspaces" in out.__dict__:
+        out._workspaces = {}
     return out
+
+
+# A stage's ``bind(b)`` takes a workspace's buffers ``b`` (GNTarget._bind:
+# dz (C, ND), delta (C, D, N), RmD and gcat (D, C, 2N), dr, Ds, gDs, gdr
+# and gpart (D, C, N)) and returns its calls bound to them, each a callable
+# of the stream. The operator stage is bound first and adds ``g_delta``, the
+# (D, C, N) tensor its last product writes and the whitening stage's
+# adjoint reads, in the layout that suits it.
 
 
 class DenseWhitening:
@@ -289,14 +304,19 @@ class DenseWhitening:
         self.L_perm = L_perm.contiguous()        # (DN, ND): g_z = g_delta L_perm
         self.Lt_perm = L_perm.T.contiguous()     # (ND, DN): delta = dz Lt_perm
 
-    def forward(self, dz):
-        return torch.mm(dz, self.Lt_perm).view(dz.shape[0], self.D, self.N)
-
-    def backward(self, g_delta, grad_x):
-        """grad_x (C, ND) <- W' g_delta, g_delta (D, C, N)."""
-        C = grad_x.shape[0]
-        grad_x.copy_(torch.mm(g_delta.transpose(0, 1).reshape(C, -1),
-                              self.L_perm))
+    def bind(self, b):
+        """delta <- dz Lt_perm, and grad[:, :ND] <- g_delta (as (C, D*N))
+        L_perm."""
+        dz = b["dz"]
+        C, ND = dz.shape
+        delta2 = b["delta"].view(C, ND)
+        g_delta2 = b["g_delta"].transpose(0, 1).reshape(C, ND)
+        if g_delta2.data_ptr() != b["g_delta"].data_ptr():
+            raise ValueError("the dense whitening reads g_delta chain-major")
+        return SimpleNamespace(
+            forward=lambda stream: torch.mm(dz, self.Lt_perm, out=delta2),
+            backward=lambda grad, stream: torch.mm(g_delta2, self.L_perm,
+                                                   out=grad[:, :ND]))
 
     to = _to
 
@@ -310,19 +330,22 @@ class BandedWhitening:
     def __init__(self, factor: UpperFactor, N: int, D: int):
         self.factor, self.N, self.D = factor, N, D
 
-    def forward(self, dz):
-        C = dz.shape[0]
-        delta = torch.empty((C, self.D, self.N), dtype=dz.dtype,
-                            device=dz.device)
-        banded_solve(self.factor, dz.view(C, self.N, self.D).permute(0, 2, 1),
-                     delta)
-        return delta
+    def _interleaved(self, flat):
+        """(C, ND) interleaved, as (C, D, N)."""
+        return flat.view(flat.shape[0], self.N, self.D).permute(0, 2, 1)
 
-    def backward(self, g_delta, grad_x):
-        C = grad_x.shape[0]
-        banded_solve(self.factor, g_delta.permute(1, 0, 2),
-                     grad_x.view(C, self.N, self.D).permute(0, 2, 1),
-                     adjoint=True)
+    def bind(self, b):
+        dz = b["dz"]
+        ND = dz.shape[1]
+        forward = bind_solve(self.factor, self._interleaved(dz), b["delta"])
+        # bound to a gradient's leading ND columns; each call brings its own
+        adjoint = bind_solve(self.factor, b["g_delta"].permute(1, 0, 2),
+                             self._interleaved(b["grad0"][:, :ND]),
+                             adjoint=True)
+        return SimpleNamespace(
+            forward=forward,
+            backward=lambda grad, stream: adjoint(
+                stream, self._interleaved(grad[:, :ND])))
 
     to = _to
 
@@ -339,19 +362,20 @@ class DenseOperators:
         self.S = S.contiguous()
         self.St = S.transpose(1, 2).contiguous()
 
-    def rm(self, delta):
-        """(C, D, N) -> RmD (D, C, 2N) = [R delta | m delta]."""
-        return torch.bmm(delta.transpose(0, 1), self.W_fwd)
-
-    def s(self, dr):
-        return torch.bmm(dr, self.St)
-
-    def s_adjoint(self, gDs):
-        return torch.bmm(gDs, self.S)
-
-    def rm_adjoint(self, gpart, gcat):
-        """gpart + R' g_Rd - m' g_dr, gcat = [g_Rd | g_dr] (D, C, 2N)."""
-        return torch.baddbmm(gpart, gcat, self.W_bwd)
+    def bind(self, b):
+        """RmD = [R delta | m delta], Ds = S dr, gdr = S' gDs, and
+        g_delta = gpart + R' g_Rd - m' g_dr with gcat = [g_Rd | g_dr]."""
+        delta_t = b["delta"].transpose(0, 1)
+        # chain-major, so that the dense whitening's adjoint reads it as a
+        # (C, D*N) matrix without a copy
+        g_delta = b["g_delta"] = torch.empty_like(b["delta"]).transpose(0, 1)
+        return SimpleNamespace(
+            rm=lambda stream: torch.bmm(delta_t, self.W_fwd, out=b["RmD"]),
+            s=lambda stream: torch.bmm(b["dr"], self.St, out=b["Ds"]),
+            s_adjoint=lambda stream: torch.bmm(b["gDs"], self.S,
+                                               out=b["gdr"]),
+            rm_adjoint=lambda stream: torch.baddbmm(
+                b["gpart"], b["gcat"], self.W_bwd, out=g_delta))
 
     to = _to
 
@@ -359,40 +383,30 @@ class DenseOperators:
 class BandedOperators:
     """The same products through K3 on the band-truncated block storage of
     R, m and S (D, nb, nw, 128, 128); chains are the kernel's free
-    dimension and the (D, C, N) / (C, D, N) layouts enter as strides."""
+    dimension and the (D, C, N) / (C, D, N) layouts enter as strides.
+    [R; m] delta and [R' | -m'] gcat are one paired launch each."""
 
     def __init__(self, R_blocks, m_blocks, S_blocks):
         self.R = BandedMatrix.make(R_blocks)
         self.m = BandedMatrix.make(m_blocks)
         self.S = BandedMatrix.make(S_blocks)
 
-    def rm(self, delta):
-        C, D, N = delta.shape
-        RmD = torch.empty((D, C, 2 * N), dtype=delta.dtype,
-                          device=delta.device)
-        banded_matvec(self.R, delta, RmD[..., :N].transpose(0, 1))
-        banded_matvec(self.m, delta, RmD[..., N:].transpose(0, 1))
-        return RmD
-
-    def s(self, dr):
-        Ds = torch.empty_like(dr)
-        banded_matvec(self.S, dr.transpose(0, 1), Ds.transpose(0, 1))
-        return Ds
-
-    def s_adjoint(self, gDs):
-        gdr = torch.empty_like(gDs)
-        banded_matvec(self.S, gDs.transpose(0, 1), gdr.transpose(0, 1),
-                      adjoint=True)
-        return gdr
-
-    def rm_adjoint(self, gpart, gcat):
-        N = gpart.shape[-1]
-        out = gpart.transpose(0, 1)
-        banded_matvec(self.R, gcat[..., :N].transpose(0, 1), out,
-                      adjoint=True, accumulate=True)
-        banded_matvec(self.m, gcat[..., N:].transpose(0, 1), out,
-                      adjoint=True, alpha=-1.0, accumulate=True)
-        return gpart
+    def bind(self, b):
+        """The four products of ``DenseOperators.bind``, one K3 launch each;
+        g_delta is gpart, accumulated in place."""
+        N = b["delta"].shape[-1]
+        halves = lambda t: (t[..., :N].transpose(0, 1),
+                            t[..., N:].transpose(0, 1))
+        t = lambda name: (b[name].transpose(0, 1),)
+        b["g_delta"] = b["gpart"]
+        return SimpleNamespace(
+            rm=bind_matvec((self.R, self.m), (b["delta"],), halves(b["RmD"])),
+            s=bind_matvec((self.S,), t("dr"), t("Ds")),
+            s_adjoint=bind_matvec((self.S,), t("gDs"), t("gdr"),
+                                  adjoint=True),
+            rm_adjoint=bind_matvec((self.R, self.m), halves(b["gcat"]),
+                                   t("gpart"), adjoint=True,
+                                   alpha=(1.0, -1.0), accumulate=True))
 
     to = _to
 
@@ -411,7 +425,13 @@ class GNTarget:
         grad_z = W' g_delta                     whitening stage
 
     Layouts follow ops/manifold.py: per-component blocks are (D, C, N).
-    """
+
+    Every intermediate lives in a workspace made when the target first
+    sees a chain count (``_bind``): the buffers, the two stages and the K1
+    plan bound to them, their arguments checked then and not again. A
+    call checks q and beta_temp, overwrites the intermediates, and returns
+    a new lp and a new grad: the sampler holds those of the current state
+    while it evaluates the proposal, so they are never reused."""
 
     def __init__(self, data, f_vec, whitening, operators, ref, z0, N_I: int,
                  D: int, D_thetas: int):
@@ -432,32 +452,62 @@ class GNTarget:
         self.sigma_lb = data.sigma_sqs_LB.contiguous()
         self.n_ds = data.N_ds.contiguous()
         self.beta = float(data.beta)
+        self._workspaces = {}
 
     to = _to
 
+    def _bind(self, C: int):
+        """The workspace of C chains: buffers, bound stages, K1 plan."""
+        N, D = self.N, self.D
+        dt, dev = self.z0.dtype, self.z0.device
+        dim = N * D + D + self.P
+        new = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
+        b = dict(dz=new(C, N * D), delta=new(C, D, N), t14=new(C, 2),
+                 grad0=new(C, dim),
+                 **{k: new(D, C, 2 * N) for k in ("RmD", "gcat")},
+                 **{k: new(D, C, N)
+                    for k in ("dr", "Ds", "gDs", "gdr", "gpart")})
+        consts = {k: getattr(self, k) for k in ("x0T", "a0", "f0", "s0",
+                                                "mask", "y", "sigma_lb",
+                                                "n_ds")}
+        operators = self.operators.bind(b)
+        return SimpleNamespace(
+            bufs=b, q_shape=(C, dim), operators=operators,
+            whitening=self.whitening.bind(b),
+            k1=ManifoldPlan(self.f_vec, self.I, consts, self.beta, dim, b))
+
     def __call__(self, q, beta_temp):
         """q (C, dim) -> (logp (C,), grad (C, dim)); beta_temp 0-dim."""
-        ND = self.N * self.D
+        z0 = self.z0
+        dt, dev = z0.dtype, z0.device
+        if not (isinstance(q, torch.Tensor) and q.dim() == 2
+                and q.dtype == dt and q.device == dev):
+            raise TypeError(f"q must be a (C, dim) {dt} tensor on {dev}")
+        if not (isinstance(beta_temp, torch.Tensor) and beta_temp.dim() == 0
+                and beta_temp.dtype == dt and beta_temp.device == dev):
+            raise TypeError(f"beta_temp must be a 0-dim {dt} tensor on {dev}")
+        C = q.shape[0]
+        ws = self._workspaces.get(C)
+        if ws is None:
+            ws = self._workspaces[C] = self._bind(C)
+        if q.shape != ws.q_shape:
+            raise ValueError(f"q has shape {tuple(q.shape)}, expected "
+                             f"{ws.q_shape}")
         q = q.contiguous()
-        delta = self.whitening.forward(q[:, :ND] - self.z0)
-        RmD = self.operators.rm(delta)
-        dr, gcat, t14 = manifold_fwd(
-            self.f_vec, self.I, delta, RmD, q, self.x0T, self.a0, self.f0,
-            self.mask, self.y, self.sigma_lb, beta_temp, self.beta,
-        )
-        Ds = self.operators.s(dr)
-        lp, gDs = manifold_energy(
-            self.f_vec, Ds, self.s0, t14, q, self.sigma_lb, self.n_ds,
-            beta_temp, self.beta,
-        )
-        gdr = self.operators.s_adjoint(gDs)
+        stream = launch_stream(dev)
+        b, wh, op, k1 = ws.bufs, ws.whitening, ws.operators, ws.k1
+        torch.sub(q[:, :z0.shape[0]], z0, out=b["dz"])
+        wh.forward(stream)
+        op.rm(stream)
+        k1.fwd(q, beta_temp, stream)
+        op.s(stream)
+        lp = torch.empty((C,), dtype=dt, device=dev)
+        k1.energy(q, beta_temp, lp, stream)
+        op.s_adjoint(stream)
         grad = torch.empty_like(q)
-        gpart = manifold_bwd(
-            self.f_vec, self.I, gdr, delta, q, self.x0T, self.mask, self.y,
-            self.sigma_lb, self.n_ds, beta_temp, gcat, grad,
-        )
-        g_delta = self.operators.rm_adjoint(gpart, gcat)
-        self.whitening.backward(g_delta, grad[:, :ND])
+        k1.bwd(q, beta_temp, grad, stream)
+        op.rm_adjoint(stream)
+        wh.backward(grad, stream)
         return lp, grad
 
 

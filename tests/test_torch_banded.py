@@ -221,3 +221,134 @@ def test_transpose_blocks_is_the_transposed_band():
                                                  30), 32)
     hw = (tiles.shape[-3] - 1) // 2
     assert torch.equal(tb.transpose_blocks(tiles, hw, hw), ref)
+
+
+def _pair_operands(N, b, upper, dt, seed=12):
+    """Two random banded operators of one window (JAX tiles, port
+    operators), chains-major x (C, D, N) and strided (D, C, 2N) buffers."""
+    D, C = 3, 5
+    rng = np.random.default_rng(seed)
+    blocks, ops = [], []
+    for k in range(2):
+        A = rng.standard_normal((D, N, N))
+        if upper:
+            band = np.stack([jbh.dense_to_banded_np(np.triu(a), b) for a in A])
+            bl = np.asarray(jb.banded_to_blocks_upper(jnp.asarray(band)))
+            hw = (0, bl.shape[-3] - 1)
+        else:
+            band = np.stack([jbh.dense_to_banded_np(a, b) for a in A])
+            bl = np.asarray(jb.banded_to_blocks(jnp.asarray(band)))
+            hw = (None, None)
+        blocks.append(bl)
+        ops.append(tb.BandedMatrix.make(torch.as_tensor(bl).to(dt), *hw))
+    jf = jb.block_banded_matvec_upper if upper else jb.block_banded_matvec
+    return D, C, rng, blocks, ops, jf
+
+
+# float64: the same sums in another order; float32: one rounding per term
+# of a ~2b-term sum, relative to max |y|
+@pytest.mark.parametrize("dt,tol", [(torch.float64, 1e-12),
+                                    (torch.float32, 2e-5)])
+@pytest.mark.parametrize("upper", [False, True])
+@pytest.mark.parametrize("N,b", [(300, 40), (200, 150)])
+def test_paired_matvec_matches_jax(N, b, upper, dt, tol):
+    """banded_matvec_pair (y1 = a1 A1 x, y2 = a2 A2 x on one x, into the
+    strided halves of a (D, C, 2N) buffer) and its adjoint form against
+    the JAX matvec and its jax.vjp; N is no multiple of 128."""
+    D, C, rng, blocks, ops, jf = _pair_operands(N, b, upper, dt)
+    x = rng.standard_normal((C, D, N))
+    xt = torch.as_tensor(x).to(dt)
+    for adjoint in (False, True):
+        refs = []
+        for bl in blocks:
+            y, vjp = jax.vjp(lambda v: jf(jnp.asarray(bl), v), jnp.asarray(x))
+            refs.append(np.asarray(vjp(jnp.asarray(x))[0] if adjoint else y))
+        out = torch.full((D, C, 2 * N), 7.0, dtype=dt)
+        y1, y2 = (out[..., :N].transpose(0, 1), out[..., N:].transpose(0, 1))
+        got = tb.banded_matvec_pair(ops[0], ops[1], xt, y1, y2,
+                                    adjoint=adjoint, alpha=(1.0, -0.5))
+        assert got[0] is y1 and got[1] is y2
+        assert _rel(refs[0], y1.double()) <= tol
+        assert _rel(-0.5 * refs[1], y2.double()) <= tol
+        tb.banded_matvec_pair(ops[0], ops[1], xt, y1, y2, adjoint=adjoint,
+                              accumulate=True)
+        assert _rel(2.0 * refs[0], y1.double()) <= 2 * tol
+        assert _rel(0.5 * refs[1], y2.double()) <= 2 * tol
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float64, 1e-12),
+                                    (torch.float32, 2e-5)])
+@pytest.mark.parametrize("upper", [False, True])
+@pytest.mark.parametrize("N,b", [(300, 40), (200, 150)])
+def test_summed_matvec_matches_jax(N, b, upper, dt, tol):
+    """banded_matvec_sum (y (+)= a1 op(A1) x1 + a2 op(A2) x2, the two
+    inputs the strided halves of a (D, C, 2N) buffer, y a transposed
+    (D, C, N) block) against the JAX matvec and its jax.vjp."""
+    D, C, rng, blocks, ops, jf = _pair_operands(N, b, upper, dt, seed=13)
+    xcat = rng.standard_normal((D, C, 2 * N))
+    y0 = rng.standard_normal((D, C, N))
+    xt = torch.as_tensor(xcat).to(dt)
+    x1, x2 = xt[..., :N].transpose(0, 1), xt[..., N:].transpose(0, 1)
+    for adjoint in (False, True):
+        refs = []
+        for bl, xs in zip(blocks, (x1, x2)):
+            v = jnp.asarray(xs.double().numpy())
+            y, vjp = jax.vjp(lambda u: jf(jnp.asarray(bl), u), v)
+            refs.append(np.asarray(vjp(v)[0] if adjoint else y))
+        ref = refs[0] - refs[1]                        # (C, D, N)
+        out = torch.as_tensor(y0).to(dt).clone()
+        y = tb.banded_matvec_sum(ops[0], ops[1], x1, x2, out.transpose(0, 1),
+                                 adjoint=adjoint, alpha=(1.0, -1.0),
+                                 accumulate=True)
+        assert _rel(y0.transpose(1, 0, 2) + ref, y.double()) <= tol
+        tb.banded_matvec_sum(ops[0], ops[1], x1, x2, out.transpose(0, 1),
+                             adjoint=adjoint, alpha=(1.0, -1.0))
+        assert _rel(ref, out.transpose(0, 1).double()) <= tol
+
+
+def test_bound_matvec_reads_its_tensors_at_each_call():
+    """bind_matvec checks once and returns the call: it sees what x holds
+    when it runs, and counts nothing on the CPU."""
+    _, op = _operator(N=60, b=5)
+    x = torch.zeros((2, 3, 60), dtype=torch.float64)
+    y = torch.empty_like(x)
+    run = tb.bind_matvec((op,), (x,), (y,))
+    x.copy_(torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (2, 3, 60))))
+    tb.reset_launch_counts()
+    run(0)
+    assert torch.equal(y, tb.block_banded_matvec_plain(op.tiles, x, op.hw_lo,
+                                                       op.hw_hi))
+    assert tb.launch_counts() == {k: 0 for k in tb.KERNELS}
+
+
+def test_paired_wrappers_check_their_arguments():
+    _, op = _operator(N=60, b=5)
+    _, wide = _operator(N=60, b=5, D=2)
+    x = torch.zeros((2, 3, 60), dtype=torch.float64)
+    y = torch.empty_like(x)
+    with pytest.raises(ValueError, match="one shape and window"):
+        tb.banded_matvec_pair(op, wide, x, y, y.clone())
+    with pytest.raises(TypeError, match="dtype"):
+        tb.banded_matvec_sum(op, op, x, x.float(), y)
+    with pytest.raises(ValueError, match="do not match"):
+        tb.banded_matvec_pair(op, op, x, y, y[:1])
+    with pytest.raises(ValueError, match="not a matvec"):
+        tb.bind_matvec((op, op), (x, x), (y, y))
+    with pytest.raises(ValueError, match="contiguous last"):
+        tb.banded_matvec(op, x.transpose(1, 2).contiguous().transpose(1, 2),
+                         y)
+
+
+def test_slab_order_is_the_kernels_layout():
+    """slab_order[..., k, c, r] = tile[..., 32k + r, c]; the adjoint form is
+    the slab order of the transposed band."""
+    A, op = _operator(N=300, b=40, D=2, seed=15)
+    t = op.tiles
+    assert op.kt_fwd.shape == t.shape[:-2] + (4, 128, 32)
+    assert torch.equal(op.kt_fwd[1, 2, 1, 3, 17, 5],
+                       t[1, 2, 1, 3 * 32 + 5, 17])
+    assert torch.equal(op.kt_adj, tb.slab_order(
+        tb.transpose_blocks(t, op.hw_lo, op.hw_hi)))
+    small = tb.banded_to_blocks(tb.dense_to_banded(torch.as_tensor(A), 40), 32)
+    assert tb.slab_order(small) is small

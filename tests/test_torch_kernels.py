@@ -115,6 +115,38 @@ def test_lorenz_kernels_match_plain_versions(device):
     assert all(n > 0 for n in mf.launch_counts().values())
 
 
+@pytest.mark.parametrize("model,C,N", [
+    ("seir", 37, 333), ("lorenz", 1, 128), ("lorenz", 3, 129),
+    ("seir", 5, 17), ("lorenz", 300, 1000), ("lorenz", 64, 1025),
+    ("lorenz", 257, 1025)])
+def test_kernels_at_sizes_that_fill_no_tile(device, model, C, N):
+    """K1 through the target's plan and through the one-shot wrappers, at
+    chain counts and grids around the kernels' 128 points per CTA: one CTA
+    per chain, a last CTA of one point, several part-filled ones, and the
+    banded run's shape (64 chains at N_I = 1025: one point a thread, nine
+    CTAs a chain, where 256 chains take five) beside a ragged 257. Two
+    runs of each launch agree bit for bit (checked inside)."""
+    results = chip_smoke.check_kernels(device, model=model, N=N, C=C)
+    assert len(results) == 3
+
+
+def test_plan_leaves_its_tickets_at_zero(device):
+    """A chain's CTAs draw tickets from a counter that the last one
+    resets: after any number of launches the counters read 0."""
+    x = chip_smoke.kernel_inputs(torch.float32, device, C=9, N=700)
+    plan, b, _ = chip_smoke.make_plan(seir_f_vec, x, device, torch.float32)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lp = torch.empty((9,), dtype=torch.float32, device=device)
+    grad = torch.zeros_like(x["q"])
+    for _ in range(3):
+        plan.fwd(x["q"], x["beta_temp"], stream)
+        plan.energy(x["q"], x["beta_temp"], lp, stream)
+        plan.bwd(x["q"], x["beta_temp"], grad, stream)
+    torch.cuda.synchronize()
+    assert int(plan.scratch[1].abs().sum()) == 0
+    assert torch.isfinite(lp).all() and torch.isfinite(grad[:, 2100:]).all()
+
+
 def test_leapfrog_kernel_matches_plain_version(device):
     """K2 on a diagonal mass, a 3-wide dense tail and the full dense
     metric."""
@@ -173,6 +205,17 @@ def test_banded_kernels_match_plain_versions(device, N, D, b, bw, chains):
                                           device)
     assert set(results) == set(bd.KERNELS)
     assert all(n > 0 for n in bd.launch_counts().values())
+
+
+def test_solve_launches_are_repeatable(device):
+    """K4 and its adjoint, 6000 launches each on one input at 257 chains
+    (13 clusters of 20 chains, the last part-filled), float64 and float32:
+    every result equals the first bit for bit. Without the proxy fence
+    ahead of the slab ring's release about one float64 adjoint launch in
+    500 differed."""
+    out = chip_smoke.solve_repeatability(synthetic_factor(device), 1025, 3,
+                                         257, device, runs=6000)
+    assert len(out) == 4 and not any(out.values())
 
 
 def test_unwhiten_solve_matches_plain_version(device):
@@ -248,6 +291,25 @@ def test_large_grid_targets_on_card_match_cpu(device):
         model = chip_smoke.lorenz_fit(device, n_obs=33)
     finally:
         magi_v2_tpu_torch.MagiConfig = config
+    tail = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
     for storage in ("hybrid", "banded"):
-        chip_smoke.check_composed(model, device, storage,
-                                  tail=(-1.5, -1.5, -1.5, 10.0, 28.0, 2.6))
+        chip_smoke.check_composed(model, device, storage, tail=tail)
+    # through the workspace on the card: what a call returned is not
+    # touched by the next call
+    for storage in ("dense", "hybrid", "banded"):
+        mode, _, _ = model._build_sampling_setup("precond", storage,
+                                                 torch.float32)
+        q0 = torch.cat([mode.X0.reshape(-1).float(),
+                        torch.tensor(tail, device=device)])
+        g = torch.Generator(device=device).manual_seed(2)
+        qs = q0 + 0.05 * torch.randn((10, q0.numel()), generator=g,
+                                     device=device)
+        bt = torch.tensor(0.4, device=device)
+        lp1, g1 = mode.logp_grad(qs[:5], bt)
+        keep = lp1.clone(), g1.clone()
+        lp2, g2 = mode.logp_grad(qs[5:], bt)
+        lp1b, g1b = mode.logp_grad(qs[:5], bt)
+        torch.cuda.synchronize()
+        assert torch.equal(lp1, keep[0]) and torch.equal(g1, keep[1])
+        assert torch.equal(lp1b, lp1) and torch.equal(g1b, g1)
+        assert not torch.equal(lp1, lp2)

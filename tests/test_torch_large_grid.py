@@ -254,6 +254,10 @@ def test_predict_runs(jax_fit, storage):
                      anneal_mode="reference")
     assert res["X_samps"].shape == (20, 4, tm.mag_I, tm.D)
     assert np.all(np.isfinite(res["X_samps"]))
+    # the phases of the call, on the host's clock
+    assert list(tm.predict_timings) == ["sampling_setup", "sampling",
+                                        "unwhiten"]
+    assert all(t > 0.0 for t in tm.predict_timings.values())
     assert np.all(np.isfinite(res["thetas_samps"]))
     np.testing.assert_array_equal(res["sigma_sqs_samps"],
                                   np.full((20, 4, 3), SIGMA_FIXED))
@@ -403,3 +407,54 @@ def test_unwhiten_draws_banded_matches_jax(jax_fit):
         xt = tmodes.unwhiten_draws(tmode, torch.as_tensor(Z), mu,
                                    max_bytes=max_bytes).numpy()
         assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max()
+
+
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("storage", ["hybrid", "banded"])
+def test_target_never_overwrites_what_it_returned(jax_fit, storage, tdt):
+    """Two calls in a row through the target's workspace: the first
+    call's lp and grad are not touched by the second, whose intermediates
+    overwrite the first's (see tests/test_torch_posterior.py for dense
+    storage)."""
+    jmode, tmode = _modes(jax_fit, storage, tdt)
+    target = tmode.logp_grad
+    qs = _states(jmode, n=6, seed=3)
+    bt = torch.tensor(BETA_TEMP, dtype=tdt)
+    q1, q2 = (torch.as_tensor(q, dtype=tdt) for q in (qs[:3], qs[3:]))
+    lp1, g1 = target(q1, bt)
+    keep = lp1.clone(), g1.clone()
+    lp2, g2 = target(q2, bt)
+    assert torch.equal(lp1, keep[0]) and torch.equal(g1, keep[1])
+    assert lp1.data_ptr() != lp2.data_ptr()
+    assert g1.data_ptr() != g2.data_ptr()
+    fresh = target.to("cpu")
+    assert fresh._workspaces == {}
+    lp2f, g2f = fresh(q2, bt)
+    assert torch.equal(lp2, lp2f) and torch.equal(g2, g2f)
+    lp1f, g1f = fresh(q1, bt)
+    assert torch.equal(lp1, lp1f) and torch.equal(g1, g1f)
+
+
+def test_banded_target_launches_k3_through_pairs(jax_fit, monkeypatch):
+    """The banded target's operator stage binds four K3 calls per
+    evaluation: S dr, S' g_Ds, and the pairs [R; m] delta and
+    [R' | -m'] gcat."""
+    from magi_v2_tpu_torch.ops import banded as tb
+
+    _, tmode = _modes(jax_fit, "banded", torch.float64)
+    target = tmode.logp_grad.to("cpu")
+    seen = []
+    bind = tb.bind_matvec
+
+    def spy(ops, xs, ys, adjoint=False, **kw):
+        seen.append((len(ops), len(xs), len(ys), adjoint))
+        return bind(ops, xs, ys, adjoint=adjoint, **kw)
+
+    monkeypatch.setattr(tpc, "bind_matvec", spy)
+    jmode, _ = _modes(jax_fit, "banded", torch.float64)
+    qs = torch.as_tensor(_states(jmode, n=2))
+    bt = torch.tensor(BETA_TEMP, dtype=torch.float64)
+    target(qs, bt)
+    target(qs, bt)
+    assert sorted(seen) == sorted([(2, 1, 2, False), (1, 1, 1, False),
+                                   (1, 1, 1, True), (2, 2, 1, True)])

@@ -253,3 +253,107 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
     torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
     assert mf.launch_counts() == {k: 0 for k in mf.KERNELS}
+
+
+def check_results_are_not_reused(target, qs, dt):
+    """Two calls in a row on different states: the first call's lp and grad
+    keep their values after the second (the sampler holds them while it
+    evaluates the proposal), share no memory with the second's, and the
+    intermediates, which are reused, change nothing: a fresh target gives
+    the same numbers."""
+    bt = torch.tensor(BETA_TEMP, dtype=dt)
+    q1 = torch.as_tensor(qs[:4], dtype=dt)
+    q2 = torch.as_tensor(qs[4:8], dtype=dt)
+    lp1, g1 = target(q1, bt)
+    keep = lp1.clone(), g1.clone()
+    lp2, g2 = target(q2, bt)
+    assert torch.equal(lp1, keep[0]) and torch.equal(g1, keep[1])
+    assert lp1.data_ptr() != lp2.data_ptr()
+    assert g1.data_ptr() != g2.data_ptr()
+    assert not torch.equal(lp1, lp2)
+    fresh = target.to("cpu")
+    assert fresh._workspaces == {} and len(target._workspaces) == 1
+    lp2f, g2f = fresh(q2, bt)
+    assert torch.equal(lp2, lp2f) and torch.equal(g2, g2f)
+    # another chain count gets its own workspace
+    lp3, g3 = target(q1[:1], bt)
+    torch.testing.assert_close(lp3, lp1[:1], rtol=1e-4, atol=0)
+    assert sorted(target._workspaces) == [1, 4]
+
+
+@pytest.mark.parametrize("jdt,tdt", [(jnp.float64, torch.float64),
+                                     (jnp.float32, torch.float32)])
+def test_dense_target_never_overwrites_what_it_returned(jax_fit, jdt, tdt):
+    jmode, tmode, _, _ = _targets(jax_fit, jdt, tdt)
+    check_results_are_not_reused(tmode.logp_grad, _states(jmode), tdt)
+
+
+def test_target_checks_its_state_at_each_call(jax_fit):
+    jmode, tmode, _, _ = _targets(jax_fit, jnp.float64, torch.float64)
+    target = tmode.logp_grad
+    qs = torch.as_tensor(_states(jmode))
+    bt = torch.tensor(BETA_TEMP, dtype=torch.float64)
+    target(qs, bt)
+    with pytest.raises(TypeError, match="q must be"):
+        target(qs.float(), bt)
+    with pytest.raises(ValueError, match="shape"):
+        target(qs[:, :-1], bt)
+    with pytest.raises(TypeError, match="beta_temp must be"):
+        target(qs, BETA_TEMP)
+    with pytest.raises(TypeError, match="beta_temp must be"):
+        target(qs, bt.float())
+    # a state that is a strided view is copied, not refused
+    wide = torch.zeros((qs.shape[0], qs.shape[1] + 3), dtype=torch.float64)
+    wide[:, :-3] = qs
+    lp, g = target(wide[:, :-3], bt)
+    lp0, g0 = target(qs, bt)
+    assert torch.equal(lp, lp0) and torch.equal(g, g0)
+
+
+def test_manifold_plan_checks_once_and_reuses_its_buffers():
+    """ManifoldPlan on the CPU: the constants and buffers are checked when
+    it is made; its calls write the buffers they were given and the
+    caller's lp and grad, and agree with the one-shot wrappers."""
+    x = _wrapper_inputs(torch.float64)
+    C, D, N = x["delta"].shape
+    dim = x["q"].shape[1]
+    n_ds = torch.full((D,), 3.0, dtype=torch.float64)
+    consts = dict(x0T=x["x0T"], a0=x["a0"], f0=x["f0"], s0=x["f0"],
+                  mask=x["mask"], y=x["y"], sigma_lb=x["sigma_lb"], n_ds=n_ds)
+    new = lambda *s: torch.full(s, float("nan"), dtype=torch.float64)
+    g = torch.Generator().manual_seed(1)
+    bufs = dict(delta=x["delta"], RmD=x["RmD"], gcat=new(D, C, 2 * N),
+                t14=new(C, 2), dr=new(D, C, N), gDs=new(D, C, N),
+                gpart=new(D, C, N),
+                Ds=torch.randn((D, C, N), generator=g, dtype=torch.float64),
+                gdr=torch.randn((D, C, N), generator=g, dtype=torch.float64))
+    plan = mf.ManifoldPlan(x["f"], x["I"], consts, 2.0, dim, bufs)
+    q, bt = x["q"], x["beta_temp"]
+    mf.reset_launch_counts()
+    plan.fwd(q, bt, 0)
+    dr, gcat, t14 = mf.manifold_fwd(x["f"], x["I"], x["delta"], x["RmD"], q,
+                                    x["x0T"], x["a0"], x["f0"], x["mask"],
+                                    x["y"], x["sigma_lb"], bt, 2.0)
+    assert torch.equal(bufs["dr"], dr) and torch.equal(bufs["t14"], t14)
+    assert torch.equal(bufs["gcat"][..., :N], gcat[..., :N])
+    lp = new(C)
+    plan.energy(q, bt, lp, 0)
+    lp_, gDs = mf.manifold_energy(x["f"], bufs["Ds"], x["f0"], t14, q,
+                                  x["sigma_lb"], n_ds, bt, 2.0)
+    assert torch.equal(lp, lp_) and torch.equal(bufs["gDs"], gDs)
+    grad, grad_ = torch.zeros_like(q), torch.zeros_like(q)
+    plan.bwd(q, bt, grad, 0)
+    gpart = mf.manifold_bwd(x["f"], x["I"], bufs["gdr"], x["delta"], q,
+                            x["x0T"], x["mask"], x["y"], x["sigma_lb"], n_ds,
+                            bt, gcat, grad_)
+    assert torch.equal(bufs["gpart"], gpart) and torch.equal(grad, grad_)
+    assert torch.equal(bufs["gcat"], gcat)
+    assert mf.launch_counts() == {k: 0 for k in mf.KERNELS}
+    with pytest.raises(TypeError, match="dtype"):
+        mf.ManifoldPlan(x["f"], x["I"], dict(consts, a0=x["a0"].float()),
+                        2.0, dim, bufs)
+    with pytest.raises(ValueError, match="shape"):
+        mf.ManifoldPlan(x["f"], x["I"], consts, 2.0, dim,
+                        dict(bufs, dr=new(D, C, N + 1)))
+    with pytest.raises(ValueError, match="does not hold"):
+        mf.ManifoldPlan(x["f"], x["I"], consts, 2.0, N * D, bufs)
