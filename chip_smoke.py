@@ -14,19 +14,28 @@ only when all of them passed):
    and through its one-shot wrapper, against its plain PyTorch version on
    the same inputs at the SEIR bench shapes (256 chains, N_I = 161, D = 3)
    and at a chain count and grid that fill no tile (37 chains, N_I = 333);
-   two runs of one launch must agree bit for bit. K2 (the leapfrog update)
-   at the Lorenz shapes (256 chains, 3081 coordinates). Float32 and
+   two runs of one launch must agree bit for bit. K2 (the leapfrog update,
+   one launch per leapfrog on every mass form) on the full dense metric of
+   the SEIR recipe (489 wide) and on a diagonal and dense tails of 3 and 8
+   at the Lorenz width (3081), at 64, 256 and 257 chains, the replayed
+   leapfrog's launch and the kinetic launches, each run twice. Float32 and
    float64, timed with CUDA events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
-   launched, rhat_max > 1.05, or a theta mean more than 15% from truth.
+   launched, a transition that replayed no captured leapfrog, rhat_max >
+   1.05, or a theta mean more than 15% from truth. The predict's phases
+   print with the sampling setup split into its parts.
 5. The composed float64 SEIR target on the card against the same target on
    the CPU (plain versions), for 8 states near the fit.
-6. Leapfrog profile of the SEIR path: ms per leapfrog with the kernels and
-   with their plain versions swapped in, host time of each bound call of
-   the target (the K1 launches, the stages around them), and
-   torch.profiler's device time by kernel over one transition.
+6. Leapfrog profile of the SEIR path: ms per leapfrog of the sampler's
+   bound transition (replayed CUDA graphs) and of the eager transition
+   with the kernels and with their plain versions swapped in, host time of
+   one graph replay and of each bound call of the target (the K1 launches,
+   the stages around them), and torch.profiler's device time by kernel
+   and device busy share over one replayed and one eager transition; then
+   20 transitions by graph and by eager from the same state and noise,
+   compared.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
@@ -51,7 +60,8 @@ only when all of them passed):
 9. Hybrid path: ``predict(storage="hybrid")``, 256 chains, L <= 64,
    500 + 500 steps, reference annealing at a 0.3 floor, sigma pinned at
    0.25, diagonal mass. Fails on non-finite draws, a kernel that never
-   launched, a step size below 1e-2, mean acceptance below 0.5, or a theta
+   launched, a transition that replayed no captured leapfrog, a step size
+   below 1e-2, mean acceptance below 0.5, or a theta
    mean more than 15% from (10, 28, 8/3).
 10. Banded path: the same with ``storage="banded"``, 64 chains, 200 + 200
    steps; theta is printed, not gated (the band-truncated target is
@@ -61,9 +71,9 @@ only when all of them passed):
 12. Leapfrog profile of the hybrid path, and K4's float32 time per launch
    at 256 chains back to back and in that leapfrog, beside its bound and
    solve_triangular's time.
-13. Leapfrog profile of the banded path at its 64 chains: leapfrog wall
-   with the kernels and with the plain versions, device busy share, device
-   time per launch by kernel, host time of each bound call.
+13. Leapfrog profile of the banded path at its 64 chains, as phase 6.
+14. The hybrid and banded paths' transitions by graph and by eager, 20
+   each from the same state and noise, compared as in phase 6.
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it), error, times,
@@ -166,8 +176,17 @@ def _counters():
 
 
 def reset_launch_counts():
+    from magi_v2_tpu_torch.sampler import hmc
+
     for mod in _counters():
         mod.reset_launch_counts()
+    hmc.reset_graph_counts()
+
+
+def graph_counts():
+    from magi_v2_tpu_torch.sampler import hmc
+
+    return hmc.graph_counts()
 
 
 def launch_counts():
@@ -420,72 +439,129 @@ def check_kernels(device, model="seir", N=161, C=256, tag=""):
     return results
 
 
-def check_leapfrog(device, C=256, dim=3081):
-    """K2 against its plain version at the Lorenz shapes: a diagonal mass
-    (the hybrid run's) and a 3-wide dense tail (mass_matrix="tail_dense"
-    with sigma pinned) in one launch each, and the full dense metric of
-    the SEIR path (kick, cuBLAS velocity, drift) at its 489 coordinates."""
+# K2's cases: (name, dim, k) at the three paths' shapes: the SEIR recipe's
+# full dense metric (489 wide), the hybrid and banded runs' diagonal (3081),
+# and dense tails of 3 (mass_matrix="tail_dense" with sigma pinned) and 8
+K2_CASES = (("dense489", 489, 489), ("diag3081", 3081, 0),
+            ("tail3", 3081, 3), ("tail8", 3081, 8))
+# the kernels line's K2 entries: (name, case, chains), one per path
+K2_ENTRIES = (("leapfrog_update_seir", "dense489", NUM_CHAINS),
+              ("leapfrog_update", "diag3081", LORENZ_CHAINS),
+              (f"leapfrog_update_c{BANDED_CHAINS}", "diag3081",
+               BANDED_CHAINS))
+
+
+def k2_bound(C, dim, k, dtype):
+    """K2's bound for the leapfrog the sampler replays (two kicks, the
+    velocity, the drift): q, p, g read and q, p written once, the
+    diagonal and the dense block read once; 7 operations an element of
+    the diagonal head (two kicks as FMAs, the velocity, the drift), and
+    2k an element of the dense block's velocity plus its kicks and drift."""
+    size = torch.finfo(dtype).bits // 8
+    head = dim - k
+    return bound((5 * C * dim + head + k * k) * size,
+                 7 * C * head + C * k * (2 * k + 6), dtype)
+
+
+def leapfrog_case(C, dim, k, dtype, device, seed=3):
+    """(q, p, g, eps, inverse mass) of one K2 case on the card: standard
+    normal states and momenta, forces of 100, a diagonal in [0.5, 1.5) and
+    a dense block with a well-conditioned random SPD inverse."""
+    from magi_v2_tpu_torch.sampler.mass import TailDenseMass
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)
+    dv = lambda t: t.to(device=device, dtype=dtype).contiguous()
+    diag = torch.rand((dim,), generator=g, dtype=torch.float64) + 0.5
+    if k:
+        a = r(k, k)
+        ti = a @ a.T / k + torch.eye(k, dtype=torch.float64)
+        mass = TailDenseMass(dv(diag), dv(ti), dv(torch.linalg.cholesky(ti)))
+    else:
+        mass = dv(diag)
+    return (dv(r(C, dim)), dv(r(C, dim)), dv(100.0 * r(C, dim)),
+            torch.tensor(0.05, dtype=dtype, device=device), mass)
+
+
+def check_leapfrog(device, chains=(BANDED_CHAINS, LORENZ_CHAINS,
+                                   RAGGED_CHAINS), cases=K2_CASES):
+    """K2 against its plain version for every case of ``cases`` at each
+    chain count: the replayed leapfrog (two kicks, drift) and the kinetic
+    launches (one kick and none, no drift), float64 and float32, each
+    launch run twice and compared bit for bit, each output (q, p, the
+    kinetic energies) held to its own scale. Returns the float32 numbers
+    of ``K2_ENTRIES``: ms of the replayed leapfrog's launch, bound to its
+    tensors as the sampler binds it, back to back (so the larger of the
+    device time and the host's ~5-10 us a call), its plain version's, and
+    the bound."""
     from magi_v2_tpu_torch.sampler.hmc import (
+        bind_leapfrog,
         leapfrog_update,
         leapfrog_update_plain,
     )
-    from magi_v2_tpu_torch.sampler.mass import TailDenseMass
 
     results = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    timed = {(case, C): name for name, case, C in K2_ENTRIES}
     for dtype in (torch.float64, torch.float32):
-        g = torch.Generator(device="cpu").manual_seed(3)
-        r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)
-
-        def spd(k):
-            a = r(k, k)
-            return (a @ a.T / k + torch.eye(k, dtype=torch.float64))
-
-        cases = []
-        for d, tail in ((dim, 0), (dim, 3), (489, 489)):
-            diag = torch.rand((d,), generator=g, dtype=torch.float64) + 0.5
-            if tail:
-                ti = spd(tail)
-                mass = TailDenseMass(diag.clone(), ti,
-                                     torch.linalg.cholesky(ti))
-            else:
-                mass = diag
-            cases.append((d, tail, mass))
-        errs, timing = {}, []
-        for d, tail, mass in cases:
-            dv = lambda t: t.to(device=device, dtype=dtype).contiguous()
-            if isinstance(mass, TailDenseMass):
-                mass = TailDenseMass(*(dv(t) for t in mass))
-            else:
-                mass = dv(mass)
-            q, p, gr = dv(r(C, d)), dv(r(C, d)), dv(100.0 * r(C, d))
-            eps = torch.tensor(0.05, dtype=dtype, device=device)
-            outs = []
-            for fn in (leapfrog_update, leapfrog_update_plain):
+        errs, lines = {}, []
+        for case, dim, k in cases:
+            for C in chains:
+                q, p, gr, eps, mass = leapfrog_case(C, dim, k, dtype, device)
+                for nkick, drift, kinetic in ((2, True, False),
+                                              (1, False, True),
+                                              (0, False, True),
+                                              (2, True, True)):
+                    outs = []
+                    for fn in (leapfrog_update, leapfrog_update_plain):
+                        qq, pp = q.clone(), p.clone()
+                        kin = fn(qq, pp, gr, eps, mass, nkick, drift,
+                                 kinetic)
+                        outs.append([qq, pp] + ([kin] if kinetic else []))
+                    qq, pp = q.clone(), p.clone()
+                    kin = leapfrog_update(qq, pp, gr, eps, mass, nkick,
+                                          drift, kinetic)
+                    again = [qq, pp] + ([kin] if kinetic else [])
+                    torch.cuda.synchronize()
+                    tag = f"{case}_C{C}_k{nkick}{'d' if drift else ''}" + (
+                        "K" if kinetic else "")
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(outs[0], again)):
+                        raise AssertionError(f"leapfrog_update {tag}: two "
+                                             "runs of the same launch differ")
+                    for part, ref, got in zip(("q", "p", "kinetic"),
+                                              outs[1], outs[0]):
+                        errs[f"{tag}_{part}"] = _relerr(ref, got)
+                # the launch as the sampler binds it
                 qq, pp = q.clone(), p.clone()
-                k1 = fn(qq, pp, gr, eps, mass, 2, True, True)
-                outs.append((qq, pp, k1))
-            tag = f"dim{d}_tail{tail}"
-            for part, a, b in zip(("q", "p", "kinetic"), outs[1], outs[0]):
-                errs[f"{tag}_{part}"] = _relerr(a, b)
-            qq, pp = q.clone(), p.clone()
-            timing.append((
-                _time_ms(lambda: leapfrog_update(qq, pp, gr, eps, mass, 2,
-                                                 True, False)),
-                _time_ms(lambda: leapfrog_update_plain(qq, pp, gr, eps, mass,
-                                                       2, True, False))))
-        torch.cuda.synchronize()
-        # the timed diagonal case reads q, p, g and the diagonal and writes
-        # q and p: two kicks, the velocity and the drift, 7 operations an
-        # element; no one PyTorch call does the fused update
-        size = torch.finfo(dtype).bits // 8
-        more = dict(bound((5 * C * dim + dim) * size, 7 * C * dim, dtype),
-                    library_ms=None)
-        report("leapfrog_update", dtype, errs, timing[0][0], timing[0][1],
-               TOL[dtype], results,
-               extra=f" (ms of the diagonal case; tail 3: {timing[1][0]:.4f}"
-                     f" / {timing[1][1]:.4f}, dense 489: {timing[2][0]:.4f}"
-                     f" / {timing[2][1]:.4f}; bound {more['bound_ms']:.4f}"
-                     " ms)", more=more)
+                launch = bind_leapfrog(qq, pp, gr, eps, mass, 2, True)
+                ms = _time_ms(lambda: launch(stream))
+                plain_ms = _time_ms(lambda: leapfrog_update_plain(
+                    qq, pp, gr, eps, mass, 2, True, False))
+                b = k2_bound(C, dim, k, dtype)
+                lines.append(f"{case} C{C} {ms:.4f} / {plain_ms:.4f} ms "
+                             f"(bound {b['bound_ms']:.4f} {b['bound_by']})")
+                name = timed.get((case, C))
+                if name is not None and dtype == torch.float32:
+                    worst = max(e[0] for t, e in errs.items()
+                                if t.startswith(f"{case}_C{C}_"))
+                    results[name] = dict(max_abs_err=worst, ms=ms,
+                                         plain_ms=plain_ms, **b,
+                                         library_ms=None)
+        worst_part = max(errs, key=lambda t: errs[t][1])
+        tol = TOL[dtype]
+        name = str(dtype).replace("torch.", "")
+        print(f"leapfrog_update {name}: max_abs_err "
+              f"{max(e[0] for e in errs.values()):.3e}, worst relative "
+              f"{errs[worst_part][1]:.1e} ({worst_part}) of {len(errs)} "
+              f"outputs (tol {tol:.0e}); kernel / plain ms of the replayed "
+              "leapfrog's launch: " + "; ".join(lines))
+        if not errs[worst_part][1] <= tol:
+            raise AssertionError(
+                f"leapfrog_update {name} disagrees with its plain version: "
+                f"{worst_part} relative error {errs[worst_part][1]:.3e} > "
+                f"{tol:.0e}")
+    # no one PyTorch call does the fused kicks, velocity and drift
     return results
 
 
@@ -528,7 +604,7 @@ def main_path(device, num_steps=NUM_STEPS):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts, graphs = launch_counts(), graph_counts()
 
     kr = res["kernel_results"]
     thetas = res["thetas_samps"]
@@ -553,6 +629,7 @@ def main_path(device, num_steps=NUM_STEPS):
             and np.all(np.isfinite(thetas))):
         raise AssertionError("non-finite draws")
     check_launched(counts, mf.KERNELS + ("leapfrog_update",), "SEIR")
+    check_replays(graphs, 2 * num_steps, "SEIR")
     if not summ["rhat_max"] <= 1.05:
         raise AssertionError(f"rhat_max {summ['rhat_max']:.4f} > 1.05")
     rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
@@ -618,8 +695,8 @@ def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
 def plain_kernels():
     """The plain versions in place of the kernels on CUDA tensors, which
     the package itself never does: whatever is bound or called inside
-    takes the plain versions of K1 (in a target's plan), K3 and K4, and
-    the leapfrog calls K2's. A target bound outside keeps its launches,
+    takes the plain versions of K1 (in a target's plan), K2, K3 and K4. A
+    target or leapfrog bound outside keeps its launches,
     so take a fresh copy (``target.to(device)``) inside. The baseline of
     the kernel checks and of the leapfrog timings below."""
     from magi_v2_tpu_torch.ops import banded as bd
@@ -628,7 +705,7 @@ def plain_kernels():
 
     always = lambda device: True
     swaps = [(bd, "_takes_plain", always), (mf, "_takes_plain", always),
-             (hmc, "leapfrog_update", hmc.leapfrog_update_plain)]
+             (hmc, "_takes_plain", always)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -644,6 +721,52 @@ OWN_KERNELS = ("manifold_fwd_kernel", "manifold_energy_kernel",
                "banded_matvec_kernel", "banded_solve_kernel")
 
 
+def device_profile(run, label):
+    """torch.profiler's device time of ``run()`` (one transition) by
+    kernel: prints the top kernels, the device time per launch of the
+    port's own kernels and the device busy share of the unprofiled wall.
+    Returns ({kernel: us per launch}, busy share or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        profiled_us = (time.perf_counter() - t0) * 1e6
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    gemm = sum(e.self_device_time_total for e in kernels
+               if "gemm" in e.key.lower())
+    print(f"{label}: device time over one 50-leapfrog transition, by "
+          "kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total:10.1f} us {e.count:5d} calls  "
+              f"{e.key[:90]}")
+    per_launch = {}
+    for e in kernels:
+        if any(k in e.key for k in OWN_KERNELS):
+            per_launch[e.key] = e.self_device_time_total / max(e.count, 1)
+            print(f"  {per_launch[e.key]:.2f} us of device time per launch "
+                  f"({e.count} launches): {e.key[:90]}")
+    if busy == 0:
+        print(f"{label}: torch.profiler recorded no device time; the split "
+              "above is not measured")
+        return per_launch, None
+    print(f"{label}: device busy {busy:.1f} us ({gemm / busy:.1%} in GEMMs)"
+          f" of {profiled_us:.1f} us profiled wall and {wall_us:.1f} us "
+          f"unprofiled wall; device busy {busy / wall_us:.1%}, idle "
+          f"{1 - busy / wall_us:.1%} of the unprofiled wall")
+    return per_launch, busy / wall_us
+
+
 def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
                                                            -10.5, 1.8, -0.5,
                                                            0.6),
@@ -651,16 +774,16 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
                      num_chains=NUM_CHAINS, num_leapfrogs=100, reps=5,
                      host_calls=True):
     """Where a leapfrog's time goes, at a path's float32 shapes: the wall
-    per leapfrog with the kernels and with their plain versions
-    (alternating), one target evaluation alone, the host time of each
-    bound call of the target's workspace (K1's three launches and the
-    stages around them), and torch.profiler's device time over one
-    50-leapfrog transition. Returns the device us per launch of each of
-    the port's kernels, by the profiler's name (empty if it recorded no
-    device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from magi_v2_tpu_torch.sampler.hmc import hmc_step
+    per leapfrog of the sampler's bound transition (replayed CUDA graphs),
+    of the eager transition with the kernels and with their plain versions
+    (in turns), one target evaluation alone, the host time of one graph
+    replay and of each bound call of the target's workspace (K1's three
+    launches and the stages around them), and torch.profiler's device time
+    over one 50-leapfrog transition, replayed and eager. Returns the
+    device us per launch of each of the port's kernels in the replayed
+    transition, by the profiler's name (empty if it recorded no device
+    time)."""
+    from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
     from magi_v2_tpu_torch.sampler.mass import identity_mass
 
     mode, _, _ = model._build_sampling_setup("precond", storage,
@@ -681,8 +804,11 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
                              device)
     eps = torch.tensor(step_size, device=device)
     bt = torch.tensor(beta_temp, device=device)
+    bound = BoundTransition(target, qs, inv_mass)
 
     def transition(L, tgt=target):
+        if tgt is None:
+            return bound(qs, eps, inv_mass, bt, L, normals, unif)
         return hmc_step(lambda q: tgt(q, bt), qs, eps, inv_mass, L,
                         normals, unif)
 
@@ -695,25 +821,42 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / (reps * num_leapfrogs) * 1e3
 
-    walls = {"kernels": [], "plain": []}
-    for order in [("kernels", "plain"), ("plain", "kernels")] * 2:
+    walls = {"graph": [], "kernels": [], "plain": []}
+    for order in [("graph", "kernels", "plain"),
+                  ("plain", "kernels", "graph")]:
         for name in order:
             if name == "plain":
                 # bound at its first call, so inside the context
                 with plain_kernels():
                     walls[name].append(ms_per_leapfrog(plain_target))
             else:
-                walls[name].append(ms_per_leapfrog(target))
-    print(f"{storage}: ms per leapfrog ({num_chains} chains, float32), with "
-          f"the kernels {walls['kernels']}, with the plain versions "
+                walls[name].append(ms_per_leapfrog(
+                    None if name == "graph" else target))
+    print(f"{storage}: ms per leapfrog ({num_chains} chains, float32): "
+          f"replayed graphs {walls['graph']}, eager with the kernels "
+          f"{walls['kernels']}, eager with the plain versions "
           f"{walls['plain']}")
     print(f"{storage}: ms per target evaluation alone: "
           f"{_time_ms(lambda: target(qs, bt))}")
 
+    # one captured leapfrog replayed back to back: host us per replay (the
+    # enqueue), and device ms per leapfrog when the host keeps ahead
+    step = bound.graphs["next"]
+    step.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        step.replay()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    per_replay_ms = (time.perf_counter() - t0) / 200 * 1e3
+    print(f"{storage}: one replay of the captured leapfrog, 200 back to "
+          f"back: host {host_us:.2f} us to enqueue, {per_replay_ms:.4f} ms "
+          "each until the card finished")
+
     if host_calls:
         # host time of each bound call of the target's workspace, back to
-        # back (the kernels are a few us on the card, so a leapfrog is
-        # bound by the host where these add up to more)
+        # back (the eager path pays these per leapfrog; the graph once)
         ws = getattr(target, "logp_grad", target)._workspaces[num_chains]
         stream = torch.cuda.current_stream(device).cuda_stream
         lp = torch.empty((num_chains,), dtype=torch.float32, device=device)
@@ -743,43 +886,100 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
               + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
               + f"; sum {sum(host.values()):.1f}")
 
-    transition(50)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        transition(50)
-        torch.cuda.synchronize()
-        profiled_us = (time.perf_counter() - t0) * 1e6
-    t0 = time.perf_counter()
-    transition(50)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels)
-    gemm = sum(e.self_device_time_total for e in kernels
-               if "gemm" in e.key.lower())
-    print(f"{storage}: device time over one 50-leapfrog transition, by "
-          "kernel:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total:10.1f} us {e.count:5d} calls  "
-              f"{e.key[:90]}")
-    per_launch = {}
-    for e in kernels:
-        if any(k in e.key for k in OWN_KERNELS):
-            per_launch[e.key] = e.self_device_time_total / max(e.count, 1)
-            print(f"  {per_launch[e.key]:.2f} us of device time per launch "
-                  f"({e.count} launches): {e.key[:90]}")
-    if busy == 0:
-        print("torch.profiler recorded no device time; the split above is "
-              "not measured")
-        return per_launch
-    print(f"{storage}: device busy {busy:.1f} us ({gemm / busy:.1%} in GEMMs)"
-          f" of {profiled_us:.1f} us profiled wall and {wall_us:.1f} us "
-          f"unprofiled wall; device idle {1 - busy / wall_us:.1%} of the "
-          "unprofiled wall")
+    per_launch, _ = device_profile(lambda: transition(50, None),
+                                   f"{storage} replayed")
+    device_profile(lambda: transition(50), f"{storage} eager")
     return per_launch
+
+
+def graph_vs_eager(model, device, storage, num_chains, max_leapfrogs, tail,
+                   step_size, beta_temp, dense_mass, sigma_fixed=None,
+                   transitions=20):
+    """The sampler's two transitions on one path's float32 target: the
+    bound transition (captured CUDA graphs, replayed) and the eager
+    ``hmc_step``, each run ``transitions`` times from the same state with
+    the same normals, uniforms and trajectory lengths (the step halved
+    first until an eager transition accepts 30% of its proposals, so that
+    the states move). The states and acceptance probabilities are
+    compared. Where a state differs, the bound transition is also run from the eager state, so
+    that one transition's gap is told apart from its growth over many.
+    Fails unless every transition agrees bit for bit or the one-transition
+    gap is within K2's float32 tolerance. Returns (bit-identical
+    transitions, largest one-transition relative gap)."""
+    from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
+    from magi_v2_tpu_torch.sampler.mass import mass_from_moments
+
+    kw = {} if sigma_fixed is None else {"sigma_sqs_fixed": sigma_fixed}
+    mode, _, _ = model._build_sampling_setup("precond", storage,
+                                             torch.float32, **kw)
+    target = mode.logp_grad
+    N, D = model.mag_I, model.D
+    dim = N * D + D + model.D_thetas
+    g = torch.Generator(device=device).manual_seed(1)
+    q0 = torch.cat([mode.X0.reshape(-1).float(),
+                    torch.tensor(tail, dtype=torch.float32, device=device)])
+    qs = q0 + 0.01 * torch.randn((num_chains, dim), generator=g,
+                                 device=device)
+    var = 1.0 + 0.2 * torch.rand((dim,), generator=g, device=device)
+    if dense_mass:
+        a = torch.randn((dim, dim), generator=g, device=device)
+        mass = mass_from_moments(var, torch.diag(var) + 0.05 * a @ a.T / dim)
+    else:
+        mass = var
+    eps = torch.tensor(step_size, device=device)
+    bt = torch.tensor(beta_temp, device=device)
+    host = np.random.default_rng(1)
+    lengths = [max(1, int(np.ceil(host.random() * max_leapfrogs)))
+               for _ in range(transitions)]
+    noise = [(torch.randn((num_chains, dim), generator=g, device=device),
+              torch.rand((num_chains,), generator=g, device=device))
+             for _ in range(transitions)]
+    # halve the step until the first transition accepts some proposals,
+    # so that the comparison sees states that move
+    for _ in range(10):
+        _, info = hmc_step(lambda q: target(q, bt), qs, eps, mass,
+                           lengths[0], *noise[0])
+        if float(info.accept_prob.mean()) >= 0.3:
+            break
+        eps = 0.5 * eps
+    bound = BoundTransition(target, qs, mass)
+    qe = qb = qs
+    same, gap, accepts = 0, 0.0, []
+    for L, (normals, uniforms) in zip(lengths, noise):
+        qe2, info = hmc_step(lambda q: target(q, bt), qe, eps, mass, L,
+                             normals, uniforms)
+        qb2, info_b = bound(qb, eps, mass, bt, L, normals, uniforms)
+        accepts.append(float(info.accept_prob.mean()))
+        if torch.equal(qe2, qb2) and torch.equal(info.accept_prob,
+                                                 info_b.accept_prob):
+            same += 1
+        else:
+            qb1, _ = bound(qe, eps, mass, bt, L, normals, uniforms)
+            gap = max(gap, _relerr(qe2, qb1)[1])
+        qe, qb = qe2, qb2
+    torch.cuda.synchronize()
+    print(f"{storage}: graph against eager, {transitions} transitions of "
+          f"{num_chains} chains (L {min(lengths)}..{max(lengths)}, step "
+          f"{float(eps):.4g}, mean "
+          f"acceptance {np.mean(accepts):.3f}): {same} of {transitions} bit "
+          f"for bit; largest one-transition relative gap {gap:.3e} (tol "
+          f"{TOL[torch.float32]:.0e})")
+    if same < transitions and not gap <= TOL[torch.float32]:
+        raise AssertionError(f"{storage}: the replayed transition differs "
+                             "from the eager one beyond K2's tolerance")
+    return same, gap
+
+
+def check_replays(counts, transitions, path):
+    """Every transition of a predict replays its captured steps: the
+    evaluation at the start and the first leapfrog once each (every
+    trajectory has at least one leapfrog), from three captures."""
+    print(f"{path}: CUDA graphs {counts}")
+    if not (counts["captures"] == 3 and counts["start"] == transitions
+            and counts["first"] == transitions):
+        raise AssertionError(f"{path}: not every one of {transitions} "
+                             f"transitions replayed its captured leapfrog: "
+                             f"{counts}")
 
 
 def report_solve(timing, per_launch):
@@ -1260,7 +1460,7 @@ def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts, graphs = launch_counts(), graph_counts()
 
     kr = res["kernel_results"]
     thetas = res["thetas_samps"]
@@ -1289,6 +1489,7 @@ def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
             and np.all(np.isfinite(thetas))):
         raise AssertionError(f"Lorenz {storage}: non-finite draws")
     check_launched(counts, LORENZ_PATH_KERNELS[storage], f"Lorenz {storage}")
+    check_replays(graphs, 2 * num_steps, f"Lorenz {storage}")
     if storage == "banded":
         # K3 per target evaluation: S dr, [R; m] delta, S' g_Ds and
         # [R' | -m'] gcat, one launch each
@@ -1326,6 +1527,9 @@ def main():
     model, counts_seir = main_path(device)
     check_composed(model, device)
     profile_leapfrog(model, device)
+    graph_vs_eager(model, device, "dense", NUM_CHAINS, NUM_LEAPFROGS,
+                   (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6), step_size=0.05,
+                   beta_temp=0.5, dense_mass=True)
     print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
 
     lmodel = lorenz_fit(device)
@@ -1351,6 +1555,11 @@ def main():
         lmodel, device, "banded", tail=lorenz_tail, step_size=0.03,
         beta_temp=0.3, dense_mass=False, num_chains=BANDED_CHAINS,
         num_leapfrogs=64, reps=3)
+    for storage, chains, eps in (("hybrid", LORENZ_CHAINS, 0.05),
+                                 ("banded", BANDED_CHAINS, 0.03)):
+        graph_vs_eager(lmodel, device, storage, chains, LORENZ_LEAPFROGS,
+                       lorenz_tail, step_size=eps, beta_temp=0.3,
+                       dense_mass=False, sigma_fixed=0.25)
 
     def entry(name, kernel, source, path, counts):
         return dict(name=name, route="cuda", source=SOURCES[source],
@@ -1365,8 +1574,12 @@ def main():
     kernels += [entry(f"{k}_lorenz_c{BANDED_CHAINS}", k, "manifold",
                       "lorenz_banded", counts_b)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
-    kernels += [entry("leapfrog_update", "leapfrog_update", "leapfrog",
-                      "lorenz_hybrid", counts_h)]
+    paths = {"leapfrog_update_seir": ("seir_dense", counts_seir),
+             "leapfrog_update": ("lorenz_hybrid", counts_h),
+             f"leapfrog_update_c{BANDED_CHAINS}": ("lorenz_banded",
+                                                   counts_b)}
+    kernels += [entry(name, "leapfrog_update", "leapfrog", *paths[name])
+                for name, _, _ in K2_ENTRIES]
     kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
                 for k in ("banded_solve", "banded_solve_adjoint")]
     kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)

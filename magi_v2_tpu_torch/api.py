@@ -36,6 +36,7 @@ from magi_v2_tpu_torch.sampler.magi_state import (
 )
 from magi_v2_tpu_torch.sampler.modes import build_sampling_mode, unwhiten_draws
 from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_hmc_chains
+from magi_v2_tpu_torch.timing import PhaseTimer, untimed
 
 
 def _not_ported(what: str, item: str):
@@ -322,10 +323,11 @@ class MAGI_v2:
 
     def _build_sampling_setup(self, reparam: str, storage: str, dtype,
                               sigma_sqs_LB=None, sigma_sqs_fixed=None,
-                              gn_anchor=None):
+                              gn_anchor=None, timer=untimed):
         """(mode, data, sigma_sqs_LB): the float64 factored precisions, the
         dense or banded posterior data in ``dtype`` and the SamplingMode,
-        all on the config's device.
+        all on the config's device. ``timer`` (``timing.PhaseTimer``) times
+        each part ("setup_*").
 
         storage="hybrid" evaluates the posterior through the exact
         (untruncated) operators, rebuilt when initial_fit truncated them,
@@ -344,26 +346,31 @@ class MAGI_v2:
                    if storage == "hybrid" else "")
             )
         if storage == "hybrid":
-            C_ops, m_ops, K_ops = self._exact_operators()
+            with timer("setup_exact_operators"):
+                C_ops, m_ops, K_ops = self._exact_operators()
         else:
             C_ops, m_ops, K_ops = self.C_d_invs, self.m_ds, self.K_d_invs
         dev = self.config.torch_device
         # R = C^{-1/2}, S = K^{-1/2} in float64 (negative eigenvalues, which
         # band truncation can leave, clamp to 0)
-        R64 = sym_sqrt(self._f64(C_ops))
-        S64 = sym_sqrt(self._f64(K_ops))
-        data = make_posterior_data(
-            self.I, C_ops, m_ops, K_ops, self.mu_ds, self.beta,
-            self.obs_index, sigma_sqs_LB, dtype,
-            C_inv_sqrts=R64 if storage != "banded" else None,
-            K_inv_sqrts=S64 if storage != "banded" else None, device=dev,
-        )
-        if storage == "banded":
-            data = to_banded_data(data, self.BANDSIZE, C_inv_sqrts_f64=R64,
-                                  K_inv_sqrts_f64=S64)
+        with timer("setup_operator_sqrt"):
+            R64 = sym_sqrt(self._f64(C_ops))
+            S64 = sym_sqrt(self._f64(K_ops))
+        with timer("setup_posterior_data"):
+            data = make_posterior_data(
+                self.I, C_ops, m_ops, K_ops, self.mu_ds, self.beta,
+                self.obs_index, sigma_sqs_LB, dtype,
+                C_inv_sqrts=R64 if storage != "banded" else None,
+                K_inv_sqrts=S64 if storage != "banded" else None, device=dev,
+            )
+            if storage == "banded":
+                data = to_banded_data(data, self.BANDSIZE,
+                                      C_inv_sqrts_f64=R64,
+                                      K_inv_sqrts_f64=S64)
         mode = build_sampling_mode(self, data, reparam, storage, dtype, R64,
                                    S64, sig_pre_fix=pre_fix,
-                                   anchor=self._gn_anchor(gn_anchor))
+                                   anchor=self._gn_anchor(gn_anchor),
+                                   timer=timer)
         return mode, data, sigma_sqs_LB
 
     def _dense_tail_size(self, mass_matrix: str, sigma_sqs_fixed=None) -> int:
@@ -445,7 +452,9 @@ class MAGI_v2:
         other values raise NotImplementedError. With num_chains > 1 the
         ``*_samps`` arrays carry a chain axis at position 1. Host wall
         seconds per phase land in ``predict_timings`` (the device is waited
-        for at the end of each: three waits per call)."""
+        for at the end of each): the parts of the sampling setup
+        ("setup_*", with "setup_rest" the remainder), "sampling" and
+        "unwhiten"."""
         if algorithm != "hmc":
             raise _not_ported(f"algorithm={algorithm!r} (NUTS)", "7")
         if reparam != "precond":
@@ -482,20 +491,17 @@ class MAGI_v2:
         sig_fix64, sigma_pre_fix = self._sigma_bounds(sigma_sqs_LB,
                                                       sigma_sqs_fixed)[1:]
         dense_tail_size = self._dense_tail_size(mass_matrix, sigma_sqs_fixed)
-        timings = self.predict_timings = {}
-
-        def phase_done(name, t0):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            timings[name] = time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
-        mode, data, sigma_sqs_LB = self._build_sampling_setup(
-            reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB,
-            sigma_sqs_fixed=sigma_sqs_fixed, gn_anchor=gn_anchor,
-        )
-        t0 = phase_done("sampling_setup", t0)
+        timer = PhaseTimer(dev)
+        self.predict_timings = timer.times
+        with timer("setup_rest"):
+            mode, data, sigma_sqs_LB = self._build_sampling_setup(
+                reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB,
+                sigma_sqs_fixed=sigma_sqs_fixed, gn_anchor=gn_anchor,
+                timer=timer,
+            )
+        # the parts were timed inside; what is left is the rest
+        timer.times["setup_rest"] -= sum(
+            v for k, v in timer.times.items() if k != "setup_rest")
 
         def pre_init(vals, lower):
             above = vals > lower
@@ -547,19 +553,18 @@ class MAGI_v2:
             mass_window1_diag=mass_window1_diag,
         )
         start = time.time()
-        t0 = time.perf_counter()
-        samples, stats = run_hmc_chains(
-            mode.logp_grad,
-            torch.as_tensor(q0, dtype=dtype, device=dev),
-            seed,
-            sampler_config,
-        )
-        t0 = phase_done("sampling", t0)
-        Z, sigma_pre, theta_pre = unflatten_samples(
-            samples, self.mag_I, self.D, self.D_thetas
-        )
-        X_samps = unwhiten_draws(mode, Z, data.mu_ds).cpu().numpy()
-        phase_done("unwhiten", t0)
+        with timer("sampling"):
+            samples, stats = run_hmc_chains(
+                mode.logp_grad,
+                torch.as_tensor(q0, dtype=dtype, device=dev),
+                seed,
+                sampler_config,
+            )
+        with timer("unwhiten"):
+            Z, sigma_pre, theta_pre = unflatten_samples(
+                samples, self.mag_I, self.D, self.D_thetas
+            )
+            X_samps = unwhiten_draws(mode, Z, data.mu_ds).cpu().numpy()
         minutes = np.round((time.time() - start) / 60, 2)
         squeeze = num_chains == 1
 

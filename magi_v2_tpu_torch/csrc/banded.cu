@@ -809,8 +809,15 @@ template <typename T, int CH, bool kAdjoint>
 int launch_solve(const T* kt, const T* y, T* x, const SolveArgs& a, int S,
                  size_t smem, cudaStream_t stream) {
   auto kernel = banded_solve_kernel<T, CH, kAdjoint>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // set once per size, so that a launch captured into a CUDA graph (after
+  // one eager launch of the same shape) makes no other runtime call
+  static size_t allowed = 0;
+  cudaError_t err = cudaSuccess;
+  if (smem != allowed) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) allowed = smem;
+  }
   if (err == cudaSuccess) {
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg =

@@ -39,7 +39,7 @@ SIGNATURES = {
     "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_P],
     "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],
     "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
-    "leapfrog_update": [_P] * 7 + [_I] * 5 + [_P] + [_P],
+    "leapfrog_update": [_P] * 6 + [_I] * 6 + [_P] * 2 + [_I, _P] + [_P],
 }
 
 

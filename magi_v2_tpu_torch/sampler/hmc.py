@@ -1,18 +1,37 @@
 """Fixed-length (jittered) HMC transition for all chains at once
 (counterpart of magi_v2_tpu/sampler/hmc.py), with the leapfrog update as
-kernel K2 (csrc/leapfrog.cu).
+kernel K2 (csrc/leapfrog.cu) and, on the card, each leapfrog replayed as a
+CUDA graph.
 
 Chains are the leading axis of ``q`` (C, dim); every chain runs exactly
 ``num_leapfrogs`` leapfrogs, a Python int drawn on the host by the caller,
 so the loop needs no device value. Step size and mass stay on the device:
 nothing in the transition waits for the card.
 
-``leapfrog_update`` is K2's wrapper: for a CPU tensor it runs the plain
+``leapfrog_update`` is K2's wrapper and ``bind_leapfrog`` its bound form
+(arguments checked and converted once): for a CPU tensor they run the plain
 version (``leapfrog_update_plain``, the same operations in the same order
 as the JAX loop body, so a transition is reproducible bit for bit); for a
-CUDA tensor it launches the kernel or raises. It updates q and p in place,
-so a transition allocates its two state copies once instead of three
-tensors per leapfrog. ``LAUNCH_COUNTS`` counts kernel launches only.
+CUDA tensor they launch the kernel or raise. K2 takes every mass form in
+one launch (a diagonal, a dense tail block, the full dense metric). It
+updates q and p in place. ``LAUNCH_COUNTS`` counts kernel launches only.
+
+Two forms of one transition, which give the same bits:
+
+- ``hmc_step``: eager, for any ``logp_grad`` callable (the analytic
+  targets of the tests); a new lp and grad at each evaluation.
+- ``BoundTransition``: for a target with a bound evaluation
+  (``target.bind(q, beta_temp, lp, grad)``, as ``GNTarget`` and
+  ``PinnedSigma`` have), on fixed buffers. On the card it captures three
+  steps as CUDA graphs once (the evaluation at the start; the first
+  leapfrog, K2 with one kick and the drift, then the evaluation; every
+  later leapfrog, K2 with two kicks and the drift, then the evaluation) and
+  replays them: L + 1 replays per transition, the two kinetic-energy K2
+  launches and the accept test eager around them. The step size,
+  temperature, state and mass of each transition are copied into the
+  buffers, never recaptured. On the CPU it runs the same steps eagerly.
+  A capture or replay that fails raises; there is no other path on the
+  card.
 """
 
 from __future__ import annotations
@@ -21,6 +40,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from magi_v2_tpu_torch.ops.banded import launch_stream
 from magi_v2_tpu_torch.sampler.mass import (
     TailDenseMass,
     mass_vel,
@@ -29,9 +49,18 @@ from magi_v2_tpu_torch.sampler.mass import (
 
 KERNELS = ("leapfrog_update",)
 LAUNCH_COUNTS = {k: 0 for k in KERNELS}
-# widest dense inverse-mass tail the kernel multiplies in-kernel; a wider
-# block (the full dense metric) gets its velocity from one cuBLAS GEMM
-MAX_KERNEL_TAIL = 8
+# captures made and replays of each captured step
+GRAPH_STEPS = ("start", "first", "next")
+GRAPH_COUNTS = {"captures": 0, **{k: 0 for k in GRAPH_STEPS}}
+
+# csrc/leapfrog.cu: a stream CTA's threads and elements a thread, a tail
+# cluster's chains and threads along its columns, CTAs a cluster, and the
+# shared memory a CTA may take
+_THREADS, _QUAD = 256, 4
+_TAIL_CHAINS, _TAIL_COLS, _MAX_CLUSTER = 16, 64, 8
+# and the elements of M^{-1} in one of a tail CTA's two chunks
+_CHUNK = 4096
+_SMEM_LIMIT = 226 * 1024
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +70,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCH_COUNTS)
+
+
+def reset_graph_counts() -> None:
+    for k in GRAPH_COUNTS:
+        GRAPH_COUNTS[k] = 0
+
+
+def graph_counts() -> dict:
+    return dict(GRAPH_COUNTS)
 
 
 class HmcInfo(NamedTuple):
@@ -66,21 +104,56 @@ def leapfrog_update_plain(q, p, g, step_size, inv_mass, nkick: int,
 
 
 def _mass_parts(inv_mass):
-    """(diag, tail_inv or None, k) of a mass the kernel multiplies
-    in-kernel, or None for a dense block wider than MAX_KERNEL_TAIL."""
+    """(diag (dim,), tail_inv (k, k) or None, k) of an inverse mass."""
     if not isinstance(inv_mass, TailDenseMass):
         return inv_mass, None, 0
-    if inv_mass.k > MAX_KERNEL_TAIL:
-        return None
     return inv_mass.diag, inv_mass.tail_inv, inv_mass.k
+
+
+def _tail_layout(k: int):
+    """(columns a tail thread owns, CTAs a cluster) for a dense block of k
+    columns, as csrc/leapfrog.cu picks them."""
+    cpt = -(-k // (_MAX_CLUSTER * _TAIL_COLS))
+    cpt = next((n for n in (1, 2, 4, 8) if cpt <= n), cpt)
+    return cpt, -(-k // (_TAIL_COLS * cpt))
+
+
+def tail_stride(k: int) -> int:
+    """The row stride K2 reads a (k, k) dense inverse-mass block with: the
+    columns its cluster covers, so that every CTA's share of a row starts
+    on a 16-byte boundary."""
+    cpt, jb = _tail_layout(k)
+    return jb * _TAIL_COLS * cpt
+
+
+def padded_tail(tail_inv):
+    """A copy of the (k, k) block ``tail_inv`` as the (k, k) view of a
+    zero-padded (k, ``tail_stride(k)``) tensor: K2's layout."""
+    k = tail_inv.shape[-1]
+    out = torch.zeros((k, tail_stride(k)), dtype=tail_inv.dtype,
+                      device=tail_inv.device)[:, :k]
+    out.copy_(tail_inv)
+    return out
+
+
+def kinetic_partials(dim: int, k: int) -> int:
+    """Partial kinetic sums of one chain: one per stream CTA of its row's
+    diagonal head and one per CTA of its dense block's cluster."""
+    head = dim - k
+    segs = -(-(-(-(head + _QUAD - 1) // _QUAD)) // _THREADS) if head else 0
+    return segs + (_tail_layout(k)[1] if k else 0)
+
+
+def _takes_plain(device) -> bool:
+    """Whether a call on ``device`` runs the plain version: on the CPU
+    only."""
+    return device.type == "cpu"
 
 
 _ENTRIES = {}
 
 
-def _launch(q, p, g, step_size, vel, diag, tail_inv, k, nkick, drift,
-            kinetic):
-    dt = q.dtype
+def _entry(dt):
     fn = _ENTRIES.get(dt)
     if fn is None:
         from magi_v2_tpu_torch.ops._build import load_library
@@ -91,16 +164,74 @@ def _launch(q, p, g, step_size, vel, diag, tail_inv, k, nkick, drift,
         suffix = "f32" if dt == torch.float32 else "f64"
         fn = _ENTRIES[dt] = load_library().entry(
             f"magi_leapfrog_update_{suffix}", "leapfrog_update")
+    return fn
+
+
+def bind_leapfrog(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
+                  kinetic=None):
+    """K2 bound to its operands, checked here once: a callable of the
+    stream that runs one leapfrog update on the tensors given now (on the
+    CPU the plain version), q and p (C, dim) in place, the kinetic energies
+    into ``kinetic`` (C,) when it is given. ``step_size`` a 0-dim tensor;
+    ``inv_mass`` a diagonal or a ``TailDenseMass`` whose tensors are read
+    at each call, on the card only if its dense block is in K2's padded
+    layout (``padded_tail``): another block is copied into it here."""
+    dev, dt = q.device, q.dtype
+    if q.dim() != 2:
+        raise ValueError("q must be (C, dim)")
     C, dim = q.shape
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(q.data_ptr(), p.data_ptr(), g.data_ptr(), ptr(vel), ptr(diag),
-             ptr(tail_inv), step_size.data_ptr(), k, C, dim, nkick,
-             int(drift), ptr(kinetic),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of leapfrog_update failed: error "
-                           f"{err}")
-    LAUNCH_COUNTS["leapfrog_update"] += 1
+    diag, tail_inv, k = _mass_parts(inv_mass)
+    named = [("p", p), ("g", g), ("step_size", step_size), ("diag", diag)]
+    named += [("tail_inv", tail_inv)] if k else []
+    named += [("kinetic", kinetic)] if kinetic is not None else []
+    for name, t in named:
+        if not (isinstance(t, torch.Tensor) and t.dtype == dt
+                and t.device == dev):
+            raise TypeError(f"{name} must be a {dt} tensor on {dev}")
+    if p.shape != (C, dim) or g.shape != (C, dim) or step_size.dim() != 0:
+        raise ValueError("q, p, g must be (C, dim) and step_size 0-dim")
+    if diag.shape != (dim,) or (k and tail_inv.shape != (k, k)):
+        raise ValueError(f"the inverse mass must be a ({dim},) diagonal "
+                         f"with a (k, k) tail block")
+    if kinetic is not None and kinetic.shape != (C,):
+        raise ValueError(f"kinetic must be ({C},)")
+    nkick, drift = int(nkick), bool(drift)
+    if _takes_plain(dev):
+        def run(stream=None):
+            kin = leapfrog_update_plain(q, p, g, step_size, inv_mass, nkick,
+                                        drift, kinetic is not None)
+            if kinetic is not None:
+                kinetic.copy_(kin)
+        return run
+    if dev.type != "cuda":
+        raise ValueError(f"leapfrog_update runs on cpu or cuda, not {dev}")
+    touched = [("p", p)] + ([("g", g)] if nkick else []) + (
+        [("q", q)] if drift else [])
+    for name, t in touched:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    if not diag.is_contiguous():
+        raise ValueError("the inverse-mass diagonal must be contiguous")
+    ld = tail_stride(k) if k else 0
+    if k and (tail_inv.stride() != (ld, 1) or tail_inv.data_ptr() % 16):
+        tail_inv = padded_tail(tail_inv)
+    cpt = _tail_layout(k)[0] if k else 1
+    smem = (k * _TAIL_CHAINS + 2 * _CHUNK) * q.element_size() if k else 0
+    if cpt > 8 or smem > _SMEM_LIMIT:
+        raise ValueError(f"a dense inverse-mass block of {k} columns is "
+                         f"wider than K2 takes in {dt}")
+    from magi_v2_tpu_torch.ops._build import Launch
+
+    S = kinetic_partials(dim, k)
+    part = ticket = None
+    if kinetic is not None:
+        part = torch.empty((C, S), dtype=dt, device=dev)
+        ticket = torch.zeros((C,), dtype=torch.int32, device=dev)
+    return Launch(_entry(dt),
+                  [q, p, g, diag, tail_inv, step_size, k, ld, C, dim, nkick,
+                   int(drift), kinetic, part, S, ticket],
+                  LAUNCH_COUNTS, "leapfrog_update")
 
 
 def leapfrog_update(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
@@ -108,38 +239,31 @@ def leapfrog_update(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
     """K2: the kicks, velocity, drift and kinetic energy of one leapfrog
     for every chain, q and p (C, dim) updated in place; ``step_size`` a
     0-dim tensor. Returns the kinetic energies (C,) when ``kinetic``."""
-    dev, dt = q.device, q.dtype
-    C, dim = q.shape
-    for name, t in (("p", p), ("g", g), ("step_size", step_size)):
-        if not (isinstance(t, torch.Tensor) and t.dtype == dt
-                and t.device == dev):
-            raise TypeError(f"{name} must be a {dt} tensor on {dev}")
-    if p.shape != (C, dim) or g.shape != (C, dim) or step_size.dim() != 0:
-        raise ValueError("q, p, g must be (C, dim) and step_size 0-dim")
-    if dev.type == "cpu":
-        return leapfrog_update_plain(q, p, g, step_size, inv_mass, nkick,
-                                     drift, kinetic)
-    if dev.type != "cuda":
-        raise ValueError(f"leapfrog_update runs on cpu or cuda, not {dev}")
-    if not (q.is_contiguous() and p.is_contiguous() and g.is_contiguous()):
-        raise ValueError("q, p and g must be contiguous")
-    kin = torch.empty((C,), dtype=dt, device=dev) if kinetic else None
-    parts = _mass_parts(inv_mass)
-    if parts is None and (drift or kinetic):
-        # the full dense metric: kick, one GEMM for the velocity, drift
-        if nkick:
-            _launch(q, p, g, step_size, None, None, None, 0, nkick, False,
-                    None)
-        vel = mass_vel(inv_mass, p).contiguous()
-        _launch(q, p, g, step_size, vel, None, None, 0, 0, drift, kin)
-        return kin
-    diag, tail_inv, k = parts if parts is not None else (None, None, 0)
-    if diag is not None and (diag.shape != (dim,) or diag.dtype != dt):
-        raise ValueError(f"the inverse-mass diagonal must be ({dim},) {dt}")
-    tail_inv = None if tail_inv is None else tail_inv.contiguous()
-    _launch(q, p, g, step_size, None, diag.contiguous()
-            if diag is not None else None, tail_inv, k, nkick, drift, kin)
+    kin = (torch.empty((q.shape[0],), dtype=q.dtype, device=q.device)
+           if kinetic else None)
+    bind_leapfrog(q, p, g, step_size, inv_mass, nkick, drift, kin)(
+        launch_stream(q.device))
     return kin
+
+
+def _metropolis(q, qc, logp0, kin0, logp, kin1, uniforms, L: int,
+                max_energy_diff: float):
+    """The accept test of a transition from q to the proposal qc."""
+    H0 = -logp0 + kin0
+    H1 = -logp + kin1
+    dH = H1 - H0
+    dH = torch.where(torch.isfinite(dH), dH, torch.full_like(dH, float("inf")))
+    accept_prob = torch.exp(torch.clamp(-dH, max=0.0))
+    diverging = dH > max_energy_diff
+    accept = (uniforms < accept_prob) & ~diverging
+    q_out = torch.where(accept[:, None], qc, q)
+    info = HmcInfo(
+        accept_prob=torch.where(diverging, torch.zeros_like(accept_prob),
+                                accept_prob),
+        num_leapfrogs=L,
+        diverging=diverging,
+    )
+    return q_out, info
 
 
 def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
@@ -159,8 +283,6 @@ def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
     pc = momentum_from_normal(inv_mass, normals).contiguous()
     kin0 = leapfrog_update(q, pc, grad0, step_size, inv_mass, nkick=0,
                            drift=False, kinetic=True)
-    H0 = -logp0 + kin0
-
     qc, gc, logp = q.clone(), grad0, logp0
     for i in range(L):
         leapfrog_update(qc, pc, gc, step_size, inv_mass,
@@ -168,18 +290,147 @@ def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
         logp, gc = logp_grad(qc)
     kin1 = leapfrog_update(qc, pc, gc, step_size, inv_mass,
                            nkick=1 if L else 0, drift=False, kinetic=True)
+    return _metropolis(q, qc, logp0, kin0, logp, kin1, uniforms, L,
+                       max_energy_diff)
 
-    H1 = -logp + kin1
-    dH = H1 - H0
-    dH = torch.where(torch.isfinite(dH), dH, torch.full_like(dH, float("inf")))
-    accept_prob = torch.exp(torch.clamp(-dH, max=0.0))
-    diverging = dH > max_energy_diff
-    accept = (uniforms < accept_prob) & ~diverging
-    q_out = torch.where(accept[:, None], qc, q)
-    info = HmcInfo(
-        accept_prob=torch.where(diverging, torch.zeros_like(accept_prob),
-                                accept_prob),
-        num_leapfrogs=L,
-        diverging=diverging,
-    )
-    return q_out, info
+
+def _launch_counters():
+    from magi_v2_tpu_torch.ops import banded, manifold
+
+    return (manifold.LAUNCH_COUNTS, banded.LAUNCH_COUNTS, LAUNCH_COUNTS)
+
+
+class CapturedStep:
+    """A CUDA graph of one step and the kernel launches it holds, which
+    each replay adds to the launch counts."""
+
+    def __init__(self, graph, launches):
+        self.graph, self.launches = graph, launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for counts, new in zip(_launch_counters(), self.launches):
+            for k, n in new.items():
+                counts[k] += n
+
+
+def capture_steps(steps: dict, device) -> dict:
+    """{name: CapturedStep} of the callables ``steps`` (each runs on the
+    current stream and allocates nothing it keeps). Each runs once on the
+    capture stream first, so that every first-launch setting (a kernel's
+    shared-memory attribute, the card's SM count, cuBLAS's workspace) is
+    made before any capture; the graphs share one memory pool. A capture
+    records launches and runs none: its launch counts are taken back and
+    added at each replay instead."""
+    counters = _launch_counters()
+    current = torch.cuda.current_stream(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        for fn in steps.values():
+            fn()
+    current.wait_stream(stream)
+    graphs, pool = {}, None
+    for name, fn in steps.items():
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            fn()
+        pool = graph.pool()
+        launches = []
+        for counts, was in zip(counters, before):
+            launches.append({k: counts[k] - was[k] for k in counts
+                             if counts[k] != was[k]})
+            counts.update(was)
+        graphs[name] = CapturedStep(graph, launches)
+    GRAPH_COUNTS["captures"] += len(graphs)
+    return graphs
+
+
+class BoundTransition:
+    """``hmc_step`` for a target with a bound evaluation, on fixed buffers
+    of C chains (see the module's docstring): q (the proposal), p, g, lp,
+    lp0, kin0, kin1, a 0-dim step_size and beta_temp, and the mass parts
+    diag (dim,) and tail_inv (k, k, in K2's padded layout). ``q0`` (C, dim) gives the shapes and
+    the first state; ``inv_mass`` the mass form, fixed for the object."""
+
+    def __init__(self, target, q0, inv_mass):
+        C, dim = q0.shape
+        dt, dev = q0.dtype, q0.device
+        self.device = dev
+        new = lambda *s: torch.empty(s, dtype=dt, device=dev)
+        self.q = q0.clone(memory_format=torch.contiguous_format)
+        self.p, self.g = torch.zeros_like(self.q), torch.zeros_like(self.q)
+        self.lp, self.lp0, self.kin0, self.kin1 = (new(C) for _ in range(4))
+        # step size 0 until the first transition: the warm-up before the
+        # captures then leaves q where it is
+        self.step_size = torch.zeros((), dtype=dt, device=dev)
+        self.beta_temp = torch.ones((), dtype=dt, device=dev)
+        diag, tail_inv, self.k = _mass_parts(inv_mass)
+        self.diag = diag.clone()
+        # in K2's padded layout, so that its launches read this buffer
+        self.tail_inv = padded_tail(tail_inv) if self.k else None
+        self.mass = (TailDenseMass(self.diag, self.tail_inv, None) if self.k
+                     else self.diag)
+        self._mass_src = inv_mass
+        evaluate = target.bind(self.q, self.beta_temp, self.lp, self.g)
+
+        def k2(nkick, drift, kinetic=None):
+            return bind_leapfrog(self.q, self.p, self.g, self.step_size,
+                                 self.mass, nkick, drift, kinetic)
+
+        first, later = k2(1, True), k2(2, True)
+        self._kinetic0 = k2(0, False, self.kin0)
+        self._kinetic1 = (k2(0, False, self.kin1), k2(1, False, self.kin1))
+        stream = lambda: launch_stream(dev)
+
+        def leapfrog(update):
+            def run():
+                update(stream())
+                evaluate()
+            return run
+
+        self.steps = {"start": evaluate, "first": leapfrog(first),
+                      "next": leapfrog(later)}
+        self.graphs = (capture_steps(self.steps, dev) if dev.type == "cuda"
+                       else None)
+
+    def _set_mass(self, inv_mass) -> None:
+        diag, tail_inv, k = _mass_parts(inv_mass)
+        if k != self.k:
+            raise ValueError(f"the transition was bound to a dense block of "
+                             f"{self.k} columns, not {k}")
+        self.diag.copy_(diag)
+        if k:
+            self.tail_inv.copy_(tail_inv)
+        self._mass_src = inv_mass
+
+    def _step(self, name: str) -> None:
+        if self.graphs is None:
+            self.steps[name]()
+        else:
+            self.graphs[name].replay()
+            GRAPH_COUNTS[name] += 1
+
+    def __call__(self, q, step_size, inv_mass, beta_temp, num_leapfrogs: int,
+                 normals, uniforms, max_energy_diff: float = 1000.0):
+        """One transition from q, as ``hmc_step(lambda r: target(r,
+        beta_temp), q, ...)``: the same arguments, the same result. A mass
+        is copied in when ``inv_mass`` is another object than the last
+        one."""
+        L = int(num_leapfrogs)
+        self.step_size.copy_(step_size)
+        self.beta_temp.copy_(beta_temp)
+        if inv_mass is not self._mass_src:
+            self._set_mass(inv_mass)
+        self.q.copy_(q)
+        self._step("start")
+        self.lp0.copy_(self.lp)
+        self.p.copy_(momentum_from_normal(inv_mass, normals))
+        stream = launch_stream(self.device)
+        self._kinetic0(stream)
+        for i in range(L):
+            self._step("first" if i == 0 else "next")
+        self._kinetic1[1 if L else 0](stream)
+        return _metropolis(q, self.q, self.lp0, self.kin0, self.lp,
+                           self.kin1, uniforms, L, max_energy_diff)

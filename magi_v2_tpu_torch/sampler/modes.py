@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from magi_v2_tpu_torch.ops.banded import UpperFactor, banded_solve
+from magi_v2_tpu_torch.timing import untimed
 
 # grid size from which float32 sampling in dense storage warns (the JAX
 # package measured its step size collapsing at N_I ~ 1k)
@@ -52,6 +53,22 @@ class PinnedSigma:
         v, g = self.logp_grad(qf, beta_temp)
         g[..., lo:hi] = 0.0
         return v, g
+
+    def bind(self, q, beta_temp, lp, grad):
+        """The pinned evaluation on fixed tensors (see ``GNTarget.bind``),
+        through a fixed copy of the states."""
+        qf = torch.empty_like(q)
+        evaluate = self.logp_grad.bind(qf, beta_temp, lp, grad)
+        lo, hi = self.N_I * self.D, (self.N_I + 1) * self.D
+        fix = self.sig_pre_fix.expand(q.shape[0], hi - lo)
+
+        def run():
+            qf.copy_(q)
+            qf[:, lo:hi].copy_(fix)
+            evaluate()
+            grad[:, lo:hi].zero_()
+
+        return run
 
     def to(self, device) -> "PinnedSigma":
         return PinnedSigma(self.logp_grad.to(device),
@@ -85,7 +102,7 @@ class SamplingMode:
 
 
 def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
-                           exact: bool):
+                           exact: bool, timer=untimed):
     """(logp_grad, parts) with the GN factor, the relative-energy zero
     point and the whitening all anchored at (X, theta).
 
@@ -112,12 +129,13 @@ def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
     N, D = model.mag_I, model.D
     U_band, gn_info = build_gn_cholesky_banded(
         model, C_inv_sqrts=R64, K_inv_sqrts=S64, at_X=anchor_X,
-        at_thetas=anchor_th,
+        at_thetas=anchor_th, timer=timer,
     )
-    U_blocks64 = banded_to_blocks_upper(f64(U_band))
-    # diagonal-tile inverses in float64, cast afterwards (see
-    # banded_diag_tile_inverses)
-    U_dinv64 = banded_diag_tile_inverses(U_blocks64, N * D)
+    with timer("setup_factor_tiles"):
+        U_blocks64 = banded_to_blocks_upper(f64(U_band))
+        # diagonal-tile inverses in float64, cast afterwards (see
+        # banded_diag_tile_inverses)
+        U_dinv64 = banded_diag_tile_inverses(U_blocks64, N * D)
     if exact:
         m_ref = (model._exact_operators()[1] if model.BANDSIZE is not None
                  else model.m_ds)
@@ -129,30 +147,36 @@ def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
         R_ref = torch.where(in_band, R64, zero)
         S_ref = torch.where(in_band, S64, zero)
         m_ref = model.m_ds
-    ref = make_ref_point(model.I, anchor_X, model.mu_ds, anchor_th,
-                         model.f_vec, R_ref, S_ref, m_ref, dtype, device=dev)
-    z064 = whiten_X_banded(f64(anchor_X), f64(model.mu_ds), U_blocks64)
-    # K4's folded tiles are formed in float64, then cast
-    factor = UpperFactor.make(U_blocks64, U_dinv64, N * D).to(dtype)
-    z0 = z064.reshape(-1).to(dtype)
+    with timer("setup_ref_point"):
+        ref = make_ref_point(model.I, anchor_X, model.mu_ds, anchor_th,
+                             model.f_vec, R_ref, S_ref, m_ref, dtype,
+                             device=dev)
+    with timer("setup_fold_factor"):
+        z064 = whiten_X_banded(f64(anchor_X), f64(model.mu_ds), U_blocks64)
+        # K4's folded tiles are formed in float64, then cast
+        factor = UpperFactor.make(U_blocks64, U_dinv64, N * D).to(dtype)
+        z0 = z064.reshape(-1).to(dtype)
     maker = (make_tempered_logp_grad_gn_hybrid if exact
              else make_tempered_logp_grad_gn_banded)
-    lp = maker(data, model.f_vec, factor, N, D, model.D_thetas, ref=ref,
-               z0=z0)
+    with timer("setup_target"):
+        lp = maker(data, model.f_vec, factor, N, D, model.D_thetas, ref=ref,
+                   z0=z0)
     return lp, {"U_blocks": factor.tiles, "U_dinv": factor.dinv,
                 "factor": factor, "ref": ref, "z0": z0, "z064": z064,
                 "info": gn_info}
 
 
 def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
-                        S64, sig_pre_fix=None, anchor=None) -> SamplingMode:
+                        S64, sig_pre_fix=None, anchor=None,
+                        timer=untimed) -> SamplingMode:
     """Construct the SamplingMode of a fitted port model. ``data`` is the
     (dense or banded) posterior data predict() built; R64/S64 the float64
     clamped square roots of C^{-1}/K^{-1} on the model's device;
     ``sig_pre_fix`` the pre-space pinned sigma values (or None);
     ``anchor`` an optional natural-coordinate (X (N_I, D), thetas) point
     for the banded/hybrid GN factor and zero point (predict's
-    ``gn_anchor``), instead of (Xhat_init, thetas_init)."""
+    ``gn_anchor``), instead of (Xhat_init, thetas_init); ``timer`` times
+    the parts (``timing.PhaseTimer``)."""
     if reparam != "precond" or storage not in ("dense", "banded", "hybrid"):
         raise NotImplementedError(
             f"reparam={reparam!r}, storage={storage!r} is not ported; only "
@@ -175,6 +199,7 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
         logp_grad, gn = _build_banded_gn_parts(
             model, data, dtype, R64, S64, np.asarray(anchor_X, np.float64),
             np.asarray(anchor_th, np.float64), exact=storage == "hybrid",
+            timer=timer,
         )
         factor = gn["factor"]
         X0 = gn["z064"].to(dtype)
@@ -195,17 +220,21 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
             whiten_X_full,
         )
 
-        L64, L_inv64 = build_gn_whitening(model, R64, S64)
-        ref = make_ref_point(
-            model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
-            model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
-        )
-        z064 = whiten_X_full(f64(model.Xhat_init), f64(model.mu_ds), L_inv64)
-        factor = L64.to(dtype)
-        logp_grad = make_tempered_logp_grad_gn(
-            data, model.f_vec, factor, model.mag_I, model.D, model.D_thetas,
-            ref=ref, z0=z064.reshape(-1).to(dtype),
-        )
+        with timer("setup_gn_whitening"):
+            L64, L_inv64 = build_gn_whitening(model, R64, S64)
+        with timer("setup_ref_point"):
+            ref = make_ref_point(
+                model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
+                model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
+            )
+        with timer("setup_target"):
+            z064 = whiten_X_full(f64(model.Xhat_init), f64(model.mu_ds),
+                                 L_inv64)
+            factor = L64.to(dtype)
+            logp_grad = make_tempered_logp_grad_gn(
+                data, model.f_vec, factor, model.mag_I, model.D,
+                model.D_thetas, ref=ref, z0=z064.reshape(-1).to(dtype),
+            )
         gn = None
         X0 = z064.to(dtype)
     if sig_pre_fix is not None:

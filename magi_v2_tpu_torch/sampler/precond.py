@@ -49,6 +49,7 @@ from magi_v2_tpu_torch.ops.banded import (
     block_banded_matvec_upper,
 )
 from magi_v2_tpu_torch.ops.manifold import ManifoldPlan
+from magi_v2_tpu_torch.timing import untimed
 
 
 def pointwise_ode_jacobian(f_vec, I, Xhat, thetas):
@@ -209,7 +210,7 @@ def gauss_newton_precision_band(
 def build_gn_cholesky_banded(model, sigma_sqs_init=None,
                              bw_precision: int | None = None,
                              C_inv_sqrts=None, K_inv_sqrts=None, at_X=None,
-                             at_thetas=None):
+                             at_thetas=None, timer=untimed):
     """Banded Cholesky factor U of the Gauss-Newton precision Lambda = U'U
     of a fitted port model, on the host in float64: (U_band, info). The
     sampler whitens with z = U (x - mu), whose curvature U^{-T} Lambda
@@ -217,7 +218,8 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
     back substitution (K4). With the float64 square roots of the operators
     the precision's bandwidth defaults to its natural 4*D*bandsize (no
     truncation of Lambda). ``at_X``/``at_thetas`` move the linearization
-    anchor (predict's ``gn_anchor``)."""
+    anchor (predict's ``gn_anchor``); ``timer`` times the Jacobian, the
+    precision band and the Cholesky ("setup_gn_*")."""
     from magi_v2_tpu_torch.ops.banded_host import banded_cholesky_upper
 
     N, D = model.mag_I, model.D
@@ -236,14 +238,17 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
         at_thetas)
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                     dtype=torch.float64)
-    J = pointwise_ode_jacobian(model.f_vec, f64(model.I), f64(X_anchor),
-                               f64(th_anchor)).numpy()
-    lam_band = gauss_newton_precision_band(
-        model.C_d_invs, model.m_ds, model.K_d_invs, model.beta, obs_mask,
-        sigma, J, bw_precision, comp_bandwidth=bsize,
-        C_inv_sqrts=host(C_inv_sqrts), K_inv_sqrts=host(K_inv_sqrts),
-    )
-    U_band, jitter = banded_cholesky_upper(lam_band)
+    with timer("setup_gn_jacobian"):
+        J = pointwise_ode_jacobian(model.f_vec, f64(model.I), f64(X_anchor),
+                                   f64(th_anchor)).numpy()
+    with timer("setup_gn_precision"):
+        lam_band = gauss_newton_precision_band(
+            model.C_d_invs, model.m_ds, model.K_d_invs, model.beta, obs_mask,
+            sigma, J, bw_precision, comp_bandwidth=bsize,
+            C_inv_sqrts=host(C_inv_sqrts), K_inv_sqrts=host(K_inv_sqrts),
+        )
+    with timer("setup_gn_cholesky"):
+        U_band, jitter = banded_cholesky_upper(lam_band)
     return U_band, {"jitter": jitter, "bw_precision": int(bw_precision)}
 
 
@@ -430,8 +435,10 @@ class GNTarget:
     sees a chain count (``_bind``): the buffers, the two stages and the K1
     plan bound to them, their arguments checked then and not again. A
     call checks q and beta_temp, overwrites the intermediates, and returns
-    a new lp and a new grad: the sampler holds those of the current state
-    while it evaluates the proposal, so they are never reused."""
+    a new lp and a new grad: the eager sampler holds those of the current
+    state while it evaluates the proposal, so they are never reused.
+    ``bind`` gives the same evaluation on fixed q, beta_temp, lp and grad,
+    which the bound sampler replays as a CUDA graph."""
 
     def __init__(self, data, f_vec, whitening, operators, ref, z0, N_I: int,
                  D: int, D_thetas: int):
@@ -476,6 +483,35 @@ class GNTarget:
             whitening=self.whitening.bind(b),
             k1=ManifoldPlan(self.f_vec, self.I, consts, self.beta, dim, b))
 
+    def _workspace(self, C: int):
+        ws = self._workspaces.get(C)
+        if ws is None:
+            ws = self._workspaces[C] = self._bind(C)
+        return ws
+
+    def _check(self, name, t, shape):
+        dt, dev = self.z0.dtype, self.z0.device
+        if not (isinstance(t, torch.Tensor) and t.dtype == dt
+                and t.device == dev and t.shape == shape):
+            raise TypeError(f"{name} must be a {tuple(shape)} {dt} tensor "
+                            f"on {dev}")
+
+    def _evaluate(self, ws, q, beta_temp, lp, grad) -> None:
+        """One evaluation at q into lp and grad, through the workspace."""
+        z0 = self.z0
+        stream = launch_stream(z0.device)
+        b, wh, op, k1 = ws.bufs, ws.whitening, ws.operators, ws.k1
+        torch.sub(q[:, :z0.shape[0]], z0, out=b["dz"])
+        wh.forward(stream)
+        op.rm(stream)
+        k1.fwd(q, beta_temp, stream)
+        op.s(stream)
+        k1.energy(q, beta_temp, lp, stream)
+        op.s_adjoint(stream)
+        k1.bwd(q, beta_temp, grad, stream)
+        op.rm_adjoint(stream)
+        wh.backward(grad, stream)
+
     def __call__(self, q, beta_temp):
         """q (C, dim) -> (logp (C,), grad (C, dim)); beta_temp 0-dim."""
         z0 = self.z0
@@ -487,28 +523,34 @@ class GNTarget:
                 and beta_temp.dtype == dt and beta_temp.device == dev):
             raise TypeError(f"beta_temp must be a 0-dim {dt} tensor on {dev}")
         C = q.shape[0]
-        ws = self._workspaces.get(C)
-        if ws is None:
-            ws = self._workspaces[C] = self._bind(C)
+        ws = self._workspace(C)
         if q.shape != ws.q_shape:
             raise ValueError(f"q has shape {tuple(q.shape)}, expected "
                              f"{ws.q_shape}")
         q = q.contiguous()
-        stream = launch_stream(dev)
-        b, wh, op, k1 = ws.bufs, ws.whitening, ws.operators, ws.k1
-        torch.sub(q[:, :z0.shape[0]], z0, out=b["dz"])
-        wh.forward(stream)
-        op.rm(stream)
-        k1.fwd(q, beta_temp, stream)
-        op.s(stream)
         lp = torch.empty((C,), dtype=dt, device=dev)
-        k1.energy(q, beta_temp, lp, stream)
-        op.s_adjoint(stream)
         grad = torch.empty_like(q)
-        k1.bwd(q, beta_temp, grad, stream)
-        op.rm_adjoint(stream)
-        wh.backward(grad, stream)
+        self._evaluate(ws, q, beta_temp, lp, grad)
         return lp, grad
+
+    def bind(self, q, beta_temp, lp, grad):
+        """The evaluation bound to fixed tensors, checked here once: a
+        callable of no arguments that evaluates the target at what q (C,
+        dim) holds, at the temperature beta_temp (0-dim) holds, into lp (C,)
+        and grad (C, dim), and allocates nothing. It shares the workspace
+        of C chains with ``__call__``. The sampler's ``BoundTransition``
+        captures it into a CUDA graph."""
+        if not (isinstance(q, torch.Tensor) and q.dim() == 2):
+            raise TypeError("q must be a (C, dim) tensor")
+        ws = self._workspace(q.shape[0])
+        for name, t, shape in (("q", q, ws.q_shape), ("grad", grad, ws.q_shape),
+                               ("lp", lp, (q.shape[0],)),
+                               ("beta_temp", beta_temp, ())):
+            self._check(name, t, shape)
+        if not (q.is_contiguous() and grad.is_contiguous()
+                and lp.is_contiguous()):
+            raise ValueError("q, lp and grad must be contiguous")
+        return lambda: self._evaluate(ws, q, beta_temp, lp, grad)
 
 
 def _relative_only(ref, z0):

@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from magi_v2_tpu_torch.sampler.hmc import hmc_step
+from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
 from magi_v2_tpu_torch.sampler.mass import (
     identity_mass,
     mass_diag,
@@ -221,6 +221,11 @@ def run_hmc_chains(
 ):
     """Warmup + sampling of C chains with jittered fixed-length HMC.
 
+    A ``tempered_logp_grad`` with a bound evaluation (``bind``, as the
+    targets ``predict`` builds have) takes the sampler's bound transition
+    (``hmc.BoundTransition``: CUDA graphs on the card); any other callable
+    the eager ``hmc_step``. The two give the same draws.
+
     Returns (samples (num_results, C, dim) on q0's device, ChainStats).
     The momenta and accept uniforms come from a ``torch.Generator`` on the
     device seeded with ``seed``; the trajectory lengths from a NumPy
@@ -278,10 +283,17 @@ def run_hmc_chains(
     def draw_num_leapfrogs() -> int:
         return max(1, math.ceil(host_rng.random() * config.hmc_num_leapfrogs))
 
+    # a target with a bound evaluation runs on fixed buffers, and on the
+    # card as replayed CUDA graphs, made once the first mass is known
+    bound = None
+
     def transition(qs, eps, inv_mass, step):
         beta_temp = temps[step]
         normals = torch.randn((C, dim), generator=gen, dtype=dtype, device=dev)
         uniforms = torch.rand((C,), generator=gen, dtype=dtype, device=dev)
+        if bound is not None:
+            return bound(qs, eps, inv_mass, beta_temp, draw_num_leapfrogs(),
+                         normals, uniforms, config.max_energy_diff)
         return hmc_step(
             lambda q: tempered_logp_grad(q, beta_temp), qs, eps, inv_mass,
             draw_num_leapfrogs(), normals, uniforms, config.max_energy_diff,
@@ -307,6 +319,8 @@ def run_hmc_chains(
     da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
     wf = welford_init(dim, dtype, dev)
     wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
+    if hasattr(tempered_logp_grad, "bind"):
+        bound = BoundTransition(tempered_logp_grad, q0, inv_mass)
 
     qs = q0
     for step in range(B):

@@ -148,13 +148,72 @@ def test_plan_leaves_its_tickets_at_zero(device):
 
 
 def test_leapfrog_kernel_matches_plain_version(device):
-    """K2 on a diagonal mass, a 3-wide dense tail and the full dense
-    metric."""
+    """K2 in one launch on the full dense metric (489 wide), a diagonal
+    and dense tails of 3 and 8 (3081 wide), at 1, 64, 256 and 257 chains,
+    with and without the kinetic energy, each launch run twice bit for
+    bit (checked inside); and dense blocks of 256 (48 KB of shared memory,
+    the default limit) and 1100 (four columns a thread, five CTAs a
+    cluster)."""
     from magi_v2_tpu_torch.sampler import hmc
 
     hmc.reset_launch_counts()
-    assert set(chip_smoke.check_leapfrog(device)) == {"leapfrog_update"}
+    cases = chip_smoke.K2_CASES + (("dense256", 256, 256),
+                                   ("dense1100", 1100, 1100))
+    results = chip_smoke.check_leapfrog(device, chains=(1, 64, 256, 257),
+                                        cases=cases)
+    assert set(results) == {name for name, _, _ in chip_smoke.K2_ENTRIES}
     assert hmc.launch_counts()["leapfrog_update"] > 0
+
+
+def test_leapfrog_wrapper_raises_instead_of_falling_back(device):
+    from magi_v2_tpu_torch.sampler import hmc
+
+    q, p, g, eps, mass = chip_smoke.leapfrog_case(4, 33, 0, torch.float32,
+                                                  device)
+    flat = torch.zeros(4 * 33 + 1, device=device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hmc.leapfrog_update(flat[1:].view(4, 33), p, g, eps, mass, 2, True,
+                            False)
+    wide = chip_smoke.leapfrog_case(2, 2000, 2000, torch.float64, device)
+    with pytest.raises(ValueError, match="wider than K2 takes"):
+        hmc.leapfrog_update(*wide, 2, True, True)
+
+
+@pytest.mark.parametrize("storage", ["dense", "hybrid", "banded"])
+def test_graph_replay_matches_eager(device, storage):
+    """The sampler's bound transition (captured CUDA graphs, replayed)
+    against the eager transition for a few transitions from the same state
+    and noise, on a small Lorenz fit in each storage: equal bit for bit,
+    or within K2's tolerance for one transition (checked inside); every
+    transition replays its captured steps."""
+    from magi_v2_tpu_torch.sampler import hmc
+
+    model = _small_lorenz(device)
+    hmc.reset_graph_counts()
+    chip_smoke.graph_vs_eager(
+        model, device, storage, 8, 8, (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6),
+        step_size=0.02, beta_temp=0.4, dense_mass=storage == "dense",
+        sigma_fixed=None if storage == "dense" else 0.25, transitions=4)
+    counts = hmc.graph_counts()
+    assert counts["captures"] == 3 and counts["first"] >= 4
+
+
+_SMALL = {}
+
+
+def _small_lorenz(device):
+    """A Lorenz fit of 33 observations (N_I = 129), made once."""
+    if "model" not in _SMALL:
+        import magi_v2_tpu_torch
+
+        config = magi_v2_tpu_torch.MagiConfig
+        try:
+            magi_v2_tpu_torch.MagiConfig = lambda **kw: config(
+                hparam_num_iters=50, init_num_iters=200, **kw)
+            _SMALL["model"] = chip_smoke.lorenz_fit(device, n_obs=33)
+        finally:
+            magi_v2_tpu_torch.MagiConfig = config
+    return _SMALL["model"]
 
 
 def synthetic_factor(device, N=1025, D=3, bw=1200, seed=0):

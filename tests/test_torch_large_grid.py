@@ -254,9 +254,15 @@ def test_predict_runs(jax_fit, storage):
                      anneal_mode="reference")
     assert res["X_samps"].shape == (20, 4, tm.mag_I, tm.D)
     assert np.all(np.isfinite(res["X_samps"]))
-    # the phases of the call, on the host's clock
-    assert list(tm.predict_timings) == ["sampling_setup", "sampling",
-                                        "unwhiten"]
+    # the phases of the call, on the host's clock: the parts of the
+    # sampling setup, then sampling and unwhitening
+    parts = ["setup_operator_sqrt", "setup_posterior_data",
+             "setup_gn_jacobian", "setup_gn_precision", "setup_gn_cholesky",
+             "setup_factor_tiles", "setup_ref_point", "setup_fold_factor",
+             "setup_target", "setup_rest"]
+    if storage == "hybrid":
+        parts.insert(0, "setup_exact_operators")
+    assert list(tm.predict_timings) == parts + ["sampling", "unwhiten"]
     assert all(t > 0.0 for t in tm.predict_timings.values())
     assert np.all(np.isfinite(res["thetas_samps"]))
     np.testing.assert_array_equal(res["sigma_sqs_samps"],

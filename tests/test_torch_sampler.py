@@ -19,7 +19,7 @@ from magi_v2_tpu_torch import MagiConfig
 from magi_v2_tpu_torch.models import seir_f_vec as tseir
 from magi_v2_tpu_torch.sampler import mass as tmass
 from magi_v2_tpu_torch.sampler import run as trun
-from magi_v2_tpu_torch.sampler.hmc import hmc_step
+from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
 from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
 
 torch.set_num_threads(2)
@@ -86,13 +86,12 @@ def magi_targets():
     return jmode, tmode, q0
 
 
-@pytest.mark.parametrize("step_size", [0.05, 0.6])
-def test_hmc_transition_matches_jax_with_injected_noise(magi_targets,
-                                                        step_size):
-    """One transition of 4 chains on the MAGI target with a full dense
-    metric. The momenta and accept uniforms are the ones the JAX step
-    draws from its keys (hmc.py: split, normal, uniform), fed to the
-    port; the two transitions then agree in float64."""
+def _jax_transition_and_noise(magi_targets, step_size):
+    """One JAX transition of 4 chains on the MAGI target with a full dense
+    metric, and what the port needs to repeat it: (JAX outputs, the
+    states, the port's mass, the momenta's normals and the accept
+    uniforms the JAX step draws from its keys (hmc.py: split, normal,
+    uniform), the step count)."""
     jmode, tmode, q0 = magi_targets
     dim, C, L = q0.size, 4, 7
     rng = np.random.default_rng(1)
@@ -115,12 +114,11 @@ def test_hmc_transition_matches_jax_with_injected_noise(magi_targets,
                                                     jnp.float64)))
         uniforms.append(float(jax.random.uniform(key_acc,
                                                  dtype=jnp.float64)))
-    one_t = torch.tensor(1.0, dtype=torch.float64)
-    qt, tinfo = hmc_step(
-        lambda r: tmode.logp_grad(r, one_t), _t(qs),
-        torch.tensor(step_size, dtype=torch.float64), tm, L,
-        _t(np.stack(normals)), _t(uniforms),
-    )
+    return (qj, info), qs, tm, _t(np.stack(normals)), _t(uniforms), L
+
+
+def _assert_matches_jax(jax_out, qt, tinfo):
+    qj, info = jax_out
     np.testing.assert_allclose(tinfo.accept_prob.numpy(),
                                np.asarray(info.accept_prob), rtol=1e-8,
                                atol=1e-12)
@@ -128,6 +126,40 @@ def test_hmc_transition_matches_jax_with_injected_noise(magi_targets,
                                   np.asarray(info.diverging))
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-9,
                                atol=1e-10)
+
+
+@pytest.mark.parametrize("step_size", [0.05, 0.6])
+def test_hmc_transition_matches_jax_with_injected_noise(magi_targets,
+                                                        step_size):
+    """One transition of 4 chains on the MAGI target with a full dense
+    metric. The momenta and accept uniforms are the ones the JAX step
+    draws from its keys, fed to the port; the two transitions then agree
+    in float64."""
+    jax_out, qs, tm, normals, uniforms, L = _jax_transition_and_noise(
+        magi_targets, step_size)
+    tmode = magi_targets[1]
+    one_t = torch.tensor(1.0, dtype=torch.float64)
+    qt, tinfo = hmc_step(
+        lambda r: tmode.logp_grad(r, one_t), _t(qs),
+        torch.tensor(step_size, dtype=torch.float64), tm, L, normals,
+        uniforms,
+    )
+    _assert_matches_jax(jax_out, qt, tinfo)
+
+
+@pytest.mark.parametrize("step_size", [0.05, 0.6])
+def test_bound_transition_matches_jax_with_injected_noise(magi_targets,
+                                                          step_size):
+    """The same transition through the sampler's bound transition (the
+    target's bound evaluation on fixed buffers; CUDA graphs on the card)."""
+    jax_out, qs, tm, normals, uniforms, L = _jax_transition_and_noise(
+        magi_targets, step_size)
+    tmode = magi_targets[1]
+    one_t = torch.tensor(1.0, dtype=torch.float64)
+    bound = BoundTransition(tmode.logp_grad, _t(qs), tm)
+    qt, tinfo = bound(_t(qs), torch.tensor(step_size, dtype=torch.float64),
+                      tm, one_t, L, normals, uniforms)
+    _assert_matches_jax(jax_out, qt, tinfo)
 
 
 def test_dual_averaging_matches_jax():
