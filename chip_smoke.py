@@ -18,8 +18,13 @@ only when all of them passed):
    one launch per leapfrog on every mass form) on the full dense metric of
    the SEIR recipe (489 wide) and on a diagonal and dense tails of 3 and 8
    at the Lorenz width (3081), at 64, 256 and 257 chains, the replayed
-   leapfrog's launch and the kinetic launches, each run twice. Float32 and
-   float64, timed with CUDA events.
+   leapfrog's launch and the kinetic launches, each run twice; K2's full
+   dense metric at the widths its earlier design refused (float64 1297,
+   1545 and 3081, float32 3105, at 64 and 257 chains); K2's NUTS form (a
+   signed step per chain, a mask with a NaN force in a masked chain, the
+   velocities out) and K5 (the NUTS leaf epilogue, at an odd, an even and
+   the first leaf) at 64, 256 and 257 chains, masked chains untouched.
+   Float32 and float64, timed with CUDA events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -36,6 +41,21 @@ only when all of them passed):
    and device busy share over one replayed and one eager transition; then
    20 transitions by graph and by eager from the same state and noise,
    compared.
+6b. SEIR NUTS path: the same fit, ``predict`` with the default algorithm
+   (NUTS, trees up to depth 10) and otherwise the bench recipe, 256
+   chains, 1000 + 1000 transitions, float32. Fails on non-finite draws, a
+   kernel that never launched (K1, K2, K5), a transition that replayed no
+   leaf, rhat_max > 1.05 or a theta mean more than 15% from truth; prints
+   the mean depth, leaves a chain and leaves replayed a transition (the
+   masked lockstep's share), divergences, ESS and the phases. Then 20
+   NUTS transitions by replayed graphs and by the eager form from the same
+   state and noise, which must agree bit for bit; a profile of one leaf
+   and one transition (device time by kernel, busy share); and an ODE
+   field with no CUDA functor (FitzHugh-Nagumo, defined here): K1's given
+   kernels (PyTorch evaluates the field and its VJPs) against their plain
+   versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
+   and N_I = 333, then its composed target and HMC and NUTS predicts on
+   the card, which must launch K1, held against the CPU's.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
@@ -76,7 +96,9 @@ only when all of them passed):
    each from the same state and noise, compared as in phase 6.
 
 The last lines are the card's name and power limit, a JSON object with
-each kernel's launch count (from the path named beside it), error, times,
+each kernel's launch count (from the path named beside it; K2's NUTS form
+and K5 from the SEIR NUTS path, K1's given kernels from the
+FitzHugh-Nagumo predicts), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
 time (null where no one PyTorch call computes the same function), and
@@ -121,6 +143,8 @@ REPLACES = {
     "manifold_energy": "magi_v2_tpu/posterior.py:288",
     "manifold_bwd": "magi_v2_tpu/sampler/precond.py:549",
     "leapfrog_update": "magi_v2_tpu/sampler/hmc.py:63",
+    "leapfrog_update_nuts": "magi_v2_tpu/sampler/nuts.py:58",
+    "nuts_leaf": "magi_v2_tpu/sampler/nuts.py:130",
     "banded_matvec": "magi_v2_tpu/ops/banded.py:212",
     "banded_matvec_adjoint": "magi_v2_tpu/ops/banded.py:212",
     "banded_matvec_pair": "magi_v2_tpu/ops/banded.py:212",
@@ -132,6 +156,7 @@ SOURCES = {
     "manifold": "magi_v2_tpu_torch/csrc/manifold.cu",
     "banded": "magi_v2_tpu_torch/csrc/banded.cu",
     "leapfrog": "magi_v2_tpu_torch/csrc/leapfrog.cu",
+    "nuts": "magi_v2_tpu_torch/csrc/nuts.cu",
 }
 
 
@@ -144,6 +169,10 @@ PEAK_BYTES = 3.35e12
 # (the t2 sum and the g_Ds seed), bwd (the VJPs in x and theta, the
 # residual, gpart)
 K1_FLOPS = {"manifold_fwd": 16, "manifold_energy": 5, "manifold_bwd": 17}
+# the same for the given kernels of a field with no functor, which read the
+# field's values (fwd) and its VJPs (bwd) that PyTorch computed
+K1_GIVEN_FLOPS = {"manifold_fwd": 14, "manifold_energy": 5,
+                  "manifold_bwd": 9}
 
 
 def bound(nbytes, flops, dtype=torch.float32):
@@ -155,24 +184,29 @@ def bound(nbytes, flops, dtype=torch.float32):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(kname, C, N, D, P, dtype):
+def k1_bound(kname, C, N, D, P, dtype, given=False):
     """The bound of one K1 kernel at C chains, N grid points, D
     components and P parameters: what it reads and writes per
     csrc/manifold.cu (the (C, D, N) blocks, the (D, N) reference rows, the
-    sigma/theta entries of q and grad, t14 and lp)."""
+    sigma/theta entries of q and grad, t14 and lp; for the given kernels
+    also the field's values or its VJPs)."""
     pts, row, tail = C * N * D, D * N, C * (D + P)
     elems = {"manifold_fwd": 5 * pts + 5 * row + tail + 2 * C,
              "manifold_energy": 2 * pts + row + tail + 3 * C,
              "manifold_bwd": 4 * pts + 3 * row + 2 * tail}[kname]
+    if given:
+        elems += {"manifold_fwd": pts, "manifold_energy": 0,
+                  "manifold_bwd": pts + C * P}[kname]
     size = torch.finfo(dtype).bits // 8
-    return bound(elems * size, K1_FLOPS[kname] * pts, dtype)
+    flops = (K1_GIVEN_FLOPS if given else K1_FLOPS)[kname]
+    return bound(elems * size, flops * pts, dtype)
 
 
 def _counters():
-    from magi_v2_tpu_torch.ops import banded, manifold
+    from magi_v2_tpu_torch.ops import banded, manifold, nuts
     from magi_v2_tpu_torch.sampler import hmc
 
-    return (manifold, banded, hmc)
+    return (manifold, banded, hmc, nuts)
 
 
 def reset_launch_counts():
@@ -234,6 +268,11 @@ def kernel_inputs(dtype, device, C=256, N=161, D=3, P=3, seed=0,
         q[:, N * D: N * D + D] = -10.5 + r(C, D, scale=0.1)
         q[:, N * D + D:] = torch.tensor([1.8, -0.3, 1.5]) + r(C, P, scale=0.1)
         x0T = 0.5 * torch.rand((D, N), generator=g, dtype=torch.float64)
+    elif model == "fhn":
+        q[:, N * D: N * D + D] = -1.5 + r(C, D, scale=0.1)
+        q[:, N * D + D:] = torch.tensor([-1.5, -1.5, 2.95]) + r(C, P,
+                                                               scale=0.1)
+        x0T = 1.5 * torch.randn((D, N), generator=g, dtype=torch.float64)
     else:
         q[:, N * D: N * D + D] = -1.5 + r(C, D, scale=0.1)
         q[:, N * D + D:] = torch.tensor([10.0, 28.0, 2.6]) + r(C, P, scale=0.1)
@@ -298,6 +337,46 @@ def _time_ms(fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, rearm=None, reps=50, rounds=5):
+    """Device ms per call of ``fn`` (launches on the current stream):
+    ``reps`` calls captured in one CUDA graph, replayed ``rounds`` times
+    back to back. With ``rearm``, every call is preceded by it (it restores
+    what the call changes that decides its work, so that every call does
+    the work of the first), and a graph of ``rearm`` alone is timed and
+    taken off."""
+    def graph_of(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        return graph
+
+    def per_call(graph):
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(rounds):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (rounds * reps)
+
+    if rearm is None:
+        return per_call(graph_of(fn))
+
+    def both():
+        rearm()
+        fn()
+
+    return per_call(graph_of(both)) - per_call(graph_of(rearm))
+
+
 def report(kname, dtype, errs, ms, plain_ms, tol, results, extra="",
            more=None):
     """Print one kernel check, raise above ``tol``, and keep the float32
@@ -356,16 +435,20 @@ def check_kernels(device, model="seir", N=161, C=256, tag=""):
     the target launches it (``ManifoldPlan``) and through its one-shot
     wrapper (the same kernel: the same bits); returns {name: {max_abs_err,
     ms, plain_ms}} for float32 (the sampling dtype); names carry a
-    ``_lorenz`` suffix for the Lorenz model, and ``tag`` after it."""
+    ``_lorenz`` suffix for the Lorenz model (``_fhn`` for FitzHugh-Nagumo,
+    a field with no functor: K1's given kernels, with PyTorch's evaluation
+    of the field and its VJPs in their time), and ``tag`` after it."""
     from magi_v2_tpu_torch.models import MODEL_REGISTRY
     from magi_v2_tpu_torch.ops import manifold as mf
 
-    f = MODEL_REGISTRY[model].f_vec
+    given = model == "fhn"
+    f = fitzhugh_nagumo_f_vec if given else MODEL_REGISTRY[model].f_vec
     suffix = ("" if model == "seir" else f"_{model}") + tag
     results = {}
     stream = torch.cuda.current_stream(device).cuda_stream
     for dtype in (torch.float64, torch.float32):
-        x = kernel_inputs(dtype, device, C=C, N=N, model=model)
+        x = kernel_inputs(dtype, device, C=C, N=N, model=model,
+                          D=2 if given else 3)
         D, N = x["x0T"].shape
         plan, b, I = make_plan(f, x, device, dtype)
         q, bt = x["q"], x["beta_temp"]
@@ -431,7 +514,8 @@ def check_kernels(device, model="seir", N=161, C=256, tag=""):
              lambda: mf.manifold_bwd_plain(*bwd_args, gc_p, gr_p)),
         ):
             # no one PyTorch call computes a K1 kernel's fused epilogue
-            more = dict(k1_bound(kname, C, N, D, P, dtype), library_ms=None)
+            more = dict(k1_bound(kname, C, N, D, P, dtype, given),
+                        library_ms=None)
             report(kname + suffix, dtype, errs, _time_ms(fk), _time_ms(fp),
                    TOL[dtype], results,
                    extra=f" at {C} chains, N {N}, bound "
@@ -484,7 +568,8 @@ def leapfrog_case(C, dim, k, dtype, device, seed=3):
 
 
 def check_leapfrog(device, chains=(BANDED_CHAINS, LORENZ_CHAINS,
-                                   RAGGED_CHAINS), cases=K2_CASES):
+                                   RAGGED_CHAINS), cases=K2_CASES,
+                   dtypes=(torch.float64, torch.float32)):
     """K2 against its plain version for every case of ``cases`` at each
     chain count: the replayed leapfrog (two kicks, drift) and the kinetic
     launches (one kick and none, no drift), float64 and float32, each
@@ -503,7 +588,7 @@ def check_leapfrog(device, chains=(BANDED_CHAINS, LORENZ_CHAINS,
     results = {}
     stream = torch.cuda.current_stream(device).cuda_stream
     timed = {(case, C): name for name, case, C in K2_ENTRIES}
-    for dtype in (torch.float64, torch.float32):
+    for dtype in dtypes:
         errs, lines = {}, []
         for case, dim, k in cases:
             for C in chains:
@@ -562,6 +647,285 @@ def check_leapfrog(device, chains=(BANDED_CHAINS, LORENZ_CHAINS,
                 f"{worst_part} relative error {errs[worst_part][1]:.3e} > "
                 f"{tol:.0e}")
     # no one PyTorch call does the fused kicks, velocity and drift
+    return results
+
+
+# K2 at the widths its earlier design refused (a CTA held all k kicked
+# momenta of 16 chains in shared memory): float64 above 1296, float32 above
+# 3104; 3081 is the Lorenz N_I = 1025 flat state
+K2_WIDE_CASES = {torch.float64: (("dense1297", 1297, 1297),
+                                 ("dense1545", 1545, 1545),
+                                 ("dense3081", 3081, 3081)),
+                 torch.float32: (("dense3105", 3105, 3105),)}
+# K2's NUTS form and K5 on the SEIR NUTS path's shapes (the dense 489
+# metric) and on the Lorenz width's diagonal
+K2_NUTS_CASES = (("dense489", 489, 489), ("diag3081", 3081, 0))
+NUTS_CHAINS = (BANDED_CHAINS, NUM_CHAINS, RAGGED_CHAINS)
+
+
+def check_wide_leapfrog(device):
+    """K2 with the full dense metric at the widths of K2_WIDE_CASES against
+    its plain version, at 64 and 257 chains, each launch twice."""
+    for dtype, cases in K2_WIDE_CASES.items():
+        check_leapfrog(device, chains=(BANDED_CHAINS, RAGGED_CHAINS),
+                       cases=cases, dtypes=(dtype,))
+
+
+def k2_nuts_bound(C, on, dim, k, dtype):
+    """The bound of K2's opening NUTS launch (one kick, the velocity, the
+    drift) at C chains of which ``on`` move: their q, p, g read and q, p
+    written once, the mass read once, a step and a flag a chain; 5
+    operations an element of the diagonal head, 2k + 4 an element of the
+    dense block, for the chains that move (a masked chain's q and p are
+    left as they are and it has no velocity out)."""
+    size = torch.finfo(dtype).bits // 8
+    head = dim - k
+    return bound((5 * on * dim + head + k * k + C) * size + C,
+                 5 * on * head + on * k * (2 * k + 4), dtype)
+
+
+def check_leapfrog_nuts(device, chains=NUTS_CHAINS, cases=K2_NUTS_CASES):
+    """K2's NUTS form (a signed step per chain, a mask, the velocities
+    out) against its plain version: the leaf's opening launch (one kick,
+    drift) and closing launch (one kick, kinetic energy and velocity), at
+    each chain count, float64 and float32, each launch twice bit for bit;
+    a quarter of the chains masked, the first of them with a NaN force,
+    and their q and p must come back bit for bit. Returns the float32
+    numbers of the opening launch at the SEIR path's 256 chains."""
+    from magi_v2_tpu_torch.sampler.hmc import (
+        bind_leapfrog,
+        leapfrog_update,
+        leapfrog_update_plain,
+    )
+
+    results = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for dtype in (torch.float64, torch.float32):
+        errs, lines = {}, []
+        for case, dim, k in cases:
+            for C in chains:
+                q, p, gr, eps, mass = leapfrog_case(C, dim, k, dtype, device)
+                gen = torch.Generator(device="cpu").manual_seed(C)
+                sign = torch.where(torch.rand(C, generator=gen) < 0.5, -1.0,
+                                   1.0).to(device=device, dtype=dtype)
+                step = (eps * sign).contiguous()
+                active = (torch.rand(C, generator=gen) < 0.75).to(device)
+                active[0] = False
+                gr = gr.clone()
+                gr[0] = float("nan")
+                idle = ~active
+                for nkick, drift, kinetic, with_v in ((1, True, False, False),
+                                                      (1, False, True, True)):
+                    outs = []
+                    for fn in (leapfrog_update, leapfrog_update,
+                               leapfrog_update_plain):
+                        qq, pp = q.clone(), p.clone()
+                        vv = torch.zeros_like(q) if with_v else None
+                        kin = fn(qq, pp, gr, step, mass, nkick, drift,
+                                 kinetic, active, vv)
+                        outs.append([qq, pp] + ([kin] if kinetic else [])
+                                    + ([vv] if with_v else []))
+                    torch.cuda.synchronize()
+                    tag = f"{case}_C{C}_k{nkick}{'d' if drift else ''}" + (
+                        "K" if kinetic else "")
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(outs[0], outs[1])):
+                        raise AssertionError(f"leapfrog_update NUTS {tag}: "
+                                             "two runs of the same launch "
+                                             "differ")
+                    if not (torch.equal(outs[0][0][idle], q[idle])
+                            and torch.equal(outs[0][1][idle], p[idle])):
+                        raise AssertionError(f"leapfrog_update NUTS {tag}: a "
+                                             "masked chain's q or p changed")
+                    for part, ref, got in zip(("q", "p", "kinetic", "v")
+                                              if kinetic else ("q", "p"),
+                                              outs[2], outs[0]):
+                        # the NaN force of the masked first chain stays out
+                        # of every output the kernel writes for it
+                        ok = torch.isfinite(ref).all() and torch.isfinite(
+                            got).all()
+                        if not ok:
+                            raise AssertionError(f"leapfrog_update NUTS {tag}"
+                                                 f": non-finite {part}")
+                        errs[f"{tag}_{part}"] = _relerr(ref, got)
+                qq, pp = q.clone(), p.clone()
+                launch = bind_leapfrog(qq, pp, gr, step, mass, 1, True,
+                                       active=active)
+                ms = _time_ms(lambda: launch(stream))
+                plain_ms = _time_ms(lambda: leapfrog_update_plain(
+                    qq, pp, gr, step, mass, 1, True, False, active))
+                b = k2_nuts_bound(C, int(active.sum()), dim, k, dtype)
+                lines.append(f"{case} C{C} {ms:.4f} / {plain_ms:.4f} ms "
+                             f"(bound {b['bound_ms']:.4f} {b['bound_by']}, "
+                             f"{int(active.sum())} chains move)")
+                if (case, C, dtype) == ("dense489", NUM_CHAINS,
+                                        torch.float32):
+                    worst = max(e[0] for t, e in errs.items()
+                                if t.startswith(f"{case}_C{C}_"))
+                    results["leapfrog_update_nuts"] = dict(
+                        max_abs_err=worst, ms=ms, plain_ms=plain_ms, **b,
+                        library_ms=None)
+        worst_part = max(errs, key=lambda t: errs[t][1])
+        tol = TOL[dtype]
+        name = str(dtype).replace("torch.", "")
+        print(f"leapfrog_update NUTS form {name}: max_abs_err "
+              f"{max(e[0] for e in errs.values()):.3e}, worst relative "
+              f"{errs[worst_part][1]:.1e} ({worst_part}) of {len(errs)} "
+              f"outputs (tol {tol:.0e}); masked chains untouched; kernel / "
+              "plain ms of the opening launch: " + "; ".join(lines))
+        if not errs[worst_part][1] <= tol:
+            raise AssertionError(
+                f"leapfrog_update NUTS {name} disagrees with its plain "
+                f"version: {worst_part} relative error "
+                f"{errs[worst_part][1]:.3e} > {tol:.0e}")
+    return results
+
+
+# K5's leaves: (doubling d, leaf n): an odd leaf checked against 3 slots,
+# an even one stored in slot popcount(8) = 1, the first leaf of a tree
+K5_LEAVES = ((3, 7), (4, 8), (0, 0))
+K5_DEPTH = 10
+
+
+def nuts_leaf_case(C, dim, dtype, device, d, n, seed=5):
+    """K5's operands at leaf n of doubling d for C chains: states,
+    velocities and checkpoint slots of unit scale, energies within a few
+    units of H0 except chain 1 (NaN log-density) and chain 2 (dH ~ 2000, a
+    divergence), a leaf uniform each, a fifth of the chains masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 31 * n)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)
+    u = lambda *s: torch.rand(s, generator=g, dtype=torch.float64)
+    D = K5_DEPTH
+    lp, kin = r(C), 0.5 * dim + r(C)
+    H0 = kin - lp + r(C)
+    lp[1 % C] = float("nan")
+    H0[2 % C] -= 2000.0
+    x = dict(q=r(C, dim), v=r(C, dim), lp=lp, kin=kin, H0=H0,
+             eps=0.05 * torch.where(u(C) < 0.5, -1.0, 1.0),
+             leaf_u=u(C, (1 << D) - 1), lsw=r(C), sum_alpha=u(C),
+             prop_q=r(C, dim), ckpt_q=r(D, C, dim), ckpt_v=r(D, C, dim))
+    out = {k: v.to(device=device, dtype=dtype).contiguous()
+           for k, v in x.items()}
+    out["ctr"] = torch.tensor([d, n], dtype=torch.int32, device=device)
+    out["active"] = (u(C) < 0.8).to(device)
+    out["turning"] = torch.zeros(C, dtype=torch.bool, device=device)
+    out["diverging"] = torch.zeros(C, dtype=torch.bool, device=device)
+    out["n_leaves"] = torch.randint(0, 50, (C,), generator=g,
+                                    dtype=torch.int32).to(device)
+    order = ("q", "v", "lp", "kin", "H0", "eps", "leaf_u", "ctr", "lsw",
+             "sum_alpha", "prop_q", "ckpt_q", "ckpt_v", "active", "turning",
+             "diverging", "n_leaves")
+    return [out[k] for k in order]
+
+
+K5_OUTPUTS = ("lsw", "sum_alpha", "prop_q", "ckpt_q", "ckpt_v", "active",
+              "turning", "diverging", "n_leaves")
+K5_OUT_AT = (8, 9, 10, 11, 12, 13, 14, 15, 16)
+
+
+def check_nuts_leaf(device, chains=NUTS_CHAINS, dim=489):
+    """K5 against its plain version at each of K5_LEAVES and chain count,
+    float64 and float32: the same outputs (the flags, counts and copied
+    rows exactly, the log-weights and acceptance sums to TOL), two runs of
+    one launch bit for bit, the masked chains' state untouched. Returns
+    the float32 numbers at 256 chains and the odd leaf, with its bound
+    counted from that leaf's outcome. The kernel is timed in a CUDA graph
+    with ``active``, ``lsw`` and ``sum_alpha`` restored before every launch
+    (a launch masks the chains that turn, and a masked chain returns at
+    once), so every timed launch does the work the bound counts; the
+    plain version is timed the same way, back to back."""
+    from magi_v2_tpu_torch.ops import nuts as nu
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        errs, lines = {}, []
+        for C in chains:
+            for d, n in K5_LEAVES:
+                args = nuts_leaf_case(C, dim, dtype, device, d, n)
+                runs = []
+                for plain in (False, False, True):
+                    a = [t.clone() for t in args]
+                    if plain:
+                        nu.nuts_leaf_plain(*a, 1000.0)
+                    else:
+                        nu.nuts_leaf(*a)
+                    runs.append([a[i] for i in K5_OUT_AT])
+                torch.cuda.synchronize()
+                tag = f"C{C}_d{d}_n{n}"
+                if not all(torch.equal(x, y)
+                           for x, y in zip(runs[0], runs[1])):
+                    raise AssertionError(f"nuts_leaf {tag}: two runs of the "
+                                         "same launch differ")
+                idle = ~args[13]
+                for name, before, after in zip(K5_OUTPUTS,
+                                               [args[i] for i in K5_OUT_AT],
+                                               runs[0]):
+                    rows = (after[:, idle] if name.startswith("ckpt")
+                            else after[idle])
+                    prev = (before[:, idle] if name.startswith("ckpt")
+                            else before[idle])
+                    if not torch.equal(rows, prev):
+                        raise AssertionError(f"nuts_leaf {tag}: a masked "
+                                             f"chain's {name} changed")
+                for name, ref, got in zip(K5_OUTPUTS, runs[2], runs[0]):
+                    if ref.dtype in (torch.bool, torch.int32) or name in (
+                            "prop_q", "ckpt_q", "ckpt_v"):
+                        if not torch.equal(ref, got):
+                            raise AssertionError(
+                                f"nuts_leaf {tag}: {name} differs from the "
+                                "plain version")
+                    else:
+                        fin = torch.isfinite(ref)
+                        if not torch.equal(fin, torch.isfinite(got)):
+                            raise AssertionError(f"nuts_leaf {tag}: {name} "
+                                                 "finite where the plain "
+                                                 "version is not")
+                        errs[f"{tag}_{name}"] = _relerr(ref[fin], got[fin])
+                a = [t.clone() for t in args]
+                launch = nu.bind_nuts_leaf(*a, 1000.0)
+
+                def rearm(a=a):
+                    for i in (8, 9, 13):     # lsw, sum_alpha, active
+                        a[i].copy_(args[i])
+
+                ms = _graph_ms(lambda: launch(
+                    torch.cuda.current_stream(device).cuda_stream), rearm)
+
+                def plain(a=a):
+                    rearm()
+                    nu.nuts_leaf_plain(*a, 1000.0)
+
+                plain_ms = (_time_ms(plain, reps=20)
+                            - _time_ms(rearm, reps=20))
+                # the bound of this leaf, from its outcome: the rows each
+                # active chain reads and writes
+                on = int(args[13].sum())
+                taken = int((runs[2][2] != args[10]).any(dim=1).sum())
+                t = nu.trailing_ones(n) if n % 2 else 0
+                size = torch.finfo(dtype).bits // 8
+                rows = on * (2 + 2 * t + (0 if n % 2 else 2)) + taken
+                b = bound(rows * dim * size + 12 * C * size,
+                          6 * t * on * dim, dtype)
+                lines.append(f"{tag} {ms:.4f} / {plain_ms:.4f} ms (bound "
+                             f"{b['bound_ms']:.4f} {b['bound_by']}, {on} "
+                             f"active, {taken} proposals)")
+                if (C, d, n, dtype) == (NUM_CHAINS, 3, 7, torch.float32):
+                    worst = max(e[0] for k_, e in errs.items()
+                                if k_.startswith(f"{tag}_"))
+                    results["nuts_leaf"] = dict(max_abs_err=worst, ms=ms,
+                                                plain_ms=plain_ms, **b,
+                                                library_ms=None)
+        worst_part = max(errs, key=lambda t: errs[t][1])
+        tol = TOL[dtype]
+        name = str(dtype).replace("torch.", "")
+        print(f"nuts_leaf {name}: worst relative {errs[worst_part][1]:.1e} "
+              f"({worst_part}) of {len(errs)} outputs (tol {tol:.0e}), "
+              "flags, counts and rows exact, masked chains untouched; "
+              "kernel / plain ms: " + "; ".join(lines))
+        if not errs[worst_part][1] <= tol:
+            raise AssertionError(f"nuts_leaf {name} disagrees with its plain "
+                                 f"version: {worst_part} relative error "
+                                 f"{errs[worst_part][1]:.3e} > {tol:.0e}")
     return results
 
 
@@ -638,6 +1002,277 @@ def main_path(device, num_steps=NUM_STEPS):
     return model, counts
 
 
+NUTS_STEPS = 1000
+NUTS_RECIPE = dict(mass_matrix="dense", anneal_mode="reference",
+                   dense_shrinkage=0.2, mass_window=(0.25, 0.45),
+                   mass_window2=(0.50, 0.72), mass_window1_diag=True)
+
+
+def nuts_path(model, device, num_steps=NUTS_STEPS):
+    """The SEIR predict with the default algorithm (NUTS, trees up to the
+    config's depth 10) and otherwise the bench recipe, on the HMC phase's
+    fit: 256 chains, dense metric, float32. Fails on non-finite draws, a
+    kernel that never launched, a transition that replayed no leaf,
+    rhat_max > 1.05 or a theta mean more than 15% from truth. Returns the
+    launch counts and the kernel results."""
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_results=num_steps, num_burnin_steps=num_steps,
+                        num_chains=NUM_CHAINS, seed=0, init_jitter=0.01,
+                        **NUTS_RECIPE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    transitions = 2 * num_steps
+    depths, leaves = kr["depths"], kr["num_leapfrogs"]
+    # in masked lockstep a transition replays every leaf of every doubling
+    # up to its deepest chain's depth
+    replayed = 2.0 ** depths.max(axis=1) - 1.0
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    print(f"SEIR NUTS predict wall: {wall:.2f} s ({num_steps}+{num_steps} "
+          f"transitions, {NUM_CHAINS} chains, max tree depth "
+          f"{model.config.max_tree_depth}); {predict_phases(model, wall)}")
+    print(f"SEIR NUTS sampling phase: mean depth {depths.mean():.3f} "
+          f"(max {depths.max()}), mean leaves a chain and transition "
+          f"{leaves.mean():.2f}, leaves replayed a transition "
+          f"{replayed.mean():.2f} (so {1 - leaves.mean() / replayed.mean():.1%}"
+          f" of the replayed leaf work is masked), divergence rate "
+          f"{kr['divergences'].mean():.5f}, mean acceptance "
+          f"{kr['accept_probs'].mean():.4f}, step size "
+          f"{float(kr['step_size']):.5f}")
+    print(f"SEIR NUTS over the predict: {graphs['nuts_leaf']} leaves "
+          f"replayed ({graphs['nuts_leaf'] / transitions:.2f} a transition), "
+          f"{graphs['nuts_prologue']} doublings, so "
+          f"{graphs['nuts_prologue'] / transitions:.2f} reads of the device "
+          "a transition")
+    print(f"SEIR NUTS: theta pooled means {np.round(theta_mean, 4).tolist()} "
+          f"(truth {TRUE_THETAS.tolist()}); ESS_min {summ['ess_min']:.1f}, "
+          f"rhat_max {summ['rhat_max']:.4f}, ESS/s "
+          f"{summ['ess_per_sec_min']:.2f}")
+    print(f"SEIR NUTS launch counts: {counts}; CUDA graphs {graphs}")
+
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("SEIR NUTS: non-finite draws")
+    check_launched(counts, mf.KERNELS + ("leapfrog_update", "nuts_leaf"),
+                   "SEIR NUTS")
+    if not (graphs["captures"] == 5
+            and graphs.get("nuts_start", 0) == transitions
+            and graphs.get("nuts_leaf", 0) >= transitions):
+        raise AssertionError(f"SEIR NUTS: not every one of {transitions} "
+                             f"transitions replayed its leaves: {graphs}")
+    if not summ["rhat_max"] <= 1.05:
+        raise AssertionError(f"SEIR NUTS: rhat_max {summ['rhat_max']:.4f} > "
+                             "1.05")
+    rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
+    if not np.all(rel <= 0.15):
+        raise AssertionError(f"SEIR NUTS: theta means {theta_mean} off truth "
+                             f"by {rel}")
+    return counts, kr
+
+
+def _nuts_setup(model, device, kr, num_chains=NUM_CHAINS, seed=2):
+    """The SEIR float32 target, states near the fit, and the mass and
+    step size the NUTS predict adapted (``kr``, its kernel results)."""
+    from magi_v2_tpu_torch.sampler.mass import mass_from_moments
+
+    mode, _, _ = model._build_sampling_setup("precond", "dense",
+                                             torch.float32)
+    N, D = model.mag_I, model.D
+    dim = N * D + D + model.D_thetas
+    g = torch.Generator(device=device).manual_seed(seed)
+    q0 = torch.cat([mode.X0.reshape(-1).float(),
+                    torch.tensor((-10.5, -10.5, -10.5, 1.8, -0.5, 0.6),
+                                 device=device)])
+    qs = q0 + 0.01 * torch.randn((num_chains, dim), generator=g,
+                                 device=device)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    mass = mass_from_moments(t(kr["inv_mass"]), t(kr["tail_inv_mass"]))
+    eps = t(kr["step_size"])
+    return mode.logp_grad, qs, mass, eps, g
+
+
+def nuts_graph_vs_eager(model, device, kr, transitions=20):
+    """``BoundNuts`` (captured CUDA graphs, replayed) against the eager
+    ``nuts_step`` on the SEIR float32 target, ``transitions`` times from
+    the same state with the same noise, at the predict's adapted step
+    size and mass and a tempered beta: states and every info field must
+    agree bit for bit."""
+    from magi_v2_tpu_torch.sampler.nuts import (
+        BoundNuts,
+        NutsConfig,
+        draw_noise,
+        nuts_step,
+    )
+
+    target, qs, mass, eps, g = _nuts_setup(model, device, kr)
+    C, dim = qs.shape
+    cfg = NutsConfig(model.config.max_tree_depth)
+    bt = torch.tensor(0.15, device=device)
+    bound = BoundNuts(target, qs, mass, cfg)
+    qe = qb = qs
+    same, depths = 0, []
+    for _ in range(transitions):
+        noise = draw_noise(g, C, dim, cfg.max_tree_depth, torch.float32,
+                           device)
+        qe2, ie = nuts_step(lambda q: target(q, bt), qe, eps, mass, noise,
+                            cfg)
+        qb2, ib = bound(qb, eps, mass, bt, noise)
+        depths.append(int(ie.depth.max()))
+        if torch.equal(qe2, qb2) and all(torch.equal(a, b)
+                                         for a, b in zip(ie, ib)):
+            same += 1
+        qe, qb = qe2, qb2
+    torch.cuda.synchronize()
+    print(f"SEIR NUTS: graph against eager, {transitions} transitions of "
+          f"{C} chains (step {float(eps):.4g}, deepest trees {depths}): "
+          f"{same} of {transitions} bit for bit")
+    if same < transitions:
+        raise AssertionError("SEIR NUTS: the replayed transition differs "
+                             "from the eager one")
+
+
+def profile_nuts(model, device, kr, replays=200, settle=10):
+    """Where a NUTS transition's time goes on the SEIR float32 path, at the
+    sampling phase's temperature, step and mass, from a state ``settle``
+    transitions on from the fit: one leaf's graph replayed back to back,
+    host us to enqueue and device ms each (every chain active at the first
+    replay; K5 masks the chains that turn, so later replays carry fewer:
+    K1 and K2 do their arithmetic for masked chains all the same, K5
+    returns at once for them); one transition's wall and leaves replayed;
+    torch.profiler's device time by kernel and busy share over one
+    transition."""
+    from magi_v2_tpu_torch.sampler.nuts import (
+        BoundNuts,
+        NutsConfig,
+        draw_noise,
+    )
+
+    target, qs, mass, eps, g = _nuts_setup(model, device, kr)
+    C, dim = qs.shape
+    cfg = NutsConfig(model.config.max_tree_depth)
+    bt = torch.tensor(1.0 / np.log(2002.0), device=device)
+    bound = BoundNuts(target, qs, mass, cfg)
+    for _ in range(settle):
+        noise = draw_noise(g, C, dim, cfg.max_tree_depth, torch.float32,
+                           device)
+        qs, _ = bound(qs, eps, mass, bt, noise)
+    torch.cuda.synchronize()
+    leaf = bound.graphs["nuts_leaf"]
+    bound.ctr.zero_()
+    bound.active.fill_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        leaf.replay()
+    host_us = (time.perf_counter() - t0) / replays * 1e6
+    torch.cuda.synchronize()
+    leaf_ms = (time.perf_counter() - t0) / replays * 1e3
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, info = bound(qs, eps, mass, bt, noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    d = int(info.depth.max())
+    print(f"SEIR NUTS: one leaf replayed {replays} times back to back: host "
+          f"{host_us:.2f} us to enqueue, {leaf_ms:.4f} ms each until the "
+          f"card finished; one transition (deepest tree {d}, "
+          f"{2 ** d - 1} leaves replayed, mean leaves a chain "
+          f"{float(info.num_leapfrogs.float().mean()):.2f}): ms "
+          f"{[round(w, 3) for w in walls]}")
+    device_profile(lambda: bound(qs, eps, mass, bt, noise),
+                   "SEIR NUTS replayed")
+
+
+def fitzhugh_nagumo_f_vec(t, X, thetas):
+    """FitzHugh-Nagumo, X = (V, R), thetas = (a, b, c), over leading batch
+    axes: an ODE field registered nowhere, so with no CUDA functor."""
+    V, R = X[..., 0:1], X[..., 1:2]
+    a, b, c = (thetas[..., None, i:i + 1] for i in range(3))
+    return torch.cat([c * (V - V ** 3 / 3.0 + R), -(V - a + b * R) / c],
+                     dim=-1)
+
+
+FHN_CHAINS, FHN_GRID = 16, 81
+
+
+def unregistered_field(device, steps=200, chains=FHN_CHAINS):
+    """A field with no CUDA functor on the card: FitzHugh-Nagumo (41
+    observations on [0, 20], noise sd 0.2) fitted on the CPU in float64,
+    then its composed float64 target on the card against the CPU's, and
+    predict with HMC and with NUTS on the card (float32) against the CPU
+    (float64): theta means within 5 combined Monte-Carlo standard errors.
+    K1 takes its given kernels for this field (PyTorch evaluates the field
+    and its VJPs on the card): K1, K2 (and for NUTS K5) must launch.
+    Returns the launch counts of the two predicts together."""
+    from magi_v2_tpu_torch import MAGI_v2, MagiConfig
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
+    from magi_v2_tpu_torch.utils.data import simulate_ode
+    from magi_v2_tpu_torch.utils.diagnostics import effective_sample_size
+
+    f = fitzhugh_nagumo_f_vec
+    ts, X, _ = simulate_ode(f, x0=np.array([-1.0, 1.0]),
+                            thetas=np.array([0.2, 0.2, 3.0]), t_max=20.0,
+                            n_obs=41, noise_sd=0.2)
+    # trees up to depth 6: the CPU run's leaves are eager PyTorch calls
+    cpu = MAGI_v2(3, ts, X, None, f, MagiConfig(device="cpu",
+                                                 hparam_num_iters=300,
+                                                 init_num_iters=2000,
+                                                 max_tree_depth=6))
+    cpu.initial_fit(1)
+    if cpu.mag_I != FHN_GRID:
+        raise AssertionError(f"FitzHugh-Nagumo's grid has {cpu.mag_I} points"
+                             f", the kernel checks took {FHN_GRID}")
+    arrays = {k: getattr(cpu, k) for k in FIT_FIELDS}
+    card = from_fit_arrays(arrays, f, 3, config=cpu.config.replace(
+        device=str(device), dtype=torch.float32))
+    tail = tuple([-3.0, -3.0] + np.log(np.expm1(cpu.thetas_init)).tolist())
+    check_composed(card, device, tail=tail)
+    total = {}
+    for algorithm in ("hmc", "nuts"):
+        kw = dict(num_results=steps, num_burnin_steps=steps,
+                  num_chains=chains, seed=0, init_jitter=0.01,
+                  algorithm=algorithm, hmc_num_leapfrogs=16,
+                  mass_matrix="diag")
+        reset_launch_counts()
+        rc = card.predict(**kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        r64 = cpu.predict(**kw)
+        means = []
+        for p in range(3):
+            a, b = rc["thetas_samps"][..., p], r64["thetas_samps"][..., p]
+            se = np.hypot(a.std() / np.sqrt(effective_sample_size(a)),
+                          b.std() / np.sqrt(effective_sample_size(b)))
+            means.append((a.mean(), b.mean(), se))
+        print(f"unregistered field (FitzHugh-Nagumo) {algorithm}: theta "
+              "means card / CPU / combined MC se "
+              + "; ".join(f"{a:.4f} / {b:.4f} / {se:.4f}"
+                          for a, b, se in means)
+              + f"; launch counts on the card {counts}")
+        if not np.all(np.isfinite(rc["thetas_samps"])):
+            raise AssertionError(f"unregistered field {algorithm}: "
+                                 "non-finite draws on the card")
+        need = [*mf.KERNELS, "leapfrog_update"] + (
+            ["nuts_leaf"] if algorithm == "nuts" else [])
+        check_launched(counts, need, f"unregistered field {algorithm}")
+        if not all(abs(a - b) <= 5.0 * se for a, b, se in means):
+            raise AssertionError(f"unregistered field {algorithm}: the card's "
+                                 "theta means disagree with the CPU's")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def predict_phases(model, wall):
     """The last predict's phases on the host's clock, the device waited
     for at each end (``predict_timings``): building the target and its
@@ -701,11 +1336,12 @@ def plain_kernels():
     the kernel checks and of the leapfrog timings below."""
     from magi_v2_tpu_torch.ops import banded as bd
     from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.ops import nuts as nu
     from magi_v2_tpu_torch.sampler import hmc
 
     always = lambda device: True
     swaps = [(bd, "_takes_plain", always), (mf, "_takes_plain", always),
-             (hmc, "_takes_plain", always)]
+             (hmc, "_takes_plain", always), (nu, "_takes_plain", always)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -718,7 +1354,8 @@ def plain_kernels():
 
 OWN_KERNELS = ("manifold_fwd_kernel", "manifold_energy_kernel",
                "manifold_bwd_kernel", "leapfrog_kernel",
-               "banded_matvec_kernel", "banded_solve_kernel")
+               "banded_matvec_kernel", "banded_solve_kernel",
+               "nuts_leaf_kernel")
 
 
 def device_profile(run, label):
@@ -975,8 +1612,8 @@ def check_replays(counts, transitions, path):
     evaluation at the start and the first leapfrog once each (every
     trajectory has at least one leapfrog), from three captures."""
     print(f"{path}: CUDA graphs {counts}")
-    if not (counts["captures"] == 3 and counts["start"] == transitions
-            and counts["first"] == transitions):
+    if not (counts["captures"] == 3 and counts.get("start", 0) == transitions
+            and counts.get("first", 0) == transitions):
         raise AssertionError(f"{path}: not every one of {transitions} "
                              f"transitions replayed its captured leapfrog: "
                              f"{counts}")
@@ -1524,12 +2161,24 @@ def main():
     # a chain count and a grid that fill no tile of K1's or K3's
     check_kernels(device, N=333, C=37)
     timing.update(check_leapfrog(device))
+    check_wide_leapfrog(device)
+    timing.update(check_leapfrog_nuts(device))
+    timing.update(check_nuts_leaf(device))
     model, counts_seir = main_path(device)
     check_composed(model, device)
     profile_leapfrog(model, device)
     graph_vs_eager(model, device, "dense", NUM_CHAINS, NUM_LEAPFROGS,
                    (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6), step_size=0.05,
                    beta_temp=0.5, dense_mass=True)
+    counts_nuts, kr_nuts = nuts_path(model, device)
+    nuts_graph_vs_eager(model, device, kr_nuts)
+    profile_nuts(model, device, kr_nuts)
+    # K1's given kernels at the unregistered field's shapes (16 chains,
+    # N_I = 81) and at a ragged count and grid of several CTAs a chain
+    timing.update(check_kernels(device, model="fhn", N=FHN_GRID,
+                                C=FHN_CHAINS))
+    check_kernels(device, model="fhn", N=333, C=RAGGED_CHAINS)
+    counts_fhn = unregistered_field(device)
     print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
 
     lmodel = lorenz_fit(device)
@@ -1568,6 +2217,9 @@ def main():
 
     kernels = [entry(k, k, "manifold", "seir_dense", counts_seir)
                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels += [entry(f"{k}_fhn", k, "manifold", "fhn_unregistered",
+                      counts_fhn)
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
     kernels += [entry(f"{k}_lorenz", k, "manifold", "lorenz_hybrid",
                       counts_h)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
@@ -1580,6 +2232,13 @@ def main():
                                                    counts_b)}
     kernels += [entry(name, "leapfrog_update", "leapfrog", *paths[name])
                 for name, _, _ in K2_ENTRIES]
+    kernels.append(dict(
+        name="leapfrog_update_nuts", route="cuda", source=SOURCES["leapfrog"],
+        replaces=REPLACES["leapfrog_update_nuts"], path="seir_nuts",
+        launches=counts_nuts["leapfrog_update"],
+        **timing["leapfrog_update_nuts"]))
+    kernels.append(entry("nuts_leaf", "nuts_leaf", "nuts", "seir_nuts",
+                         counts_nuts))
     kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
                 for k in ("banded_solve", "banded_solve_adjoint")]
     kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)

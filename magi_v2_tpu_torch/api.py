@@ -8,11 +8,11 @@ there in ``config.dtype``. The fitted state is kept as host NumPy arrays,
 like the JAX model's, so a fit can be carried across packages
 (utils/checkpoint.py).
 
-Ported so far: the fully-observed ``initial_fit`` and
-``predict(algorithm="hmc")`` with ``reparam="precond"`` in every storage
-mode (``"dense"``, ``"hybrid"``, ``"banded"``), ``sigma_sqs_fixed`` and
-``gn_anchor``. Every other argument value raises NotImplementedError
-naming its ROADMAP.md item.
+Ported so far: the fully-observed ``initial_fit`` and ``predict`` with
+``algorithm="nuts"`` (the default) or ``"hmc"``, ``reparam="precond"`` in
+every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``),
+``sigma_sqs_fixed`` and ``gn_anchor``. Every other argument value raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from magi_v2_tpu_torch.sampler.magi_state import (
     unflatten_samples,
 )
 from magi_v2_tpu_torch.sampler.modes import build_sampling_mode, unwhiten_draws
-from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_hmc_chains
+from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_chains
 from magi_v2_tpu_torch.timing import PhaseTimer, untimed
 
 
@@ -443,7 +443,8 @@ class MAGI_v2:
         pt_swap_every: int = 1,
     ):
         """Sample the posterior; same arguments and results dict as
-        magi_v2_tpu.MAGI_v2.predict. Ported: ``algorithm="hmc"`` with
+        magi_v2_tpu.MAGI_v2.predict. Ported: ``algorithm`` "nuts" (tree
+        depth up to ``config.max_tree_depth``) or "hmc", with
         ``reparam="precond"`` and ``storage`` "dense", "hybrid" (banded GN
         whitening around the exact operators: the accurate dense-grid
         mode) or "banded" (every operator O(N_I * bandsize); the target is
@@ -455,8 +456,6 @@ class MAGI_v2:
         for at the end of each): the parts of the sampling setup
         ("setup_*", with "setup_rest" the remainder), "sampling" and
         "unwhiten"."""
-        if algorithm != "hmc":
-            raise _not_ported(f"algorithm={algorithm!r} (NUTS)", "7")
         if reparam != "precond":
             raise _not_ported(f"reparam={reparam!r}", "9")
         if init_states is not None:
@@ -532,6 +531,7 @@ class MAGI_v2:
             initial_step_size=cfg.initial_step_size,
             target_accept=cfg.target_accept,
             adaptation_fraction=cfg.adaptation_fraction,
+            max_tree_depth=cfg.max_tree_depth,
             anneal_min_temp=cfg.anneal_min_temp,
             use_annealing=use_annealing,
             anneal_mode=anneal_mode,
@@ -541,6 +541,7 @@ class MAGI_v2:
             progress_every=(max(1, (num_burnin_steps + num_results) // 20)
                             if verbose else 0),
             thin=thin,
+            algorithm=algorithm,
             hmc_num_leapfrogs=hmc_num_leapfrogs,
             dense_tail_size=dense_tail_size,
             dense_shrinkage=dense_shrinkage,
@@ -554,7 +555,7 @@ class MAGI_v2:
         )
         start = time.time()
         with timer("sampling"):
-            samples, stats = run_hmc_chains(
+            samples, stats = run_chains(
                 mode.logp_grad,
                 torch.as_tensor(q0, dtype=dtype, device=dev),
                 seed,

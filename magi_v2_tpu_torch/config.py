@@ -39,6 +39,7 @@ class MagiConfig:
     initial_step_size: float = 0.1
     target_accept: float = 0.75
     adaptation_fraction: float = 0.8
+    max_tree_depth: int = 10
     anneal_min_temp: float = 0.1
     adapt_mass_matrix: bool = True
 

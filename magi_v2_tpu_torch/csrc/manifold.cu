@@ -57,7 +57,10 @@
 //
 // The model enters as a functor (f, vjp_x, vjp_theta: the field and its
 // vector-Jacobian products); a new ODE model adds a struct and one
-// instantiation line.
+// instantiation line. A field with no functor (an ODE model written in
+// PyTorch alone) takes the given_* kernels below: PyTorch evaluates the
+// field and its VJPs on the card, and the kernels do the rest of the same
+// work, with D and P read at run time (D <= kMaxD).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -441,6 +444,156 @@ inline int chunks_of(int N, int C) {
   return G;
 }
 
+// ---------------------------------------------------------------------------
+// A field with no functor. PyTorch gives what the functor would compute:
+// fv = f(x, softplus theta) (C, N, D) before manifold_fwd, and gx = J_x^T
+// g_dr (C, N, D) and gth = J_theta^T g_dr (C, P), summed over the points,
+// before manifold_bwd. D and P are arguments: the loops over D run to
+// kMaxD, guarded, so that the per-component values stay in registers. A
+// chain's sums pass through `part` rows of kMaxD values (ops/manifold.py:
+// _PART_WIDTH), as above.
+
+constexpr int kMaxD = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+given_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
+                 const T* __restrict__ q, const T* __restrict__ x0T,
+                 const T* __restrict__ a0, const T* __restrict__ f0,
+                 const T* __restrict__ mask, const T* __restrict__ y,
+                 const T* __restrict__ lb, const T* __restrict__ beta_temp,
+                 const T* __restrict__ fv, T beta, int C, int N, int G,
+                 int D, int dim, T* __restrict__ dr, T* __restrict__ gcat,
+                 T* __restrict__ t14, T* __restrict__ part,
+                 int* __restrict__ ticket) {
+  __shared__ T inv[kMaxD];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
+  const T* qc = q + (size_t)c * dim;
+  const T scale = beta_temp[0] / beta;
+  if (threadIdx.x < D)
+    inv[threadIdx.x] =
+        T(1) / (softplus(qc[N * D + threadIdx.x]) + lb[threadIdx.x]);
+  __syncthreads();
+  T acc[2] = {T(0), T(0)};
+  for (int n = g * kThreads + threadIdx.x; n < N; n += G * kThreads) {
+    const T* fn = fv + ((size_t)c * N + n) * D;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      if (d >= D) break;
+      const size_t row = (size_t)d * C + c;
+      const T Rd = RmD[row * 2 * N + n], a = a0[d * N + n];
+      const T x = x0T[d * N + n] + delta[((size_t)c * D + d) * N + n];
+      dr[row * N + n] = (fn[d] - f0[d * N + n]) - RmD[row * 2 * N + N + n];
+      gcat[row * 2 * N + n] = -scale * (Rd + a);
+      acc[0] += Rd * (Rd + T(2) * a);
+      const T r = x - y[d * N + n];
+      acc[1] += mask[d * N + n] * r * r * inv[d];
+    }
+  }
+  if (chain_sum<T, 2>(acc, part + (size_t)c * G * 2, ticket + c, G, g)) {
+    t14[2 * c] = acc[0];
+    t14[2 * c + 1] = acc[1];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+given_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
+                    const T* __restrict__ t14, const T* __restrict__ q,
+                    const T* __restrict__ lb, const T* __restrict__ n_ds,
+                    const T* __restrict__ beta_temp, T beta, int C, int N,
+                    int G, int D, int dim, T* __restrict__ lp,
+                    T* __restrict__ gDs, T* __restrict__ part,
+                    int* __restrict__ ticket) {
+  // t3's terms and the sigma log-Jacobians, one component a thread
+  __shared__ T term[2 * kMaxD];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
+  const T* qc = q + (size_t)c * dim;
+  const T bt = beta_temp[0];
+  const T scale = bt / beta;
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    const T v = qc[N * D + d];
+    term[d] = n_ds[d] * lg(T(2.0 * 3.14159265358979323846) *
+                           (softplus(v) + lb[d]));
+    term[kMaxD + d] = log_sigmoid(v);
+  }
+  T acc[1] = {T(0)};
+  for (int n = g * kThreads + threadIdx.x; n < N; n += G * kThreads)
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      if (d >= D) break;
+      const size_t o = ((size_t)d * C + c) * N + n;
+      const T v = Ds[o], s = s0[d * N + n];
+      acc[0] += v * (v + T(2) * s);
+      gDs[o] = -scale * (v + s);
+    }
+  if (chain_sum<T, 1>(acc, part + (size_t)c * G, ticket + c, G, g)) {
+    T t3 = T(0), lj = T(0);
+    for (int d = 0; d < D; ++d) t3 += term[d];
+    for (int d = 0; d < D; ++d) lj += term[kMaxD + d];
+    // the theta log-Jacobians, P of them, by this one thread
+    for (int i = N * D + D; i < dim; ++i) lj += log_sigmoid(qc[i]);
+    lp[c] = bt * (T(-0.5) * ((t14[2 * c] + acc[0]) / beta + t3 +
+                             t14[2 * c + 1]) + lj);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
+                 const T* __restrict__ q, const T* __restrict__ x0T,
+                 const T* __restrict__ mask, const T* __restrict__ y,
+                 const T* __restrict__ lb, const T* __restrict__ n_ds,
+                 const T* __restrict__ beta_temp, const T* __restrict__ gx,
+                 const T* __restrict__ gth, int C, int N, int G, int D,
+                 int dim, T* __restrict__ gcat, T* __restrict__ gpart,
+                 T* __restrict__ grad, T* __restrict__ part,
+                 int* __restrict__ ticket) {
+  // 1 / sigma^2 and the factors of the sigma_pre gradients, as
+  // manifold_bwd_kernel makes them
+  __shared__ T inv[kMaxD], c0[kMaxD], c1[kMaxD];
+  const int c = blockIdx.x / G, g = blockIdx.x % G;
+  const int ND = N * D;
+  const T* qc = q + (size_t)c * dim;
+  const T bt = beta_temp[0];
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    const T sp = qc[ND + d];
+    inv[d] = T(1) / (softplus(sp) + lb[d]);
+    const T half = T(0.5) * bt * sigmoid(sp) * inv[d];
+    c1[d] = half * inv[d];
+    c0[d] = bt * sigmoid(-sp) - half * n_ds[d];
+  }
+  __syncthreads();
+  // the observed squared residuals of each component
+  T acc[kMaxD];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) acc[d] = T(0);
+  for (int n = g * kThreads + threadIdx.x; n < N; n += G * kThreads) {
+    const T* gn = gx + ((size_t)c * N + n) * D;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      if (d >= D) break;
+      const size_t row = (size_t)d * C + c;
+      const T gv = gdr[row * N + n];
+      const T x = x0T[d * N + n] + delta[((size_t)c * D + d) * N + n];
+      const T mk = mask[d * N + n], r = x - y[d * N + n];
+      gcat[row * 2 * N + N + n] = gv;
+      acc[d] += mk * r * r;
+      gpart[row * N + n] = gn[d] - bt * mk * r * inv[d];
+    }
+  }
+  if (chain_sum<T, kMaxD>(acc, part + (size_t)c * G * kMaxD, ticket + c, G,
+                          g)) {
+    T* gc = grad + (size_t)c * dim;
+    for (int d = 0; d < D; ++d) gc[ND + d] = c0[d] + c1[d] * acc[d];
+    for (int i = ND + D, k = 0; i < dim; ++i, ++k)
+      gc[i] = gth[(size_t)c * (dim - ND - D) + k] * sigmoid(qc[i]) +
+              bt * sigmoid(-qc[i]);
+  }
+}
+
 }  // namespace
 
 #define MAGI_MANIFOLD_ENTRY_POINTS(MODEL, NAME, T, SUF)                        \
@@ -480,7 +633,47 @@ inline int chunks_of(int N, int C) {
     return (int)cudaGetLastError();                                           \
   }
 
+#define MAGI_MANIFOLD_GIVEN_ENTRY_POINTS(T, SUF)                              \
+  extern "C" int magi_manifold_fwd_given_##SUF(                               \
+      const T* delta, const T* RmD, const T* q, const T* x0T, const T* a0,    \
+      const T* f0, const T* mask, const T* y, const T* lb,                    \
+      const T* beta_temp, const T* fv, double beta, int C, int N, int D,      \
+      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
+    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+    const int G = chunks_of(N, C);                                            \
+    given_fwd_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(        \
+        delta, RmD, q, x0T, a0, f0, mask, y, lb, beta_temp, fv, (T)beta, C,   \
+        N, G, D, dim, dr, gcat, t14, part, ticket);                           \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int magi_manifold_energy_given_##SUF(                            \
+      const T* Ds, const T* s0, const T* t14, const T* q, const T* lb,        \
+      const T* n_ds, const T* beta_temp, double beta, int C, int N, int D,    \
+      int dim, T* lp, T* gDs, T* part, int* ticket, void* stream) {           \
+    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+    const int G = chunks_of(N, C);                                            \
+    given_energy_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(     \
+        Ds, s0, t14, q, lb, n_ds, beta_temp, (T)beta, C, N, G, D, dim, lp,    \
+        gDs, part, ticket);                                                   \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int magi_manifold_bwd_given_##SUF(                               \
+      const T* gdr, const T* delta, const T* q, const T* x0T,                 \
+      const T* mask, const T* y, const T* lb, const T* n_ds,                  \
+      const T* beta_temp, const T* gx, const T* gth, int C, int N, int D,     \
+      int dim, T* gcat, T* gpart, T* grad, T* part, int* ticket,              \
+      void* stream) {                                                         \
+    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+    const int G = chunks_of(N, C);                                            \
+    given_bwd_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(        \
+        gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, gx, gth, C, N, G,   \
+        D, dim, gcat, gpart, grad, part, ticket);                             \
+    return (int)cudaGetLastError();                                           \
+  }
+
 MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, float, f32)
 MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, double, f64)
 MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, float, f32)
 MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, double, f64)
+MAGI_MANIFOLD_GIVEN_ENTRY_POINTS(float, f32)
+MAGI_MANIFOLD_GIVEN_ENTRY_POINTS(double, f64)

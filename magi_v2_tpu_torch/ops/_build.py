@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("manifold.cu", "banded.cu", "leapfrog.cu")
+SOURCES = ("manifold.cu", "banded.cu", "leapfrog.cu", "nuts.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,9 +37,13 @@ SIGNATURES = {
     "manifold_fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 5 + [_P],
     "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 4 + [_P],
     "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_P],
+    "manifold_fwd_given": [_P] * 11 + [_D] + [_I] * 4 + [_P] * 5 + [_P],
+    "manifold_energy_given": [_P] * 7 + [_D] + [_I] * 4 + [_P] * 4 + [_P],
+    "manifold_bwd_given": [_P] * 11 + [_I] * 4 + [_P] * 5 + [_P],
     "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],
     "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
-    "leapfrog_update": [_P] * 6 + [_I] * 6 + [_P] * 2 + [_I, _P] + [_P],
+    "leapfrog_update": [_P] * 6 + [_I] * 7 + [_P] * 4 + [_I, _P] + [_P],
+    "nuts_leaf": [_P] * 7 + [_I] + [_P] * 10 + [_D] + [_I] * 3 + [_P],
 }
 
 

@@ -16,7 +16,14 @@ them is three kernels, each here as a wrapper:
 Each wrapper checks its arguments, takes the plain version (``*_plain``)
 for tensors on the CPU, and on a CUDA tensor launches the hand-written
 kernel of csrc/manifold.cu or raises: there is no fallback on the card.
-``LAUNCH_COUNTS`` counts kernel launches only.
+A model with a CUDA functor (``models.odes.cuda_model_of``) has kernels
+that evaluate the field themselves. Any other field takes the ``given``
+kernels of the same file: PyTorch evaluates the field (before the fwd
+kernel) and its VJPs (before the bwd kernel) on the card's tensors, and
+the kernels do the rest; a CUDA graph captures both. Which kernels a field
+takes is fixed by the field; a launch that fails raises either way.
+``LAUNCH_COUNTS`` counts kernel launches only, under the three names
+whichever kernels they are.
 
 What is checked when, and which buffers are reused. The three wrapper
 functions check every argument on every call and allocate their outputs
@@ -73,12 +80,30 @@ def _split_q(q, N, D):
     return q[:, ND: ND + D], q[:, ND + D:]
 
 
+def field_values(f_vec, I, delta, q, x0T):
+    """f(X, softplus theta) (C, N, D) at X = x0 + delta: the field's values
+    that the plain fwd and the given fwd kernel take."""
+    C, D, N = delta.shape
+    X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
+    return f_vec(I, X, F.softplus(_split_q(q, N, D)[1]))
+
+
+def field_vjp(f_vec, I, gdr, delta, q, x0T):
+    """(J_x^T g (C, N, D), J_theta^T g (C, P) summed over the points) of
+    the field at X = x0 + delta for g = gdr (D, C, N): what the plain bwd
+    and the given bwd kernel take."""
+    C, D, N = delta.shape
+    X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
+    _, vjp = torch.func.vjp(lambda X_, th_: f_vec(I, X_, th_), X,
+                            F.softplus(_split_q(q, N, D)[1]))
+    return vjp(gdr.permute(1, 2, 0))
+
+
 def manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y,
                        sigma_lb, beta_temp, beta):
     C, D, N = delta.shape
     sp, tp = _split_q(q, N, D)
-    X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
-    f = f_vec(I, X, F.softplus(tp)).permute(2, 0, 1)         # (D, C, N)
+    f = field_values(f_vec, I, delta, q, x0T).permute(2, 0, 1)  # (D, C, N)
     Rd, md = RmD[..., :N], RmD[..., N:]
     dr = (f - f0[:, None, :]) - md
     scale = beta_temp / beta
@@ -110,10 +135,7 @@ def manifold_bwd_plain(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
     C, D, N = delta.shape
     ND = N * D
     sp, tp = _split_q(q, N, D)
-    X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
-    _, vjp = torch.func.vjp(lambda X_, th_: f_vec(I, X_, th_), X,
-                            F.softplus(tp))
-    gX, gth = vjp(gdr.permute(1, 2, 0))                      # (C,N,D), (C,P)
+    gX, gth = field_vjp(f_vec, I, gdr, delta, q, x0T)        # (C,N,D), (C,P)
     gcat[..., N:] = gdr
     sig2 = F.softplus(sp) + sigma_lb                          # (C, D)
     r = x0T[None] + delta - y[None]                           # (C, D, N)
@@ -159,9 +181,16 @@ def _check_all(args, dtype, device):
 _ENTRIES = {}
 
 # points of a chain per CTA (csrc/manifold.cu: kThreads) and the widest row
-# of per-CTA partial sums (manifold_bwd: P + D values, at most _PART_WIDTH)
+# of per-CTA partial sums (manifold_bwd: P + D values for a functor's
+# model, D for a given field; at most _PART_WIDTH)
 _CHUNK = 128
 _PART_WIDTH = 8
+
+
+def _given(f_vec) -> bool:
+    """Whether K1 takes its ``given`` kernels for ``f_vec`` on the card:
+    for a field with no CUDA functor."""
+    return cuda_model_of(f_vec) is None
 
 
 def _entry(kernel, f_vec, dtype):
@@ -170,20 +199,16 @@ def _entry(kernel, f_vec, dtype):
         return fn
     from magi_v2_tpu_torch.ops._build import load_library
 
-    model = cuda_model_of(f_vec)
-    if model is None:
-        raise NotImplementedError(
-            "no CUDA manifold kernel is registered for this ODE model "
-            "(OdeModel.cuda_model); SEIR and Lorenz are ported"
-        )
     if dtype == torch.float32:
         suffix = "f32"
     elif dtype == torch.float64:
         suffix = "f64"
     else:
         raise TypeError(f"manifold kernels take float32 or float64, not {dtype}")
+    family = f"manifold_{kernel}" + ("_given" if _given(f_vec) else "")
+    model = cuda_model_of(f_vec) or "given"
     fn = _ENTRIES[(kernel, f_vec, dtype)] = load_library().entry(
-        f"magi_manifold_{kernel}_{model}_{suffix}", f"manifold_{kernel}")
+        f"magi_manifold_{kernel}_{model}_{suffix}", family)
     return fn
 
 
@@ -193,12 +218,80 @@ def _takes_plain(device) -> bool:
     return device.type == "cpu"
 
 
+def _check_width(f_vec, D: int, P: int) -> None:
+    """The per-chain sums the kernels pass for this model fit a row of
+    ``part``."""
+    if _given(f_vec):
+        if D > _PART_WIDTH:
+            raise ValueError(
+                f"the CUDA manifold kernels take a field of at most "
+                f"{_PART_WIDTH} components, not {D}; widen _PART_WIDTH in "
+                "ops/manifold.py and kMaxD in csrc/manifold.cu")
+    elif P + D > _PART_WIDTH:
+        raise ValueError(
+            f"the CUDA manifold kernels pass at most {_PART_WIDTH} per-chain "
+            f"sums of a model (theta and sigma gradients: P + D = {P} + {D}); "
+            "widen _PART_WIDTH in ops/manifold.py and csrc/manifold.cu for "
+            "this model")
+
+
 def make_scratch(C: int, N: int, dtype, device):
     """(part (C, G, _PART_WIDTH), ticket (C,) int32 zeros), G the most CTAs
     a chain gets: what the kernels pass a chain's partial sums through."""
     G = -(-N // _CHUNK)
     return (torch.empty((C, G, _PART_WIDTH), dtype=dtype, device=device),
             torch.zeros((C,), dtype=torch.int32, device=device))
+
+
+def _given_values(f_vec, I, delta, q, x0T):
+    """The field's values for the given fwd kernel, checked."""
+    C, D, N = delta.shape
+    fv = field_values(f_vec, I, delta, q, x0T).contiguous()
+    _check_all((("f_vec's values", fv, (C, N, D)),), delta.dtype,
+               delta.device)
+    return fv
+
+
+def _given_vjp(f_vec, I, gdr, delta, q, x0T):
+    """The field's VJPs for the given bwd kernel, checked."""
+    C, D, N = delta.shape
+    gx, gth = (t.contiguous() for t in field_vjp(f_vec, I, gdr, delta, q,
+                                                 x0T))
+    _check_all((("J_x^T g", gx, (C, N, D)),
+                ("J_theta^T g", gth, (C, q.shape[1] - N * D - D))),
+               delta.dtype, delta.device)
+    return gx, gth
+
+
+# The kernels' argument lists. A given field's kernels take the field's
+# values (fwd) or VJPs (bwd) after beta_temp and D after N; ``_AT`` holds
+# where each per-call argument stands.
+def _fwd_args(given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
+              beta_temp, fv, beta, C, N, D, dim, dr, gcat, t14, scratch):
+    return ([delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp]
+            + ([fv] if given else []) + [float(beta), C, N]
+            + ([D] if given else []) + [dim, dr, gcat, t14, *scratch])
+
+
+def _energy_args(given, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, beta, C,
+                 N, D, dim, lp, gDs, scratch):
+    return ([Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, float(beta), C, N]
+            + ([D] if given else []) + [dim, lp, gDs, *scratch])
+
+
+def _bwd_args(given, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp,
+              vjp, C, N, D, dim, gcat, gpart, grad, scratch):
+    return ([gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp]
+            + (list(vjp) if given else []) + [C, N]
+            + ([D] if given else []) + [dim, gcat, gpart, grad, *scratch])
+
+
+_AT = {False: dict(fwd=dict(q=2, beta_temp=9),
+                   energy=dict(q=3, beta_temp=6, lp=11),
+                   bwd=dict(q=2, beta_temp=8, grad=14)),
+       True: dict(fwd=dict(q=2, beta_temp=9, fv=10),
+                  energy=dict(q=3, beta_temp=6, lp=12),
+                  bwd=dict(q=2, beta_temp=8, gx=9, gth=10, grad=17))}
 
 
 def _prepare(kernel, f_vec, dtype, args):
@@ -213,6 +306,12 @@ def _launch(kernel, f_vec, dtype, args):
         torch.cuda.current_stream(args[0].device).cuda_stream)
 
 
+def _on_card(name, dev, f_vec, D, dim, N):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    _check_width(f_vec, D, dim - N * D - D)
+
+
 def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
                  beta_temp, beta: float):
     """-> dr (D, C, N), gcat (D, C, 2N) with the first half set, t14 (C, 2)."""
@@ -225,18 +324,18 @@ def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
         ("f0", f0, (D, N)), ("mask", mask, (D, N)), ("y", y, (D, N)),
         ("sigma_lb", sigma_lb, (D,)), ("beta_temp", beta_temp, ()),
     ), dt, dev)
-    if dev.type == "cpu":
+    if _takes_plain(dev):
         return manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask,
                                   y, sigma_lb, beta_temp, beta)
-    if dev.type != "cuda":
-        raise ValueError(f"manifold_fwd runs on cpu or cuda, not {dev}")
+    _on_card("manifold_fwd", dev, f_vec, D, dim, N)
+    given = _given(f_vec)
+    fv = _given_values(f_vec, I, delta, q, x0T) if given else None
     dr = torch.empty((D, C, N), dtype=dt, device=dev)
     gcat = torch.empty((D, C, 2 * N), dtype=dt, device=dev)
     t14 = torch.empty((C, 2), dtype=dt, device=dev)
-    _launch("fwd", f_vec, dt,
-            [delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp,
-             float(beta), C, N, dim, dr, gcat, t14,
-             *make_scratch(C, N, dt, dev)])
+    _launch("fwd", f_vec, dt, _fwd_args(
+        given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp, fv,
+        beta, C, N, D, dim, dr, gcat, t14, make_scratch(C, N, dt, dev)))
     return dr, gcat, t14
 
 
@@ -251,16 +350,15 @@ def manifold_energy(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
         ("q", q, (C, dim)), ("sigma_lb", sigma_lb, (D,)),
         ("n_ds", n_ds, (D,)), ("beta_temp", beta_temp, ()),
     ), dt, dev)
-    if dev.type == "cpu":
+    if _takes_plain(dev):
         return manifold_energy_plain(f_vec, Ds, s0, t14, q, sigma_lb, n_ds,
                                      beta_temp, beta)
-    if dev.type != "cuda":
-        raise ValueError(f"manifold_energy runs on cpu or cuda, not {dev}")
+    _on_card("manifold_energy", dev, f_vec, D, dim, N)
     lp = torch.empty((C,), dtype=dt, device=dev)
     gDs = torch.empty((D, C, N), dtype=dt, device=dev)
-    _launch("energy", f_vec, dt,
-            [Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, float(beta), C, N,
-             dim, lp, gDs, *make_scratch(C, N, dt, dev)])
+    _launch("energy", f_vec, dt, _energy_args(
+        _given(f_vec), Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, beta, C, N,
+        D, dim, lp, gDs, make_scratch(C, N, dt, dev)))
     return lp, gDs
 
 
@@ -277,15 +375,16 @@ def manifold_bwd(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
         ("beta_temp", beta_temp, ()), ("gcat", gcat, (D, C, 2 * N)),
         ("grad", grad, (C, dim)),
     ), dt, dev)
-    if dev.type == "cpu":
+    if _takes_plain(dev):
         return manifold_bwd_plain(f_vec, I, gdr, delta, q, x0T, mask, y,
                                   sigma_lb, n_ds, beta_temp, gcat, grad)
-    if dev.type != "cuda":
-        raise ValueError(f"manifold_bwd runs on cpu or cuda, not {dev}")
+    _on_card("manifold_bwd", dev, f_vec, D, dim, N)
+    given = _given(f_vec)
+    vjp = _given_vjp(f_vec, I, gdr, delta, q, x0T) if given else None
     gpart = torch.empty((D, C, N), dtype=dt, device=dev)
-    _launch("bwd", f_vec, dt,
-            [gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp, C, N,
-             dim, gcat, gpart, grad, *make_scratch(C, N, dt, dev)])
+    _launch("bwd", f_vec, dt, _bwd_args(
+        given, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp, vjp,
+        C, N, D, dim, gcat, gpart, grad, make_scratch(C, N, dt, dev)))
     return gpart
 
 
@@ -300,7 +399,9 @@ class ManifoldPlan:
     checked here, once. ``fwd``, ``energy`` and ``bwd`` then take the
     state q (C, dim), the 0-dim beta_temp, the output that belongs to the
     caller (lp (C,), grad (C, dim)) and the stream, trust them (the
-    caller checks q once per evaluation), and overwrite the buffers."""
+    caller checks q once per evaluation), and overwrite the buffers. For a
+    field with no functor, fwd and bwd first evaluate the field or its
+    VJPs with PyTorch on the card and point the launch at the result."""
 
     def __init__(self, f_vec, I, consts: dict, beta: float, dim: int,
                  bufs: dict):
@@ -325,30 +426,36 @@ class ManifoldPlan:
         self.plain = _takes_plain(dev)
         if self.plain:
             return
-        if dev.type != "cuda":
-            raise ValueError(f"the manifold kernels run on cpu or cuda, not "
-                             f"{dev}")
+        _on_card("ManifoldPlan", dev, f_vec, D, dim, N)
+        self.given = _given(f_vec)
+        self.at = _AT[self.given]
         c, b = self.consts, self.bufs
         self.scratch = make_scratch(C, N, dt, dev)
-        # q and beta_temp (and lp, grad) are bound at each call: the
-        # pointers given here stand in for them
+        # q and beta_temp (and lp, grad, the field's values and VJPs) are
+        # bound at each call: the pointers given here stand in for them
         q0 = bt0 = out0 = delta
-        self._fwd = _prepare("fwd", f_vec, dt, [
-            delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"], c["mask"],
-            c["y"], c["sigma_lb"], bt0, self.beta, C, N, dim, b["dr"],
-            b["gcat"], b["t14"], *self.scratch])
-        self._energy = _prepare("energy", f_vec, dt, [
-            b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"], c["n_ds"], bt0,
-            self.beta, C, N, dim, out0, b["gDs"], *self.scratch])
-        self._bwd = _prepare("bwd", f_vec, dt, [
-            b["gdr"], delta, q0, c["x0T"], c["mask"], c["y"], c["sigma_lb"],
-            c["n_ds"], bt0, C, N, dim, b["gcat"], b["gpart"], out0,
-            *self.scratch])
+        self._fwd = _prepare("fwd", f_vec, dt, _fwd_args(
+            self.given, delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"],
+            c["mask"], c["y"], c["sigma_lb"], bt0, out0, self.beta, C, N, D,
+            dim, b["dr"], b["gcat"], b["t14"], self.scratch))
+        self._energy = _prepare("energy", f_vec, dt, _energy_args(
+            self.given, b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"],
+            c["n_ds"], bt0, self.beta, C, N, D, dim, out0, b["gDs"],
+            self.scratch))
+        self._bwd = _prepare("bwd", f_vec, dt, _bwd_args(
+            self.given, b["gdr"], delta, q0, c["x0T"], c["mask"], c["y"],
+            c["sigma_lb"], c["n_ds"], bt0, (out0, out0), C, N, D, dim,
+            b["gcat"], b["gpart"], out0, self.scratch))
+
+    def _run(self, launch, at, stream, **now) -> None:
+        for name, t in now.items():
+            launch.rebind(at[name], t)
+        launch(stream)
 
     def fwd(self, q, beta_temp, stream) -> None:
         """dr, gcat[..., :N] and t14 from delta and RmD."""
+        c, b = self.consts, self.bufs
         if self.plain:
-            c, b = self.consts, self.bufs
             dr, gcat, t14 = manifold_fwd_plain(
                 self.f_vec, self.I, b["delta"], b["RmD"], q, c["x0T"],
                 c["a0"], c["f0"], c["mask"], c["y"], c["sigma_lb"],
@@ -358,10 +465,13 @@ class ManifoldPlan:
             b["gcat"][..., :N].copy_(gcat[..., :N])
             b["t14"].copy_(t14)
             return
-        launch = self._fwd
-        launch.rebind(2, q)
-        launch.rebind(9, beta_temp)
-        launch(stream)
+        now = dict(q=q, beta_temp=beta_temp)
+        if self.given:
+            # kept until the launch is enqueued; the caching allocator
+            # orders its reuse on this stream
+            now["fv"] = _given_values(self.f_vec, self.I, b["delta"], q,
+                                      c["x0T"])
+        self._run(self._fwd, self.at["fwd"], stream, **now)
 
     def energy(self, q, beta_temp, lp, stream) -> None:
         """lp (the caller's) and gDs from Ds and t14."""
@@ -373,24 +483,21 @@ class ManifoldPlan:
             lp.copy_(lp_)
             b["gDs"].copy_(gDs)
             return
-        launch = self._energy
-        launch.rebind(3, q)
-        launch.rebind(6, beta_temp)
-        launch.rebind(11, lp)
-        launch(stream)
+        self._run(self._energy, self.at["energy"], stream, q=q,
+                  beta_temp=beta_temp, lp=lp)
 
     def bwd(self, q, beta_temp, grad, stream) -> None:
         """gpart, gcat[..., N:] and grad[:, N*D:] (the caller's) from gdr
         and delta."""
+        c, b = self.consts, self.bufs
         if self.plain:
-            c, b = self.consts, self.bufs
             b["gpart"].copy_(manifold_bwd_plain(
                 self.f_vec, self.I, b["gdr"], b["delta"], q, c["x0T"],
                 c["mask"], c["y"], c["sigma_lb"], c["n_ds"], beta_temp,
                 b["gcat"], grad))
             return
-        launch = self._bwd
-        launch.rebind(2, q)
-        launch.rebind(8, beta_temp)
-        launch.rebind(14, grad)
-        launch(stream)
+        now = dict(q=q, beta_temp=beta_temp, grad=grad)
+        if self.given:
+            now["gx"], now["gth"] = _given_vjp(self.f_vec, self.I, b["gdr"],
+                                               b["delta"], q, c["x0T"])
+        self._run(self._bwd, self.at["bwd"], stream, **now)

@@ -13,8 +13,10 @@ nothing in the transition waits for the card.
 version (``leapfrog_update_plain``, the same operations in the same order
 as the JAX loop body, so a transition is reproducible bit for bit); for a
 CUDA tensor they launch the kernel or raise. K2 takes every mass form in
-one launch (a diagonal, a dense tail block, the full dense metric). It
-updates q and p in place. ``LAUNCH_COUNTS`` counts kernel launches only.
+one launch (a diagonal, a dense tail block, the full dense metric of any
+width), and NUTS's leaf form (a signed step per chain, a mask of the
+chains that move, the velocities out; sampler/nuts.py). It updates q and
+p in place. ``LAUNCH_COUNTS`` counts kernel launches only.
 
 Two forms of one transition, which give the same bits:
 
@@ -49,18 +51,16 @@ from magi_v2_tpu_torch.sampler.mass import (
 
 KERNELS = ("leapfrog_update",)
 LAUNCH_COUNTS = {k: 0 for k in KERNELS}
-# captures made and replays of each captured step
-GRAPH_STEPS = ("start", "first", "next")
-GRAPH_COUNTS = {"captures": 0, **{k: 0 for k in GRAPH_STEPS}}
+# captures made, and the replays of each captured step by its name (the
+# names ``capture_steps`` was given: HMC's here, NUTS's in sampler/nuts.py),
+# counted from the step's first capture
+GRAPH_COUNTS = {"captures": 0}
 
 # csrc/leapfrog.cu: a stream CTA's threads and elements a thread, a tail
-# cluster's chains and threads along its columns, CTAs a cluster, and the
-# shared memory a CTA may take
+# cluster's columns a thread group, most CTAs a cluster and most column
+# groups a thread
 _THREADS, _QUAD = 256, 4
-_TAIL_CHAINS, _TAIL_COLS, _MAX_CLUSTER = 16, 64, 8
-# and the elements of M^{-1} in one of a tail CTA's two chunks
-_CHUNK = 4096
-_SMEM_LIMIT = 226 * 1024
+_TAIL_COLS, _MAX_CLUSTER, _MAX_CPT = 64, 8, 8
 
 
 def reset_launch_counts() -> None:
@@ -88,19 +88,35 @@ class HmcInfo(NamedTuple):
 
 
 def leapfrog_update_plain(q, p, g, step_size, inv_mass, nkick: int,
-                          drift: bool, kinetic: bool):
-    """K2's plain version: p <- p + (eps/2) g ``nkick`` times; v = M^{-1} p;
-    q <- q + eps v when ``drift``; returns 0.5 p.v per chain when
-    ``kinetic``, else None."""
+                          drift: bool, kinetic: bool, active=None, vel=None):
+    """K2's plain version: p <- p + (eps/2) g ``nkick`` times; v = M^{-1} p
+    (into ``vel`` when it is given); q <- q + eps v when ``drift``; returns
+    0.5 p.v per chain when ``kinetic``, else None. ``step_size`` is 0-dim
+    or one signed step per chain (C,); a chain whose ``active`` flag (C,
+    bool) is False keeps its q and p."""
+    if step_size.dim() == 1:
+        step_size = step_size[:, None]
     half = 0.5 * step_size
-    for _ in range(nkick):
-        torch.addcmul(p, g, half, out=p)
-    if not (drift or kinetic):
+    if active is None:
+        for _ in range(nkick):
+            torch.addcmul(p, g, half, out=p)
+    elif nkick:
+        kicked = p.clone()
+        for _ in range(nkick):
+            torch.addcmul(kicked, g, half, out=kicked)
+        torch.where(active[:, None], kicked, p, out=p)
+    if not (drift or kinetic or vel is not None):
         return None
-    vel = mass_vel(inv_mass, p)
+    v = mass_vel(inv_mass, p)
+    if vel is not None:
+        vel.copy_(v)
     if drift:
-        torch.addcmul(q, vel, step_size, out=q)
-    return 0.5 * torch.sum(p * vel, dim=-1) if kinetic else None
+        if active is None:
+            torch.addcmul(q, v, step_size, out=q)
+        else:
+            torch.where(active[:, None], torch.addcmul(q, v, step_size), q,
+                        out=q)
+    return 0.5 * torch.sum(p * v, dim=-1) if kinetic else None
 
 
 def _mass_parts(inv_mass):
@@ -111,19 +127,21 @@ def _mass_parts(inv_mass):
 
 
 def _tail_layout(k: int):
-    """(columns a tail thread owns, CTAs a cluster) for a dense block of k
-    columns, as csrc/leapfrog.cu picks them."""
+    """(column groups a tail thread owns, CTAs a cluster, column blocks a
+    CTA) for a dense block of k columns, as csrc/leapfrog.cu picks them."""
     cpt = -(-k // (_MAX_CLUSTER * _TAIL_COLS))
-    cpt = next((n for n in (1, 2, 4, 8) if cpt <= n), cpt)
-    return cpt, -(-k // (_TAIL_COLS * cpt))
+    cpt = next((n for n in (1, 2, 4) if cpt <= n), _MAX_CPT)
+    blocks = -(-k // (_TAIL_COLS * cpt))
+    npass = -(-blocks // _MAX_CLUSTER)
+    return cpt, -(-blocks // npass), npass
 
 
 def tail_stride(k: int) -> int:
     """The row stride K2 reads a (k, k) dense inverse-mass block with: the
     columns its cluster covers, so that every CTA's share of a row starts
     on a 16-byte boundary."""
-    cpt, jb = _tail_layout(k)
-    return jb * _TAIL_COLS * cpt
+    cpt, jb, npass = _tail_layout(k)
+    return jb * npass * _TAIL_COLS * cpt
 
 
 def padded_tail(tail_inv):
@@ -168,13 +186,16 @@ def _entry(dt):
 
 
 def bind_leapfrog(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
-                  kinetic=None):
+                  kinetic=None, active=None, vel=None):
     """K2 bound to its operands, checked here once: a callable of the
     stream that runs one leapfrog update on the tensors given now (on the
     CPU the plain version), q and p (C, dim) in place, the kinetic energies
-    into ``kinetic`` (C,) when it is given. ``step_size`` a 0-dim tensor;
-    ``inv_mass`` a diagonal or a ``TailDenseMass`` whose tensors are read
-    at each call, on the card only if its dense block is in K2's padded
+    into ``kinetic`` (C,) and the velocities M^{-1} p into ``vel`` (C, dim)
+    when they are given. ``step_size`` is a 0-dim tensor (HMC) or one
+    signed step per chain (C,) (a NUTS leaf); a chain whose ``active`` (C,
+    bool) flag is False keeps its q and p bit for bit. ``inv_mass`` is a
+    diagonal or a ``TailDenseMass`` of any width whose tensors are read at
+    each call, on the card only if its dense block is in K2's padded
     layout (``padded_tail``): another block is copied into it here."""
     dev, dt = q.device, q.dtype
     if q.dim() != 2:
@@ -184,43 +205,51 @@ def bind_leapfrog(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
     named = [("p", p), ("g", g), ("step_size", step_size), ("diag", diag)]
     named += [("tail_inv", tail_inv)] if k else []
     named += [("kinetic", kinetic)] if kinetic is not None else []
+    named += [("vel", vel)] if vel is not None else []
     for name, t in named:
         if not (isinstance(t, torch.Tensor) and t.dtype == dt
                 and t.device == dev):
             raise TypeError(f"{name} must be a {dt} tensor on {dev}")
-    if p.shape != (C, dim) or g.shape != (C, dim) or step_size.dim() != 0:
-        raise ValueError("q, p, g must be (C, dim) and step_size 0-dim")
+    if p.shape != (C, dim) or g.shape != (C, dim) or (
+            step_size.shape not in ((), (C,))):
+        raise ValueError("q, p, g must be (C, dim) and step_size 0-dim or "
+                         "(C,)")
     if diag.shape != (dim,) or (k and tail_inv.shape != (k, k)):
         raise ValueError(f"the inverse mass must be a ({dim},) diagonal "
                          f"with a (k, k) tail block")
     if kinetic is not None and kinetic.shape != (C,):
         raise ValueError(f"kinetic must be ({C},)")
+    if vel is not None and vel.shape != (C, dim):
+        raise ValueError(f"vel must be ({C}, {dim})")
+    if active is not None and not (
+            isinstance(active, torch.Tensor) and active.dtype == torch.bool
+            and active.shape == (C,) and active.device == dev):
+        raise TypeError(f"active must be a ({C},) bool tensor on {dev}")
     nkick, drift = int(nkick), bool(drift)
     if _takes_plain(dev):
         def run(stream=None):
             kin = leapfrog_update_plain(q, p, g, step_size, inv_mass, nkick,
-                                        drift, kinetic is not None)
+                                        drift, kinetic is not None, active,
+                                        vel)
             if kinetic is not None:
                 kinetic.copy_(kin)
         return run
     if dev.type != "cuda":
         raise ValueError(f"leapfrog_update runs on cpu or cuda, not {dev}")
     touched = [("p", p)] + ([("g", g)] if nkick else []) + (
-        [("q", q)] if drift else [])
+        [("q", q)] if drift else []) + ([("vel", vel)] if vel is not None
+                                        else [])
     for name, t in touched:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
-    if not diag.is_contiguous():
-        raise ValueError("the inverse-mass diagonal must be contiguous")
+    for name, t in (("the inverse-mass diagonal", diag),
+                    ("step_size", step_size), ("active", active)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     ld = tail_stride(k) if k else 0
     if k and (tail_inv.stride() != (ld, 1) or tail_inv.data_ptr() % 16):
         tail_inv = padded_tail(tail_inv)
-    cpt = _tail_layout(k)[0] if k else 1
-    smem = (k * _TAIL_CHAINS + 2 * _CHUNK) * q.element_size() if k else 0
-    if cpt > 8 or smem > _SMEM_LIMIT:
-        raise ValueError(f"a dense inverse-mass block of {k} columns is "
-                         f"wider than K2 takes in {dt}")
     from magi_v2_tpu_torch.ops._build import Launch
 
     S = kinetic_partials(dim, k)
@@ -230,19 +259,22 @@ def bind_leapfrog(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
         ticket = torch.zeros((C,), dtype=torch.int32, device=dev)
     return Launch(_entry(dt),
                   [q, p, g, diag, tail_inv, step_size, k, ld, C, dim, nkick,
-                   int(drift), kinetic, part, S, ticket],
+                   int(drift), step_size.dim(), active, vel, kinetic, part,
+                   S, ticket],
                   LAUNCH_COUNTS, "leapfrog_update")
 
 
 def leapfrog_update(q, p, g, step_size, inv_mass, nkick: int, drift: bool,
-                    kinetic: bool):
+                    kinetic: bool, active=None, vel=None):
     """K2: the kicks, velocity, drift and kinetic energy of one leapfrog
     for every chain, q and p (C, dim) updated in place; ``step_size`` a
-    0-dim tensor. Returns the kinetic energies (C,) when ``kinetic``."""
+    0-dim tensor or one signed step per chain; ``active`` and ``vel`` as
+    in ``bind_leapfrog``. Returns the kinetic energies (C,) when
+    ``kinetic``."""
     kin = (torch.empty((q.shape[0],), dtype=q.dtype, device=q.device)
            if kinetic else None)
-    bind_leapfrog(q, p, g, step_size, inv_mass, nkick, drift, kin)(
-        launch_stream(q.device))
+    bind_leapfrog(q, p, g, step_size, inv_mass, nkick, drift, kin, active,
+                  vel)(launch_stream(q.device))
     return kin
 
 
@@ -295,9 +327,10 @@ def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
 
 
 def _launch_counters():
-    from magi_v2_tpu_torch.ops import banded, manifold
+    from magi_v2_tpu_torch.ops import banded, manifold, nuts
 
-    return (manifold.LAUNCH_COUNTS, banded.LAUNCH_COUNTS, LAUNCH_COUNTS)
+    return (manifold.LAUNCH_COUNTS, banded.LAUNCH_COUNTS, LAUNCH_COUNTS,
+            nuts.LAUNCH_COUNTS)
 
 
 class CapturedStep:
@@ -344,6 +377,8 @@ def capture_steps(steps: dict, device) -> dict:
             counts.update(was)
         graphs[name] = CapturedStep(graph, launches)
     GRAPH_COUNTS["captures"] += len(graphs)
+    for name in graphs:
+        GRAPH_COUNTS.setdefault(name, 0)
     return graphs
 
 

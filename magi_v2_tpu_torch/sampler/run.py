@@ -1,15 +1,18 @@
-"""Multi-chain HMC driver: warmup (dual-averaging step size, staged Welford
-mass adaptation, temperature annealing) and sampling (counterpart of the
-HMC path of magi_v2_tpu/sampler/run.py).
+"""Multi-chain sampling: warmup (dual-averaging step size, staged Welford
+mass adaptation, temperature annealing) and sampling with NUTS
+(the default) or jittered fixed-length HMC (counterpart of
+magi_v2_tpu/sampler/run.py).
 
 Chains are the leading axis of every state tensor. The step size, the
 dual-averaging state, the Welford moments and the mass live on the device;
-what the host decides — the jittered trajectory length, which step adapts,
-when a mass window closes — depends only on step counters, so the
-transition loop never waits for the card. Counters that are host-known
-(the dual-averaging and Welford counts) are Python floats.
+what the host decides — the jittered HMC trajectory length, which step
+adapts, when a mass window closes — depends only on step counters. An HMC
+transition never waits for the card; a NUTS transition reads one flag a
+doubling (whether any chain's tree goes on, sampler/nuts.py). Counters
+that are host-known (the dual-averaging and Welford counts) are Python
+floats.
 
-Not ported here (see ROADMAP.md queue 1): NUTS, parallel tempering,
+Not ported here (see ROADMAP.md queue 1): parallel tempering,
 checkpoint/resume and dispatch blocking.
 """
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
+from magi_v2_tpu_torch.sampler.nuts import BoundNuts, NutsConfig, draw_noise
 from magi_v2_tpu_torch.sampler.mass import (
     identity_mass,
     mass_diag,
@@ -55,6 +59,7 @@ class SamplerConfig(NamedTuple):
     initial_step_size: float = 0.1
     target_accept: float = 0.75
     adaptation_fraction: float = 0.8
+    max_tree_depth: int = 10
     max_energy_diff: float = 1000.0
     anneal_min_temp: float = 0.1
     use_annealing: bool = True
@@ -76,8 +81,12 @@ class SamplerConfig(NamedTuple):
     # print a progress line every k steps (0 = off; reads device values)
     progress_every: int = 0
     thin: int = 1
-    # trajectory length: uniform on {1, ..., hmc_num_leapfrogs}, one draw
-    # per transition shared by all chains
+    # transition kernel: "nuts" (adaptive trajectory lengths, chains in
+    # masked lockstep) or "hmc" (a fixed jittered length shared by all
+    # chains)
+    algorithm: str = "nuts"
+    # HMC's trajectory length: uniform on {1, ..., hmc_num_leapfrogs}, one
+    # draw per transition shared by all chains
     hmc_num_leapfrogs: int = 64
 
 
@@ -176,9 +185,10 @@ class ChainStats(NamedTuple):
     step_size: torch.Tensor        # final adapted step size (0-dim)
     inv_mass: torch.Tensor         # (dim,) inverse-mass diagonal
     accept_probs: torch.Tensor     # (num_results, C)
-    num_leapfrogs: np.ndarray      # (num_results, C)
+    num_leapfrogs: np.ndarray      # (num_results, C) leapfrogs per chain
     divergences: torch.Tensor      # (num_results, C) bool
-    depths: np.ndarray             # (num_results, C)
+    depths: np.ndarray             # (num_results, C) tree depth (HMC:
+                                   # ceil(log2 L), as the JAX package)
     tail_inv_mass: torch.Tensor | None = None
 
 
@@ -213,24 +223,31 @@ def find_reasonable_step_size(logp_grad, q0_row, generator, inv_mass,
     return eps
 
 
-def run_hmc_chains(
+def run_chains(
     tempered_logp_grad: Callable,   # (q (C, dim), beta_temp) -> (logp, grad)
     q0: torch.Tensor,               # (C, dim) initial chain states
     seed: int,
     config: SamplerConfig = SamplerConfig(),
 ):
-    """Warmup + sampling of C chains with jittered fixed-length HMC.
+    """Warmup + sampling of C chains with ``config.algorithm``: "nuts"
+    (``nuts.BoundNuts``) or "hmc" (jittered fixed-length HMC).
 
-    A ``tempered_logp_grad`` with a bound evaluation (``bind``, as the
-    targets ``predict`` builds have) takes the sampler's bound transition
-    (``hmc.BoundTransition``: CUDA graphs on the card); any other callable
-    the eager ``hmc_step``. The two give the same draws.
+    For HMC, a ``tempered_logp_grad`` with a bound evaluation (``bind``, as
+    the targets ``predict`` builds have) takes the sampler's bound
+    transition (``hmc.BoundTransition``: CUDA graphs on the card); any
+    other callable the eager ``hmc_step``. NUTS takes ``BoundNuts`` for
+    both, with CUDA graphs where the target binds. Either way the two
+    forms give the same draws.
 
     Returns (samples (num_results, C, dim) on q0's device, ChainStats).
-    The momenta and accept uniforms come from a ``torch.Generator`` on the
-    device seeded with ``seed``; the trajectory lengths from a NumPy
-    generator on the host with the same seed.
+    The momenta and uniforms come from a ``torch.Generator`` on the device
+    seeded with ``seed``; HMC's trajectory lengths from a NumPy generator
+    on the host with the same seed.
     """
+    if config.algorithm not in ("nuts", "hmc"):
+        raise ValueError(f"unknown algorithm {config.algorithm!r}; expected "
+                         "'nuts' or 'hmc'")
+    nuts = config.algorithm == "nuts"
     pin_full_float32_matmuls()
     C, dim = q0.shape
     dtype, dev = q0.dtype, q0.device
@@ -287,8 +304,14 @@ def run_hmc_chains(
     # card as replayed CUDA graphs, made once the first mass is known
     bound = None
 
+    nuts_cfg = NutsConfig(config.max_tree_depth, config.max_energy_diff)
+
     def transition(qs, eps, inv_mass, step):
         beta_temp = temps[step]
+        if nuts:
+            return bound(qs, eps, inv_mass, beta_temp,
+                         draw_noise(gen, C, dim, nuts_cfg.max_tree_depth,
+                                    dtype, dev))
         normals = torch.randn((C, dim), generator=gen, dtype=dtype, device=dev)
         uniforms = torch.rand((C,), generator=gen, dtype=dtype, device=dev)
         if bound is not None:
@@ -302,10 +325,11 @@ def run_hmc_chains(
     def progress(phase, step, eps, info):
         every = config.progress_every
         if every and step % every == 0:
+            L = info.num_leapfrogs
             print(
                 f"[sampler] {phase} step {step:>6} eps={float(eps):.5f} "
                 f"accept={float(info.accept_prob.mean()):.3f} "
-                f"L={info.num_leapfrogs} "
+                f"L={float(L.float().mean()) if nuts else L} "
                 f"div={float(info.diverging.to(dtype).mean()):.4f}",
                 flush=True,
             )
@@ -319,7 +343,9 @@ def run_hmc_chains(
     da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
     wf = welford_init(dim, dtype, dev)
     wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
-    if hasattr(tempered_logp_grad, "bind"):
+    if nuts:
+        bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg)
+    elif hasattr(tempered_logp_grad, "bind"):
         bound = BoundTransition(tempered_logp_grad, q0, inv_mass)
 
     qs = q0
@@ -359,7 +385,9 @@ def run_hmc_chains(
     samples = torch.empty((T, C, dim), dtype=dtype, device=dev)
     accept = torch.empty((T, C), dtype=dtype, device=dev)
     diverging = torch.empty((T, C), dtype=torch.bool, device=dev)
-    num_leapfrogs = np.empty((T, C), np.int32)
+    num_leapfrogs = (torch.empty((T, C), dtype=torch.int32, device=dev)
+                     if nuts else np.empty((T, C), np.int32))
+    depths = torch.empty((T, C), dtype=torch.int32, device=dev)
     for i in range(T):
         for t in range(config.thin):
             step = B + i * config.thin + t
@@ -369,8 +397,15 @@ def run_hmc_chains(
         accept[i] = info.accept_prob
         diverging[i] = info.diverging
         num_leapfrogs[i] = info.num_leapfrogs
+        if nuts:
+            depths[i] = info.depth
 
-    depths = np.ceil(np.log2(np.maximum(num_leapfrogs, 1))).astype(np.int32)
+    if nuts:
+        num_leapfrogs, depths = num_leapfrogs.cpu().numpy(), \
+            depths.cpu().numpy()
+    else:
+        depths = np.ceil(np.log2(np.maximum(num_leapfrogs, 1))).astype(
+            np.int32)
     stats = ChainStats(
         step_size=eps_final,
         inv_mass=mass_diag(inv_mass),

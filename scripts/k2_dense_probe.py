@@ -9,8 +9,8 @@ velocity, the drift; float32):
 1. of the full dense metric at widths k = 64 ... 1100 and 16 ... 256
    chains, and of the 3081-wide diagonal and 8-wide tail;
 2. of copies of csrc/leapfrog.cu with parts of the dense block removed
-   (the FMAs, the copies of M^{-1}, the exchange of kicked momenta
-   between the cluster's CTAs, the cluster barriers), built into
+   (the FMAs, the copies of M^{-1}, the stream of kicked momenta back
+   from L2 into the ring, the cluster barrier), built into
    magi_v2_tpu_torch/_build/probe/. A copy computes wrong values; only
    its time is read.
 """
@@ -31,39 +31,21 @@ from magi_v2_tpu_torch.sampler import hmc  # noqa: E402
 
 FMA = "acc[r][u][c] = fmadd(ps[c], m[u], acc[r][u][c]);"
 FETCH = "copy16_async(dst + e * W, a.tail_inv + (size_t)i * a.ld + j);"
-EXCHANGE = "to[e] = from[e];"
+STREAM = "dst[at_of(row_of(e), chain_of(e) / 4) + chain_of(e) % 4] = pf[u];"
 VARIANTS = {
     "as_is": [],
     "no_fma": [(FMA, ";")],
     "no_fetch": [(FETCH, ";")],
-    "no_exchange": [(EXCHANGE, ";")],
-    "no_fma_fetch_exchange": [(FMA, ";"), (FETCH, ";"), (EXCHANGE, ";")],
-    "no_exchange_no_cluster_barrier": [("cluster.sync();", "__syncthreads();"),
-                                       (EXCHANGE, ";")],
+    "no_stream": [(STREAM, ";")],
+    "no_fma_fetch_stream": [(FMA, ";"), (FETCH, ";"), (STREAM, ";")],
+    "no_stream_no_cluster_barrier": [("cluster.sync();", "__syncthreads();"),
+                                     (STREAM, ";")],
 }
 
 
 def device_us(fn, reps=50):
     """Device time of one call of ``fn``, from a graph of ``reps`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps * 1e3
+    return chip_smoke._graph_ms(fn, reps=reps, rounds=1) * 1e3
 
 
 def time_case(device, C, dim, k):

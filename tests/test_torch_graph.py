@@ -123,12 +123,12 @@ def test_bound_warmup_across_mass_windows_is_the_eager_one(models, case):
     target, qs = _setup(models, name, storage, pinned=pinned)
     dim = qs.shape[1]
     cfg = trun.SamplerConfig(
-        num_results=4, num_burnin_steps=20, hmc_num_leapfrogs=4,
-        mass_window_begin=0.1, mass_window_end=0.3,
+        num_results=4, num_burnin_steps=20, algorithm="hmc",
+        hmc_num_leapfrogs=4, mass_window_begin=0.1, mass_window_end=0.3,
         mass_window2_begin=0.35, mass_window2_end=0.6, mass_window1_diag=True,
         dense_tail_size=dim if name == "seir" else 3, anneal_mode="reference")
-    bound = trun.run_hmc_chains(target, qs, 5, cfg)
-    eager = trun.run_hmc_chains(lambda q, b: target(q, b), qs, 5, cfg)
+    bound = trun.run_chains(target, qs, 5, cfg)
+    eager = trun.run_chains(lambda q, b: target(q, b), qs, 5, cfg)
     for a, b in zip(bound, eager):
         for x, y in (zip(a, b) if isinstance(a, tuple) else ((a, b),)):
             if isinstance(x, torch.Tensor):

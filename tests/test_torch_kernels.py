@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K4) against their plain
+"""The hand-written CUDA kernels (K1, K2, K3, K4, K5) against their plain
 PyTorch versions, on the card. These tests need a CUDA device and skip without
 one; run them on the card with
 
@@ -79,10 +79,20 @@ def test_wrappers_raise_instead_of_falling_back(device):
         mf.manifold_fwd(seir_f_vec, I.half(), h["delta"], h["RmD"], h["q"],
                         h["x0T"], h["a0"], h["f0"], h["mask"], h["y"],
                         h["sigma_lb"], h["beta_temp"], h["beta"])
-    with pytest.raises(NotImplementedError, match="no CUDA manifold kernel"):
-        mf.manifold_fwd(lambda t, X, th: X, I, x["delta"], x["RmD"], x["q"],
-                        x["x0T"], x["a0"], x["f0"], x["mask"], x["y"],
-                        x["sigma_lb"], x["beta_temp"], x["beta"])
+    # a field with no CUDA functor launches K1's given kernel on the card,
+    # chosen by the field, and agrees with the plain version
+    field = lambda t, X, th: X * th[:, None, :]
+    args = (field, I, x["delta"], x["RmD"], x["q"], x["x0T"], x["a0"],
+            x["f0"], x["mask"], x["y"], x["sigma_lb"], x["beta_temp"],
+            x["beta"])
+    mf.reset_launch_counts()
+    got = mf.manifold_fwd(*args)
+    assert mf.launch_counts()["manifold_fwd"] == 1
+    ref = mf.manifold_fwd_plain(*args)
+    # manifold_fwd writes only the first half of gcat
+    for a, b in ((got[0], ref[0]), (got[2], ref[2]),
+                 (got[1][..., :9], ref[1][..., :9])):
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
 
 
 def test_sampler_runs_full_float32_on_card(device):
@@ -174,9 +184,9 @@ def test_leapfrog_wrapper_raises_instead_of_falling_back(device):
     with pytest.raises(ValueError, match="16-byte aligned"):
         hmc.leapfrog_update(flat[1:].view(4, 33), p, g, eps, mass, 2, True,
                             False)
-    wide = chip_smoke.leapfrog_case(2, 2000, 2000, torch.float64, device)
-    with pytest.raises(ValueError, match="wider than K2 takes"):
-        hmc.leapfrog_update(*wide, 2, True, True)
+    # the dense widths K2 refused before its momenta were streamed: checked
+    # against the plain version (inside) at 64 and 257 chains
+    chip_smoke.check_wide_leapfrog(device)
 
 
 @pytest.mark.parametrize("storage", ["dense", "hybrid", "banded"])
@@ -198,7 +208,72 @@ def test_graph_replay_matches_eager(device, storage):
     assert counts["captures"] == 3 and counts["first"] >= 4
 
 
+def test_leapfrog_nuts_form_matches_plain_version(device):
+    """K2's NUTS form (a signed step per chain, a mask, the velocities
+    out) at 1, 64, 256 and 257 chains, float32 and float64, each launch
+    twice bit for bit, masked chains untouched with a NaN force (checked
+    inside)."""
+    from magi_v2_tpu_torch.sampler import hmc
+
+    hmc.reset_launch_counts()
+    results = chip_smoke.check_leapfrog_nuts(device, chains=(1, 64, 256,
+                                                             257))
+    assert set(results) == {"leapfrog_update_nuts"}
+    assert hmc.launch_counts()["leapfrog_update"] > 0
+
+
+def test_nuts_leaf_kernel_matches_plain_version(device):
+    """K5 at 1, 64, 256 and 257 chains, float32 and float64, at an odd, an
+    even and the first leaf: the same flags, counts and rows, each launch
+    twice bit for bit, masked chains untouched (checked inside)."""
+    from magi_v2_tpu_torch.ops import nuts
+
+    nuts.reset_launch_counts()
+    results = chip_smoke.check_nuts_leaf(device, chains=(1, 64, 256, 257))
+    assert set(results) == {"nuts_leaf"}
+    assert nuts.launch_counts()["nuts_leaf"] > 0
+
+
+def test_nuts_graph_replay_matches_eager(device):
+    """NUTS by replayed CUDA graphs against the eager transition on a small
+    SEIR fit, 6 transitions from the same state and noise, bit for bit
+    (checked inside)."""
+    from magi_v2_tpu_torch.sampler import hmc
+
+    model = _small_seir(device)
+    dim = model.mag_I * 3 + 6
+    kr = {"inv_mass": np.ones(dim), "tail_inv_mass": np.eye(dim),
+          "step_size": np.float32(0.05)}
+    hmc.reset_graph_counts()
+    chip_smoke.nuts_graph_vs_eager(model, device, kr, transitions=6)
+    counts = hmc.graph_counts()
+    assert counts["captures"] == 5 and counts["nuts_leaf"] >= 6
+
+
+def test_unregistered_field_samples_on_card(device):
+    """A field with no CUDA functor (FitzHugh-Nagumo) through predict on the
+    card, HMC and NUTS, against the CPU; K1's given kernels launch
+    (checked inside)."""
+    chip_smoke.unregistered_field(device, steps=150, chains=8)
+
+
 _SMALL = {}
+
+
+def _small_seir(device):
+    """A SEIR fit of 21 observations (N_I = 21) in float32, made once."""
+    if "seir" not in _SMALL:
+        from magi_v2_tpu_torch import MAGI_v2, MagiConfig
+        from magi_v2_tpu_torch.utils.data import simulate_ode
+
+        ts, X, _ = simulate_ode(seir_f_vec, x0=np.array([0.1, 0.05, 0.0]),
+                                thetas=np.array([6.0, 0.6, 1.8]), t_max=2.0,
+                                n_obs=21, noise_sd=0.005, substeps=20)
+        cfg = MagiConfig(dtype=torch.float32, device=str(device),
+                         hparam_num_iters=50, init_num_iters=100)
+        _SMALL["seir"] = MAGI_v2(3, ts, X, None, seir_f_vec, cfg)
+        _SMALL["seir"].initial_fit(1)
+    return _SMALL["seir"]
 
 
 def _small_lorenz(device):

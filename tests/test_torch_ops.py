@@ -116,13 +116,24 @@ def test_kernel_matrices_match_jax(uniform, phi1, phi2):
 
 
 def test_kernel_matrices_batch_over_components():
+    """The batched (C, m, K) against one component at a time. C (kappa) is
+    built elementwise and agrees to the last bits. m = kappa' kappa^+ and
+    K pass through the pseudo-inverse of kappa, whose condition number
+    here is about 1.4e5 (eigenvalues 1.16e-6 .. 0.164 for component 1),
+    so a last-bit difference between the batched and the single LAPACK/
+    BLAS calls grows to about cond * eps ~ 3e-11 of each matrix's scale
+    (a gap of 4e-12 of max |m| was reproduced on one host): they are held
+    to 1e-10 of their largest entry."""
     I = _t(np.linspace(0.0, 2.0, 41))
     phi1, phi2 = _t([0.003, 0.01]), _t([0.6, 0.4])
     batched = tk.magi_kernel_matrices(I, phi1, phi2, spacing=0.05)
     for d in range(2):
         single = tk.magi_kernel_matrices(I, phi1[d], phi2[d], spacing=0.05)
-        for a, b in zip(batched, single):
-            torch.testing.assert_close(a[d], b, rtol=1e-12, atol=0)
+        torch.testing.assert_close(batched[0][d], single[0], rtol=1e-12,
+                                   atol=0)
+        for a, b in zip(batched[1:], single[1:]):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a[d], b, rtol=0, atol=1e-10 * scale)
 
 
 def _spd(n, seed, cond=1e4):

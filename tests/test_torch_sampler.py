@@ -229,13 +229,13 @@ def test_hmc_run_samples_anisotropic_gaussian(dense):
     cov = corr * np.outer(sd, sd)
     cfg = trun.SamplerConfig(
         num_results=1500, num_burnin_steps=800, use_annealing=False,
-        hmc_num_leapfrogs=16, dense_tail_size=3 if dense else 0,
+        algorithm="hmc", hmc_num_leapfrogs=16, dense_tail_size=3 if dense else 0,
         mass_window_begin=0.2, mass_window_end=0.4,
         mass_window2_begin=0.45, mass_window2_end=0.75,
         mass_window1_diag=dense,
     )
     q0 = torch.zeros((16, 3), dtype=torch.float64)
-    samples, stats = trun.run_hmc_chains(_gaussian_target(cov), q0, 4, cfg)
+    samples, stats = trun.run_chains(_gaussian_target(cov), q0, 4, cfg)
     flat = samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(flat.mean(axis=0), 0.0, atol=0.15 * sd.max())
     np.testing.assert_allclose(flat.std(axis=0), sd, rtol=0.12)
@@ -251,9 +251,10 @@ def test_hmc_run_samples_anisotropic_gaussian(dense):
 def test_warmup_only_annealing_samples_true_posterior():
     """anneal_mode='warmup_only': the draws follow the beta=1 target."""
     cfg = trun.SamplerConfig(num_results=800, num_burnin_steps=400,
-                             anneal_mode="warmup_only", hmc_num_leapfrogs=8)
+                             anneal_mode="warmup_only", algorithm="hmc",
+                             hmc_num_leapfrogs=8)
     q0 = torch.zeros((8, 2), dtype=torch.float64)
-    samples, _ = trun.run_hmc_chains(_gaussian_target(np.eye(2)), q0, 5, cfg)
+    samples, _ = trun.run_chains(_gaussian_target(np.eye(2)), q0, 5, cfg)
     np.testing.assert_allclose(samples.reshape(-1, 2).numpy().var(axis=0),
                                1.0, atol=0.15)
 
@@ -263,10 +264,11 @@ def test_reference_annealing_samples_tempered_target():
     draws follow the tempered target (variance 1/beta_temp ~ 7.6 at
     steps ~2000, as in the JAX package)."""
     cfg = trun.SamplerConfig(num_results=600, num_burnin_steps=1400,
-                             anneal_mode="reference", hmc_num_leapfrogs=8,
+                             anneal_mode="reference", algorithm="hmc",
+                             hmc_num_leapfrogs=8,
                              adapt_mass_matrix=False)
     q0 = torch.zeros((8, 1), dtype=torch.float64)
-    samples, _ = trun.run_hmc_chains(_gaussian_target(np.eye(1)), q0, 6, cfg)
+    samples, _ = trun.run_chains(_gaussian_target(np.eye(1)), q0, 6, cfg)
     expected = 1.0 / trun.log_temperature_schedule(np.arange(1400, 2000),
                                                    0.1).mean()
     np.testing.assert_allclose(samples.numpy().var(), expected, rtol=0.2)
@@ -278,9 +280,9 @@ def test_sampler_pins_full_float32_matmuls():
     torch.set_float32_matmul_precision("high")
     try:
         cfg = trun.SamplerConfig(num_results=2, num_burnin_steps=2,
-                                 hmc_num_leapfrogs=2,
+                                 algorithm="hmc", hmc_num_leapfrogs=2,
                                  adapt_mass_matrix=False)
-        trun.run_hmc_chains(_gaussian_target(np.eye(2)),
+        trun.run_chains(_gaussian_target(np.eye(2)),
                             torch.zeros((2, 2), dtype=torch.float32), 0, cfg)
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cudnn.allow_tf32 is False
@@ -294,5 +296,5 @@ def test_two_window_validation_matches_jax():
                              mass_window_begin=0.1, mass_window_end=0.5,
                              mass_window2_begin=0.4, mass_window2_end=0.6)
     with pytest.raises(ValueError, match="must start at or after"):
-        trun.run_hmc_chains(_gaussian_target(np.eye(2)),
+        trun.run_chains(_gaussian_target(np.eye(2)),
                             torch.zeros((2, 2), dtype=torch.float64), 0, cfg)

@@ -186,9 +186,24 @@ def test_unported_branches_raise(seir_data):
     with pytest.raises(NotImplementedError, match="item 11"):
         thp.fit_kernel_hparams(ts, X[:, :1], optimizer="lbfgs",
                                device="cpu")
-    # NUTS is not ported, so the config has no tree depth to set and ignore
-    with pytest.raises(TypeError, match="max_tree_depth"):
-        T.MagiConfig(max_tree_depth=4, device="cpu")
+    # NUTS's tree depth defaults to the JAX package's and reaches the
+    # sampler's config
+    assert T.MagiConfig().max_tree_depth == 10
+    seen = {}
+
+    def record(target, q0, seed, config):
+        seen["config"] = config
+        raise StopIteration
+
+    tm = T.MAGI_v2(3, ts, seir_data[1], 20, tseir,
+                   TINY_T.replace(max_tree_depth=4))
+    tm.initial_fit(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(T.api, "run_chains", record)
+        with pytest.raises(StopIteration):
+            tm.predict(num_results=2, num_burnin_steps=2)
+    assert seen["config"].algorithm == "nuts"
+    assert seen["config"].max_tree_depth == 4
 
 
 def test_config_defaults_to_the_card():

@@ -102,7 +102,7 @@ def test_unwhiten_draws_matches_jax(fitted):
 
 
 @pytest.mark.parametrize("override,exc", [
-    ({"algorithm": "nuts"}, NotImplementedError),
+    ({"algorithm": "slice"}, ValueError),
     ({"reparam": "centered"}, NotImplementedError),
     ({"precond_refresh_steps": 10}, NotImplementedError),
     ({"init_states": {"thetas": np.ones(3)}}, NotImplementedError),
