@@ -22,9 +22,12 @@ only when all of them passed):
    dense metric at the widths its earlier design refused (float64 1297,
    1545 and 3081, float32 3105, at 64 and 257 chains); K2's NUTS form (a
    signed step per chain, a mask with a NaN force in a masked chain, the
-   velocities out) and K5 (the NUTS leaf epilogue, at an odd, an even and
-   the first leaf) at 64, 256 and 257 chains, masked chains untouched.
-   Float32 and float64, timed with CUDA events.
+   velocities out), which opens a doubling's first leaf, at 64, 256 and
+   257 chains; the NUTS leaf kernel (a leaf's close, epilogue, counter and
+   next opening in one launch) on the dense 489 metric, a 3081 diagonal
+   and a tail of 8 at 3081, at 64, 256 and 257 chains, at an odd, an even
+   and a one-leaf doubling's leaf, each launch twice, masked chains
+   untouched. Float32 and float64, timed with CUDA events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -44,13 +47,16 @@ only when all of them passed):
 6b. SEIR NUTS path: the same fit, ``predict`` with the default algorithm
    (NUTS, trees up to depth 10) and otherwise the bench recipe, 256
    chains, 1000 + 1000 transitions, float32. Fails on non-finite draws, a
-   kernel that never launched (K1, K2, K5), a transition that replayed no
-   leaf, rhat_max > 1.05 or a theta mean more than 15% from truth; prints
+   kernel that never launched (K1, K2, the leaf kernel), a transition
+   that replayed no leaf, leaves that launched K2, rhat_max > 1.05 or a theta mean more than 15% from truth; prints
    the mean depth, leaves a chain and leaves replayed a transition (the
    masked lockstep's share), divergences, ESS and the phases. Then 20
    NUTS transitions by replayed graphs and by the eager form from the same
    state and noise, which must agree bit for bit; a profile of one leaf
-   and one transition (device time by kernel, busy share); and an ODE
+   (which must launch the leaf kernel once beside its evaluation, and no
+   K2 or other op) and one transition (device time by kernel, busy
+   share), and the share of leaf replays in which no chain was active;
+   and an ODE
    field with no CUDA functor (FitzHugh-Nagumo, defined here): K1's given
    kernels (PyTorch evaluates the field and its VJPs) against their plain
    versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
@@ -97,7 +103,7 @@ only when all of them passed):
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it; K2's NUTS form
-and K5 from the SEIR NUTS path, K1's given kernels from the
+and the leaf kernel from the SEIR NUTS path, K1's given kernels from the
 FitzHugh-Nagumo predicts), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
@@ -657,8 +663,8 @@ K2_WIDE_CASES = {torch.float64: (("dense1297", 1297, 1297),
                                  ("dense1545", 1545, 1545),
                                  ("dense3081", 3081, 3081)),
                  torch.float32: (("dense3105", 3105, 3105),)}
-# K2's NUTS form and K5 on the SEIR NUTS path's shapes (the dense 489
-# metric) and on the Lorenz width's diagonal
+# K2's NUTS form (a doubling's first opening) on the SEIR NUTS path's
+# shapes (the dense 489 metric) and on the Lorenz width's diagonal
 K2_NUTS_CASES = (("dense489", 489, 489), ("diag3081", 3081, 0))
 NUTS_CHAINS = (BANDED_CHAINS, NUM_CHAINS, RAGGED_CHAINS)
 
@@ -781,147 +787,226 @@ def check_leapfrog_nuts(device, chains=NUTS_CHAINS, cases=K2_NUTS_CASES):
     return results
 
 
-# K5's leaves: (doubling d, leaf n): an odd leaf checked against 3 slots,
-# an even one stored in slot popcount(8) = 1, the first leaf of a tree
-K5_LEAVES = ((3, 7), (4, 8), (0, 0))
-K5_DEPTH = 10
+# the leaf kernel's cases: the SEIR NUTS path's dense 489 metric, and at
+# the Lorenz width a diagonal and a dense tail of 8
+NUTS_LEAF_CASES = (("dense489", 489, 489), ("diag3081", 3081, 0),
+                   ("tail8", 3081, 8))
+# its leaves (doubling d, leaf n): an odd leaf checked against 3 slots that
+# opens the next, an even one (slot popcount(8) = 1) that opens the next,
+# and the one leaf of a doubling (stored in slot 0, no opening)
+NUTS_LEAVES = ((4, 7), (4, 8), (0, 0))
+NUTS_DEPTH = 10
+# bind_nuts_leaf's operands, in order
+NUTS_LEAF_ARGS = ("q", "p", "g", "lp", "H0", "eps", "inv_mass", "leaf_u",
+                  "ctr", "lsw", "sum_alpha", "prop_q", "ckpt_q", "ckpt_v",
+                  "active", "turning", "diverging", "n_leaves", "vel")
+# what a launch writes; the rows copied exactly, the rest to TOL
+NUTS_LEAF_OUT = ("q", "p", "vel", "lsw", "sum_alpha", "prop_q", "ckpt_q",
+                 "ckpt_v", "active", "turning", "diverging", "n_leaves",
+                 "ctr")
+NUTS_LEAF_EXACT = ("prop_q", "ckpt_q", "active", "turning", "diverging",
+                   "n_leaves", "ctr")
 
 
-def nuts_leaf_case(C, dim, dtype, device, d, n, seed=5):
-    """K5's operands at leaf n of doubling d for C chains: states,
-    velocities and checkpoint slots of unit scale, energies within a few
-    units of H0 except chain 1 (NaN log-density) and chain 2 (dH ~ 2000, a
-    divergence), a leaf uniform each, a fifth of the chains masked."""
-    g = torch.Generator(device="cpu").manual_seed(seed + 31 * n)
-    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float64)
-    u = lambda *s: torch.rand(s, generator=g, dtype=torch.float64)
-    D = K5_DEPTH
-    lp, kin = r(C), 0.5 * dim + r(C)
-    H0 = kin - lp + r(C)
+def nuts_leaf_case(C, dim, k, dtype, device, d, n, seed=5):
+    """The leaf kernel's operands ({name: tensor}) at leaf n of doubling d
+    for C chains: K2's state, momenta, forces and mass (``leapfrog_case``)
+    and a signed step a chain; energies within a few units of H0 except
+    chain 1 (NaN log-density) and chain 2 (dH ~ 2000, a divergence); a
+    fifth of the chains and the last one masked, the last with a NaN
+    force. Each decision lies well away from its threshold, so that the
+    rounding of the row sums (float32 sums of some 10^4 in energy) cannot
+    flip it: the leaf's uniform 0.5 in log away from the acceptance
+    threshold, and the slots q - 0.3 sign(eps) v_end with velocities
+    +-v_end (every third chain all +, the others a random sign a slot), so
+    the U-turn dots are +-0.3 |v_end|^2."""
+    from magi_v2_tpu_torch.sampler.mass import mass_vel
+
+    q, p, g, eps, mass = leapfrog_case(C, dim, k, torch.float64, "cpu")
+    gen = torch.Generator(device="cpu").manual_seed(seed + 31 * n + C)
+    r = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64)
+    u = lambda *s: torch.rand(s, generator=gen, dtype=torch.float64)
+    D = NUTS_DEPTH
+    step = eps * torch.where(u(C) < 0.5, -1.0, 1.0)
+    p_end = p + 0.5 * step[:, None] * g
+    v_end = mass_vel(mass, p_end)
+    lp, lsw, dH = r(C), r(C), r(C)
+    H0 = -lp + 0.5 * torch.sum(p_end * v_end, dim=-1) - dH
     lp[1 % C] = float("nan")
     H0[2 % C] -= 2000.0
-    x = dict(q=r(C, dim), v=r(C, dim), lp=lp, kin=kin, H0=H0,
-             eps=0.05 * torch.where(u(C) < 0.5, -1.0, 1.0),
-             leaf_u=u(C, (1 << D) - 1), lsw=r(C), sum_alpha=u(C),
-             prop_q=r(C, dim), ckpt_q=r(D, C, dim), ckpt_v=r(D, C, dim))
-    out = {k: v.to(device=device, dtype=dtype).contiguous()
-           for k, v in x.items()}
+    # log u = the acceptance threshold -dH - logaddexp(lsw, -dH) +- 0.5
+    leaf_u = u(C, (1 << D) - 1)
+    m = -dH - torch.logaddexp(lsw, -dH)
+    up = (u(C) < 0.5) & (m < -0.5)
+    leaf_u[:, (1 << d) - 1 + n] = torch.exp(m + torch.where(up, 0.5, -0.5))
+    leaf_u[[1 % C, 2 % C], (1 << d) - 1 + n] = 0.5
+    sign = torch.where(u(D, C) < 0.5, -1.0, 1.0)
+    sign[:, ::3] = 1.0
+    ckpt_v = sign[:, :, None] * v_end
+    ckpt_q = (q - 0.3 * torch.sign(step)[:, None] * v_end).expand(
+        D, C, dim).clone()
+    active = u(C) >= 0.2
+    if C > 1:
+        active[-1] = False
+        g[-1] = float("nan")
+    x = dict(q=q, p=p, g=g, lp=lp, H0=H0, eps=step, leaf_u=leaf_u, lsw=lsw,
+             sum_alpha=u(C), prop_q=r(C, dim), ckpt_q=ckpt_q, ckpt_v=ckpt_v,
+             vel=r(C, dim))
+    out = {k_: v.to(device=device, dtype=dtype).contiguous()
+           for k_, v in x.items()}
+    out["inv_mass"] = (mass._replace(**{f: getattr(mass, f).to(
+        device=device, dtype=dtype) for f in mass._fields}) if k
+        else mass.to(device=device, dtype=dtype))
     out["ctr"] = torch.tensor([d, n], dtype=torch.int32, device=device)
-    out["active"] = (u(C) < 0.8).to(device)
+    out["active"] = active.to(device)
     out["turning"] = torch.zeros(C, dtype=torch.bool, device=device)
     out["diverging"] = torch.zeros(C, dtype=torch.bool, device=device)
-    out["n_leaves"] = torch.randint(0, 50, (C,), generator=g,
+    out["n_leaves"] = torch.randint(0, 50, (C,), generator=gen,
                                     dtype=torch.int32).to(device)
-    order = ("q", "v", "lp", "kin", "H0", "eps", "leaf_u", "ctr", "lsw",
-             "sum_alpha", "prop_q", "ckpt_q", "ckpt_v", "active", "turning",
-             "diverging", "n_leaves")
-    return [out[k] for k in order]
+    return out
 
 
-K5_OUTPUTS = ("lsw", "sum_alpha", "prop_q", "ckpt_q", "ckpt_v", "active",
-              "turning", "diverging", "n_leaves")
-K5_OUT_AT = (8, 9, 10, 11, 12, 13, 14, 15, 16)
+def energy_scale(x, vel):
+    """The scale of the running chains' leaf energies -lp + 0.5 p_end.v_end
+    - H0 in the sums that make them: what an error in lsw or sum_alpha
+    (each moves at most as much as dH) is measured against, since the
+    kernel and the plain version add the kinetic sum's terms in other
+    orders."""
+    on = x["active"]
+    p_end = x["p"] + 0.5 * x["eps"][:, None] * x["g"]
+    terms = (0.5 * torch.sum(torch.abs(p_end * vel), dim=-1)
+             + torch.abs(x["lp"]) + torch.abs(x["H0"]))[on]
+    terms = terms[torch.isfinite(terms)]
+    return float(terms.max()) if terms.numel() else 1.0
 
 
-def check_nuts_leaf(device, chains=NUTS_CHAINS, dim=489):
-    """K5 against its plain version at each of K5_LEAVES and chain count,
-    float64 and float32: the same outputs (the flags, counts and copied
-    rows exactly, the log-weights and acceptance sums to TOL), two runs of
-    one launch bit for bit, the masked chains' state untouched. Returns
-    the float32 numbers at 256 chains and the odd leaf, with its bound
-    counted from that leaf's outcome. The kernel is timed in a CUDA graph
-    with ``active``, ``lsw`` and ``sum_alpha`` restored before every launch
-    (a launch masks the chains that turn, and a masked chain returns at
-    once), so every timed launch does the work the bound counts; the
-    plain version is timed the same way, back to back."""
+def nuts_leaf_bound(C, on, dim, k, dtype, d, n, taken):
+    """The leaf kernel's bound at C chains of which ``on`` run the leaf,
+    from this leaf's outcome: for each running chain its q, p, g rows read
+    and p, v written (q too where the next leaf opens), the slot rows read
+    (q and v of t slots at an odd n) or written (an even n); the proposal
+    rows taken written; the mass read once; ten scalars a chain.
+    Operations for each running chain: the products with the dense block
+    (2k FMAs an element, one product at a doubling's last leaf, two
+    otherwise), the kicks, velocity, drift and kinetic sum (10 an element)
+    and 6 an element a slot checked."""
+    from magi_v2_tpu_torch.ops.nuts import trailing_ones
+
+    size = torch.finfo(dtype).bits // 8
+    t = trailing_ones(n) if n % 2 else 0
+    opens = n + 1 < (1 << d)
+    rows = on * (5 + opens + (2 * t if n % 2 else 2)) + taken
+    products = 2 if opens else 1
+    return bound((rows * dim + dim + k * k + 10 * C) * size,
+                 on * (products * 2 * k * k + 10 * dim + 6 * t * dim), dtype)
+
+
+def check_nuts_leaf(device, chains=NUTS_CHAINS, cases=NUTS_LEAF_CASES,
+                    leaves=NUTS_LEAVES):
+    """The leaf kernel (close, epilogue, counter, next opening) against its
+    plain version for each mass case, chain count and leaf, float64 and
+    float32: each launch twice bit for bit, the chains masked before the
+    launch untouched (a NaN force included), the flags, counts, counter
+    and copied rows exact, q, p, v and the slots' v to TOL of their
+    scale, the log-weights and acceptance sums to TOL of the energies'
+    (``energy_scale``). Times the kernel at each case and chain count
+    at the first leaf (float32): in a CUDA graph with q, p, the counter,
+    ``active``, ``lsw`` and ``sum_alpha`` restored before every launch, so
+    every timed launch does the work the bound counts; the plain version
+    the same way, back to back. Returns the float32 numbers of the dense
+    489 case at the SEIR path's 256 chains."""
     from magi_v2_tpu_torch.ops import nuts as nu
 
     results = {}
+    stream = lambda: torch.cuda.current_stream(device).cuda_stream
     for dtype in (torch.float64, torch.float32):
         errs, lines = {}, []
-        for C in chains:
-            for d, n in K5_LEAVES:
-                args = nuts_leaf_case(C, dim, dtype, device, d, n)
-                runs = []
-                for plain in (False, False, True):
-                    a = [t.clone() for t in args]
-                    if plain:
-                        nu.nuts_leaf_plain(*a, 1000.0)
-                    else:
-                        nu.nuts_leaf(*a)
-                    runs.append([a[i] for i in K5_OUT_AT])
-                torch.cuda.synchronize()
-                tag = f"C{C}_d{d}_n{n}"
-                if not all(torch.equal(x, y)
-                           for x, y in zip(runs[0], runs[1])):
-                    raise AssertionError(f"nuts_leaf {tag}: two runs of the "
-                                         "same launch differ")
-                idle = ~args[13]
-                for name, before, after in zip(K5_OUTPUTS,
-                                               [args[i] for i in K5_OUT_AT],
-                                               runs[0]):
-                    rows = (after[:, idle] if name.startswith("ckpt")
-                            else after[idle])
-                    prev = (before[:, idle] if name.startswith("ckpt")
-                            else before[idle])
-                    if not torch.equal(rows, prev):
-                        raise AssertionError(f"nuts_leaf {tag}: a masked "
-                                             f"chain's {name} changed")
-                for name, ref, got in zip(K5_OUTPUTS, runs[2], runs[0]):
-                    if ref.dtype in (torch.bool, torch.int32) or name in (
-                            "prop_q", "ckpt_q", "ckpt_v"):
-                        if not torch.equal(ref, got):
-                            raise AssertionError(
-                                f"nuts_leaf {tag}: {name} differs from the "
-                                "plain version")
-                    else:
+        for case, dim, k in cases:
+            for C in chains:
+                for d, n in leaves:
+                    x = nuts_leaf_case(C, dim, k, dtype, device, d, n)
+                    runs = []
+                    for plain in (False, False, True):
+                        a = {k_: v.clone() if isinstance(v, torch.Tensor)
+                             else v for k_, v in x.items()}
+                        args = [a[k_] for k_ in NUTS_LEAF_ARGS]
+                        if plain:
+                            nu.nuts_leaf_plain(*args, 1000.0)
+                        else:
+                            nu.nuts_leaf(*args)
+                        runs.append(a)
+                    torch.cuda.synchronize()
+                    tag = f"{case}_C{C}_d{d}_n{n}"
+                    if not all(torch.equal(runs[0][o], runs[1][o])
+                               for o in NUTS_LEAF_OUT):
+                        raise AssertionError(f"nuts_leaf {tag}: two runs of "
+                                             "the same launch differ")
+                    idle = ~x["active"]
+                    for o in NUTS_LEAF_OUT[:-1]:
+                        rows = ((lambda t: t[:, idle]) if o.startswith("ckpt")
+                                else (lambda t: t[idle]))
+                        if not torch.equal(rows(runs[0][o]), rows(x[o])):
+                            raise AssertionError(f"nuts_leaf {tag}: a masked "
+                                                 f"chain's {o} changed")
+                    for o in NUTS_LEAF_OUT:
+                        ref, got = runs[2][o], runs[0][o]
+                        if o in NUTS_LEAF_EXACT:
+                            if not torch.equal(ref, got):
+                                raise AssertionError(
+                                    f"nuts_leaf {tag}: {o} differs from the "
+                                    "plain version")
+                            continue
                         fin = torch.isfinite(ref)
                         if not torch.equal(fin, torch.isfinite(got)):
-                            raise AssertionError(f"nuts_leaf {tag}: {name} "
+                            raise AssertionError(f"nuts_leaf {tag}: {o} "
                                                  "finite where the plain "
                                                  "version is not")
-                        errs[f"{tag}_{name}"] = _relerr(ref[fin], got[fin])
-                a = [t.clone() for t in args]
-                launch = nu.bind_nuts_leaf(*a, 1000.0)
+                        err = _relerr(ref[fin], got[fin])
+                        if o in ("lsw", "sum_alpha"):
+                            err = (err[0], err[0] / energy_scale(
+                                x, runs[2]["vel"]))
+                        errs[f"{tag}_{o}"] = err
+                    if (d, n) != leaves[0] or dtype != torch.float32:
+                        continue
+                    a = {k_: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k_, v in x.items()}
+                    args = [a[k_] for k_ in NUTS_LEAF_ARGS]
+                    launch = nu.bind_nuts_leaf(*args, 1000.0)
 
-                def rearm(a=a):
-                    for i in (8, 9, 13):     # lsw, sum_alpha, active
-                        a[i].copy_(args[i])
+                    def rearm(a=a):
+                        for k_ in ("q", "p", "ctr", "active", "lsw",
+                                   "sum_alpha"):
+                            a[k_].copy_(x[k_])
 
-                ms = _graph_ms(lambda: launch(
-                    torch.cuda.current_stream(device).cuda_stream), rearm)
+                    ms = _graph_ms(lambda: launch(stream()), rearm)
 
-                def plain(a=a):
-                    rearm()
-                    nu.nuts_leaf_plain(*a, 1000.0)
+                    def plain(args=args):
+                        rearm()
+                        nu.nuts_leaf_plain(*args, 1000.0)
 
-                plain_ms = (_time_ms(plain, reps=20)
-                            - _time_ms(rearm, reps=20))
-                # the bound of this leaf, from its outcome: the rows each
-                # active chain reads and writes
-                on = int(args[13].sum())
-                taken = int((runs[2][2] != args[10]).any(dim=1).sum())
-                t = nu.trailing_ones(n) if n % 2 else 0
-                size = torch.finfo(dtype).bits // 8
-                rows = on * (2 + 2 * t + (0 if n % 2 else 2)) + taken
-                b = bound(rows * dim * size + 12 * C * size,
-                          6 * t * on * dim, dtype)
-                lines.append(f"{tag} {ms:.4f} / {plain_ms:.4f} ms (bound "
-                             f"{b['bound_ms']:.4f} {b['bound_by']}, {on} "
-                             f"active, {taken} proposals)")
-                if (C, d, n, dtype) == (NUM_CHAINS, 3, 7, torch.float32):
-                    worst = max(e[0] for k_, e in errs.items()
-                                if k_.startswith(f"{tag}_"))
-                    results["nuts_leaf"] = dict(max_abs_err=worst, ms=ms,
-                                                plain_ms=plain_ms, **b,
-                                                library_ms=None)
+                    plain_ms = (_time_ms(plain, reps=20)
+                                - _time_ms(rearm, reps=20))
+                    on = int(x["active"].sum())
+                    taken = int((runs[2]["prop_q"] != x["prop_q"]).any(
+                        dim=1).sum())
+                    b = nuts_leaf_bound(C, on, dim, k, dtype, d, n, taken)
+                    lines.append(f"{tag} {ms:.4f} / {plain_ms:.4f} ms (bound "
+                                 f"{b['bound_ms']:.4f} {b['bound_by']}, {on} "
+                                 f"active, {taken} proposals)")
+                    if (case, C) == ("dense489", NUM_CHAINS):
+                        worst = max(e[0] for k_, e in errs.items()
+                                    if k_.startswith(f"{tag}_"))
+                        results["nuts_leaf"] = dict(max_abs_err=worst, ms=ms,
+                                                    plain_ms=plain_ms, **b,
+                                                    library_ms=None)
         worst_part = max(errs, key=lambda t: errs[t][1])
         tol = TOL[dtype]
         name = str(dtype).replace("torch.", "")
         print(f"nuts_leaf {name}: worst relative {errs[worst_part][1]:.1e} "
               f"({worst_part}) of {len(errs)} outputs (tol {tol:.0e}), "
-              "flags, counts and rows exact, masked chains untouched; "
-              "kernel / plain ms: " + "; ".join(lines))
+              "flags, counts, counter and copied rows exact, masked chains "
+              "untouched, each launch twice bit for bit; kernel / plain ms: "
+              + "; ".join(lines))
         if not errs[worst_part][1] <= tol:
             raise AssertionError(f"nuts_leaf {name} disagrees with its plain "
                                  f"version: {worst_part} relative error "
@@ -1057,6 +1142,15 @@ def nuts_path(model, device, num_steps=NUTS_STEPS):
           f"rhat_max {summ['rhat_max']:.4f}, ESS/s "
           f"{summ['ess_per_sec_min']:.2f}")
     print(f"SEIR NUTS launch counts: {counts}; CUDA graphs {graphs}")
+    # K2 opens a doubling's first leaf (the prologue) and starts a
+    # transition (the root); every other leaf is opened by the leaf kernel
+    k2_graphs = graphs.get("nuts_root", 0) + graphs.get("nuts_prologue", 0)
+    print(f"SEIR NUTS launches a leaf replayed: leaf kernel "
+          f"{counts['nuts_leaf'] / graphs['nuts_leaf']:.4f}, K2 "
+          f"{(counts['leapfrog_update'] - k2_graphs) / graphs['nuts_leaf']:.4f}"
+          f" (K2's {counts['leapfrog_update']} launches less the "
+          f"{k2_graphs} root and prologue replays: the step-size search's "
+          "and the captures' first runs)")
 
     if not (np.all(np.isfinite(res["X_samps"]))
             and np.all(np.isfinite(thetas))):
@@ -1068,6 +1162,10 @@ def nuts_path(model, device, num_steps=NUTS_STEPS):
             and graphs.get("nuts_leaf", 0) >= transitions):
         raise AssertionError(f"SEIR NUTS: not every one of {transitions} "
                              f"transitions replayed its leaves: {graphs}")
+    if not (counts["nuts_leaf"] >= graphs["nuts_leaf"]
+            and counts["leapfrog_update"] - k2_graphs < transitions):
+        raise AssertionError("SEIR NUTS: the leaves launched K2 or not the "
+                             f"leaf kernel: {counts}, {graphs}")
     if not summ["rhat_max"] <= 1.05:
         raise AssertionError(f"SEIR NUTS: rhat_max {summ['rhat_max']:.4f} > "
                              "1.05")
@@ -1139,15 +1237,31 @@ def nuts_graph_vs_eager(model, device, kr, transitions=20):
                              "from the eager one")
 
 
-def profile_nuts(model, device, kr, replays=200, settle=10):
+def kernel_counts(run):
+    """{kernel name: launches} of ``run()`` on the card, as torch.profiler
+    records them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
     """Where a NUTS transition's time goes on the SEIR float32 path, at the
     sampling phase's temperature, step and mass, from a state ``settle``
-    transitions on from the fit: one leaf's graph replayed back to back,
-    host us to enqueue and device ms each (every chain active at the first
-    replay; K5 masks the chains that turn, so later replays carry fewer:
-    K1 and K2 do their arithmetic for masked chains all the same, K5
-    returns at once for them); one transition's wall and leaves replayed;
-    torch.profiler's device time by kernel and busy share over one
+    transitions on from the fit: the launches a leaf holds (the leaf
+    kernel once beside the evaluation's, no K2, no counter op); one leaf's
+    graph replayed back to back with every chain active at leaf 0 of
+    doubling 4 (restored before each replay), host us to enqueue and ms
+    each until the card finished, and torch.profiler's device time by
+    kernel over one leaf; over ``counted`` transitions the
+    leaf replays in which no chain was still active (per doubling, 2^d less
+    the most leaves a chain that ran it took); one transition's wall and
+    leaves replayed; the device time by kernel and busy share over one
     transition."""
     from magi_v2_tpu_torch.sampler.nuts import (
         BoundNuts,
@@ -1166,15 +1280,62 @@ def profile_nuts(model, device, kr, replays=200, settle=10):
         qs, _ = bound(qs, eps, mass, bt, noise)
     torch.cuda.synchronize()
     leaf = bound.graphs["nuts_leaf"]
-    bound.ctr.zero_()
-    bound.active.fill_(True)
+    held = {k: n for counts in leaf.launches for k, n in counts.items()}
+    ctr0 = torch.tensor([4, 0], dtype=torch.int32, device=device)
+
+    def rearm():
+        bound.ctr.copy_(ctr0)
+        bound.active.fill_(True)
+
+    def one_leaf():
+        rearm()
+        leaf.replay()
+
+    in_leaf = kernel_counts(one_leaf)
+    by_name = lambda part: sum(n for k, n in in_leaf.items() if part in k)
+    fused, k2 = by_name("nuts_leaf_kernel"), by_name("leapfrog_kernel")
+    # the counter's add, were it a PyTorch op (an int32 add)
+    counter = by_name("CUDAFunctor_add<int>")
+    print(f"SEIR NUTS: a leaf's graph launches {held} of the port's "
+          f"kernels; on the card it ran the leaf kernel {fused} time(s), "
+          f"K2 {k2}, an integer add {counter}, and in all "
+          f"{sum(in_leaf.values())} kernels (the evaluation's and the "
+          "re-arming's with it)")
+    if not (held.get("nuts_leaf") == 1 and "leapfrog_update" not in held
+            and fused == 1 and k2 == 0 and counter == 0):
+        raise AssertionError("SEIR NUTS: a leaf is not its evaluation and "
+                             f"one launch of the leaf kernel: {held}, "
+                             f"{in_leaf}")
+    for _ in range(3):
+        one_leaf()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(replays):
-        leaf.replay()
+        one_leaf()
     host_us = (time.perf_counter() - t0) / replays * 1e6
     torch.cuda.synchronize()
     leaf_ms = (time.perf_counter() - t0) / replays * 1e3
+    print(f"SEIR NUTS: one leaf replayed {replays} times back to back, every "
+          f"chain active (re-armed before each replay): host {host_us:.2f} "
+          f"us to enqueue, {leaf_ms:.4f} ms each until the card finished")
+    device_profile(one_leaf, "SEIR NUTS one leaf")
+    # the replays in which no chain was still active
+    idle = [0, 0]
+
+    def count(d):
+        ran = ~bound.terminated
+        most = int(bound.sub_n[ran].max()) if bool(ran.any()) else 0
+        idle[0] += (1 << d) - most
+        idle[1] += 1 << d
+
+    for _ in range(counted):
+        noise = draw_noise(g, C, dim, cfg.max_tree_depth, torch.float32,
+                           device)
+        qs, _ = bound(qs, eps, mass, bt, noise, on_doubling=count)
+    print(f"SEIR NUTS: over {counted} settled transitions {idle[0]} of "
+          f"{idle[1]} leaf replays had no chain still active "
+          f"({idle[0] / idle[1]:.1%}): what stopping a doubling once every "
+          "chain's subtree has ended would save")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1182,9 +1343,7 @@ def profile_nuts(model, device, kr, replays=200, settle=10):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     d = int(info.depth.max())
-    print(f"SEIR NUTS: one leaf replayed {replays} times back to back: host "
-          f"{host_us:.2f} us to enqueue, {leaf_ms:.4f} ms each until the "
-          f"card finished; one transition (deepest tree {d}, "
+    print(f"SEIR NUTS: one transition (deepest tree {d}, "
           f"{2 ** d - 1} leaves replayed, mean leaves a chain "
           f"{float(info.num_leapfrogs.float().mean()):.2f}): ms "
           f"{[round(w, 3) for w in walls]}")
@@ -1211,7 +1370,8 @@ def unregistered_field(device, steps=200, chains=FHN_CHAINS):
     predict with HMC and with NUTS on the card (float32) against the CPU
     (float64): theta means within 5 combined Monte-Carlo standard errors.
     K1 takes its given kernels for this field (PyTorch evaluates the field
-    and its VJPs on the card): K1, K2 (and for NUTS K5) must launch.
+    and its VJPs on the card): K1, K2 (and for NUTS the leaf kernel) must
+    launch.
     Returns the launch counts of the two predicts together."""
     from magi_v2_tpu_torch import MAGI_v2, MagiConfig
     from magi_v2_tpu_torch.ops import manifold as mf
@@ -1382,8 +1542,7 @@ def device_profile(run, label):
     busy = sum(e.self_device_time_total for e in kernels)
     gemm = sum(e.self_device_time_total for e in kernels
                if "gemm" in e.key.lower())
-    print(f"{label}: device time over one 50-leapfrog transition, by "
-          "kernel:")
+    print(f"{label}: device time of one run, by kernel:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total:10.1f} us {e.count:5d} calls  "
               f"{e.key[:90]}")

@@ -3,10 +3,10 @@
 The sources under ``magi_v2_tpu_torch/csrc/`` have a plain C interface. At
 first use each is compiled with ``nvcc`` for Hopper (sm_90a) into its own
 shared library under ``magi_v2_tpu_torch/_build/``, named by a hash of the
-source and flags (so an edited source builds anew), all sources at once in
-parallel processes, and loaded with ``ctypes``. Nothing is built when a
-module is imported, and nothing is built on a machine that never launches
-a kernel.
+source, the headers beside it and the flags (so an edited source or header
+builds anew), all sources at once in parallel processes, and loaded with
+``ctypes``. Nothing is built when a module is imported, and nothing is
+built on a machine that never launches a kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ SIGNATURES = {
     "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],
     "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
     "leapfrog_update": [_P] * 6 + [_I] * 7 + [_P] * 4 + [_I, _P] + [_P],
-    "nuts_leaf": [_P] * 7 + [_I] + [_P] * 10 + [_D] + [_I] * 3 + [_P],
+    "nuts_leaf": [_P] * 9 + [_I] + [_P] * 14 + [_I] + [_P] * 2 + [_D]
+    + [_I] * 5 + [_P],
 }
 
 
@@ -95,7 +96,11 @@ def _nvcc() -> str:
 
 
 def _digest(source: str) -> str:
+    """A hash of the source, the headers it may include (every ``.cuh``
+    under ``csrc/``) and the flags."""
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -6,13 +6,18 @@ orientation-sensitive U-turn criterion).
 
 Every chain doubles its trajectory at the same time; a chain whose tree
 has terminated, or whose subtree has turned or diverged, is masked and
-left as it is while the others go on. A leaf is four launches on fixed
-buffers: K2's NUTS form (sampler/hmc.py) with the opening half-kick, the
-velocity and the drift; the target's evaluation; K2 with the closing
-half-kick, the kinetic energy and the velocity v = M^{-1} p; and K5
-(ops/nuts.py), the leaf's epilogue. A checkpoint slot stores the leaf's v
-beside its q, so the U-turn checks make no product with M^{-1} (the JAX
-leaf recomputes one per slot).
+left as it is while the others go on. A doubling's prologue opens its
+first leaf with K2's NUTS form (sampler/hmc.py: the opening half-kick,
+the velocity and the drift of every running chain); a leaf is then two
+steps on fixed buffers: the target's evaluation, and one launch of the
+leaf kernel (ops/nuts.py), which closes the leaf (the closing half-kick,
+v = M^{-1} p and the kinetic energy), runs its epilogue (the weight, the
+proposal, the checkpoint store and the U-turn checks), advances the leaf
+counter and, unless the leaf is its doubling's last, opens the next leaf.
+A chain that turns or diverges at a leaf has been opened for the next one
+as well; nothing reads that state (ops/nuts.py). A checkpoint slot stores
+the leaf's v beside its q, so the U-turn checks make no product with
+M^{-1} (the JAX leaf recomputes one per slot).
 
 The noise is drawn by the caller (``draw_noise``), so a test can feed the
 numbers the JAX sampler draws: standard normals for the momenta (C, dim),
@@ -147,24 +152,18 @@ class BoundNuts:
         stream = lambda: launch_stream(dev)
         k2_root = bind_leapfrog(self.q, self.p, self.g, self.step_size,
                                 self.mass, 0, False, self.kin, vel=self.v)
-        k2_open = bind_leapfrog(self.q, self.p, self.g, self.eps, self.mass,
-                                1, True, active=self.active)
-        k2_close = bind_leapfrog(self.q, self.p, self.g, self.eps, self.mass,
-                                 1, False, self.kin, active=self.active,
-                                 vel=self.v)
-        k5 = bind_nuts_leaf(
-            self.q, self.v, self.lp, self.kin, self.H0, self.eps,
+        self._k2_open = bind_leapfrog(self.q, self.p, self.g, self.eps,
+                                      self.mass, 1, True, active=self.active)
+        close_open = bind_nuts_leaf(
+            self.q, self.p, self.g, self.lp, self.H0, self.eps, self.mass,
             self.leaf_u, self.ctr, self.sub_lsw, self.sub_sum_alpha,
             self.sub_prop_q, self.ckpt_q, self.ckpt_v, self.active,
-            self.turning, self.sub_diverging, self.sub_n,
+            self.turning, self.sub_diverging, self.sub_n, self.v,
             cfg.max_energy_diff)
 
         def leaf():
-            k2_open(stream())
             evaluate()
-            k2_close(stream())
-            k5(stream())
-            self.ctr[1:].add_(1)
+            close_open(stream())
 
         self.steps = {"nuts_start": evaluate, "nuts_root": self._root(k2_root),
                       "nuts_prologue": self._prologue, "nuts_leaf": leaf,
@@ -192,7 +191,8 @@ class BoundNuts:
 
     def _prologue(self) -> None:
         """Doubling ctr[0]: each running chain's edge, by its direction,
-        into the leaf's buffers, and the subtree's state."""
+        into the leaf's buffers, the subtree's state, and its first leaf's
+        opening (K2's NUTS form)."""
         torch.logical_not(self.terminated, out=self.active)
         self.go.copy_(self._this_doubling(self.go_right))
         torch.where(self.go, self.step_size, -self.step_size, out=self.eps)
@@ -206,6 +206,7 @@ class BoundNuts:
                   self.sub_diverging):
             t.zero_()
         self.ctr[1:].zero_()
+        self._k2_open(launch_stream(self.device))
 
     def _epilogue(self) -> None:
         """The acceptance across subtrees, the endpoints and the
@@ -252,11 +253,14 @@ class BoundNuts:
             self.graphs[name].replay()
             GRAPH_COUNTS[name] += 1
 
-    def __call__(self, q, step_size, inv_mass, beta_temp, noise: NutsNoise):
+    def __call__(self, q, step_size, inv_mass, beta_temp, noise: NutsNoise,
+                 on_doubling=None):
         """One transition from q (C, dim) at the 0-dim ``step_size`` and
         ``beta_temp``, with ``noise``: -> (the new states (C, dim),
         NutsInfo). A mass is copied in when ``inv_mass`` is another object
-        than the last one."""
+        than the last one. ``on_doubling(d)``, where given, is called after
+        doubling d's leaves, before its epilogue (to read the subtree's
+        state)."""
         self.step_size.copy_(step_size)
         self.beta_temp.copy_(beta_temp)
         if inv_mass is not self._mass_src:
@@ -272,6 +276,8 @@ class BoundNuts:
             self._step("nuts_prologue")
             for _ in range(1 << d):
                 self._step("nuts_leaf")
+            if on_doubling is not None:
+                on_doubling(d)
             self._step("nuts_epilogue")
             # the one read of the device in a doubling
             if d + 1 < self.cfg.max_tree_depth and not bool(self.going):

@@ -73,7 +73,8 @@ def build_variants():
         cu.write_text(text)
         so = out_dir / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *flags, "-o", str(so), str(cu)],
+            [_build._nvcc(), *flags, "-I", str(_build.CSRC), "-o", str(so),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K4, K5) against their plain
-PyTorch versions, on the card. These tests need a CUDA device and skip without
-one; run them on the card with
+"""The hand-written CUDA kernels (K1, K2, K3, K4, the NUTS leaf) against
+their plain PyTorch versions, on the card. These tests need a CUDA device
+and skip without one; run them on the card with
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 """
@@ -223,9 +223,13 @@ def test_leapfrog_nuts_form_matches_plain_version(device):
 
 
 def test_nuts_leaf_kernel_matches_plain_version(device):
-    """K5 at 1, 64, 256 and 257 chains, float32 and float64, at an odd, an
-    even and the first leaf: the same flags, counts and rows, each launch
-    twice bit for bit, masked chains untouched (checked inside)."""
+    """The NUTS leaf kernel (a leaf's close, epilogue, counter and next
+    opening in one launch) on the dense 489 metric, a 3081 diagonal and a
+    tail of 8 at 3081, at 1, 64, 256 and 257 chains, float32 and float64,
+    at an odd, an even and a one-leaf doubling's leaf: the same flags,
+    counts, counter and rows as its plain version, each launch twice bit
+    for bit, masked chains untouched, a NaN force included (checked
+    inside)."""
     from magi_v2_tpu_torch.ops import nuts
 
     nuts.reset_launch_counts()

@@ -175,23 +175,26 @@ def test_bound_nuts_matches_eager_bit_for_bit(magi_targets, dense):
                                                  ie2.num_leapfrogs)
 
 
-def _leaf_state(eps, n, q, v, ckpt_q, ckpt_v, lp=0.0, kin=0.5):
-    """K5's operands for one chain at leaf n of doubling 2 (depth 3 slots),
-    with H0 = kin - lp (dH = 0) and uniforms of 0.5."""
+def _leaf_state(eps, n, q, v, ckpt_q, ckpt_v, lp=0.0):
+    """The leaf's operands for one chain at leaf n of doubling 2 (depth 3
+    slots): an identity mass, p = v and no force, so that the leaf closes
+    at v_end = v with kinetic energy 0.5 |v|^2 = 0.5; H0 = 0.5 - lp
+    (dH = 0) and uniforms of 0.5."""
     D, dim = 3, len(q)
     z = lambda *s: torch.zeros(s, dtype=F64)
     ck_q, ck_v = z(D, 1, dim), z(D, 1, dim)
     for s, (a, b) in enumerate(zip(ckpt_q, ckpt_v)):
         ck_q[s, 0], ck_v[s, 0] = _t(a), _t(b)
-    ops = dict(q=_t([q]), v=_t([v]), lp=_t([lp]), kin=_t([kin]),
-               H0=_t([kin - lp]), eps=_t([eps]),
+    ops = dict(q=_t([q]), p=_t([v]), g=z(1, dim), lp=_t([lp]),
+               H0=_t([0.5 - lp]), eps=_t([eps]),
+               inv_mass=torch.ones(dim, dtype=F64),
                leaf_u=torch.full((1, 7), 0.5, dtype=F64),
                ctr=torch.tensor([2, n], dtype=torch.int32), lsw=_t([0.0]),
                sum_alpha=z(1), prop_q=z(1, dim), ckpt_q=ck_q, ckpt_v=ck_v,
                active=torch.ones(1, dtype=torch.bool),
                turning=torch.zeros(1, dtype=torch.bool),
                diverging=torch.zeros(1, dtype=torch.bool),
-               n_leaves=torch.zeros(1, dtype=torch.int32))
+               n_leaves=torch.zeros(1, dtype=torch.int32), vel=z(1, dim))
     return ops
 
 
@@ -199,9 +202,9 @@ def test_leaf_uturn_is_checked_in_trajectory_time_order():
     """A backward subtree on a straight line: leaf 1 (odd, checked against
     slot 0) lies one step behind the checkpoint in integration time, so
     its unflipped displacement q - q_s points against v and would read as
-    a U-turn; K5 flips it by the direction's sign and goes on. The same
-    geometry forward is a U-turn, and an even leaf stores its (q, v) in
-    slot popcount(n)."""
+    a U-turn; the leaf flips it by the direction's sign and goes on. The
+    same geometry forward is a U-turn, and an even leaf stores its (q, v)
+    in slot popcount(n)."""
     v = [1.0, 0.0]
     for eps, q, turns in ((-0.1, [-0.1, 0.0], False),
                           (0.1, [-0.1, 0.0], True)):
@@ -210,16 +213,22 @@ def test_leaf_uturn_is_checked_in_trajectory_time_order():
         assert bool(ops["turning"][0]) is turns
         assert bool(ops["active"][0]) is (not turns)
         assert int(ops["n_leaves"][0]) == 1
+        assert int(ops["ctr"][1]) == 2
     ops = _leaf_state(0.1, 2, [0.2, 0.0], v, [[0.0, 0.0]], [v])
     tnops.nuts_leaf(*ops.values())
     assert torch.equal(ops["ckpt_q"][1, 0], _t([0.2, 0.0]))
     assert torch.equal(ops["ckpt_v"][1, 0], _t(v))
+    assert torch.equal(ops["vel"][0], _t(v))
     assert not bool(ops["turning"][0])
+    # the next leaf opened: q drifted by eps v (no force, so p stays v)
+    assert torch.allclose(ops["q"][0], _t([0.3, 0.0]), rtol=1e-15)
     # a masked chain is left as it was
     ops = _leaf_state(0.1, 1, [-0.1, 0.0], v, [[0.0, 0.0]], [v])
     ops["active"][0] = False
     tnops.nuts_leaf(*ops.values())
     assert not bool(ops["turning"][0]) and int(ops["n_leaves"][0]) == 0
+    assert torch.equal(ops["q"], _t([[-0.1, 0.0]]))
+    assert torch.equal(ops["vel"], torch.zeros(1, 2, dtype=F64))
 
 
 def test_leaf_divergence_and_nan_energy():
@@ -232,6 +241,155 @@ def test_leaf_divergence_and_nan_energy():
     assert float(ops["sum_alpha"][0]) == 0.0
     assert float(ops["lsw"][0]) == 0.0       # logaddexp(0, -inf)
     assert torch.equal(ops["prop_q"], torch.zeros(1, 2, dtype=F64))
+
+
+def _separate_epilogue(q, v, lp, kin, H0, eps, leaf_u, ctr, lsw,
+                       sum_alpha, prop_q, ckpt_q, ckpt_v, active, turning,
+                       diverging, n_leaves, max_energy_diff):
+    """The leaf epilogue as it was a launch of its own (kernel K5 before
+    the leaf was fused), in place: the reference the fused leaf replaces."""
+    d, n = (int(x) for x in ctr.tolist())
+    on = active.clone()
+    dH = (-lp + kin) - H0
+    dH = torch.where(torch.isfinite(dH), dH, torch.full_like(dH,
+                                                             float("inf")))
+    div = dH > max_energy_diff
+    lw = -dH
+    sa = sum_alpha + torch.exp(torch.clamp(-dH, max=0.0))
+    lsw_new = torch.logaddexp(lsw, lw)
+    take = torch.log(leaf_u[:, (1 << d) - 1 + n]) < lw - lsw_new
+    torch.where((on & take)[:, None], q, prop_q, out=prop_q)
+    pc = bin(n).count("1")
+    turn = torch.zeros_like(on)
+    if n % 2 == 0:
+        torch.where(on[:, None], q, ckpt_q[pc], out=ckpt_q[pc])
+        torch.where(on[:, None], v, ckpt_v[pc], out=ckpt_v[pc])
+    else:
+        sign = torch.sign(eps)[:, None]
+        for s in range(pc - tnops.trailing_ones(n), pc):
+            dq = sign * (q - ckpt_q[s])
+            turn |= ((torch.sum(dq * ckpt_v[s], dim=-1) < 0.0)
+                     | (torch.sum(dq * v, dim=-1) < 0.0))
+    torch.where(on, lsw_new, lsw, out=lsw)
+    torch.where(on, sa, sum_alpha, out=sum_alpha)
+    n_leaves += on.to(n_leaves.dtype)
+    torch.where(on, turn, turning, out=turning)
+    torch.where(on, div, diverging, out=diverging)
+    active &= ~(turn | div)
+
+
+def _leaf_case(mass_form, d, n, C=8, dim=12, D=4, seed=11):
+    """The fused leaf's operands for C chains: unit-scale states, momenta,
+    forces and slots; energies within a few units of H0 except chain 2
+    (dH ~ 2000, a divergence); chain 3 with a NaN force (a non-finite
+    energy) and chain 5 masked with a NaN force; chains 0 and 6 masked;
+    chains 1, 4 and 7 with slots they do not turn against; signed steps
+    of both signs; a dense, diagonal or tail-of-4 mass."""
+    from magi_v2_tpu_torch.sampler.mass import TailDenseMass
+
+    rng = np.random.default_rng(seed + 17 * n + d)
+    r = lambda *s: _t(rng.standard_normal(s))
+    diag = _t(rng.uniform(0.5, 1.5, dim))
+    k = {"dense": dim, "diag": 0, "tail": 4}[mass_form]
+    mass = (TailDenseMass(diag, _t(_spd(k, seed, cond=5.0)), None) if k
+            else diag)
+    g = r(C, dim)
+    g[3] = float("nan")
+    g[5] = float("nan")
+    lp = r(C)
+    H0 = 0.5 * dim - lp + r(C)
+    H0[2] -= 2000.0
+    active = torch.ones(C, dtype=torch.bool)
+    active[[0, 5, 6]] = False
+    q, p = r(C, dim), r(C, dim)
+    eps = 0.05 * _t(np.where(rng.uniform(size=C) < 0.5, -1.0, 1.0))
+    ckpt_q, ckpt_v = r(D, C, dim), r(D, C, dim)
+    # chains 1, 4 and 7 move on along their velocity at the leaf's close
+    # (no U-turn against any slot); the others' slots are random
+    go_on = [1, 4, 7]
+    v_end = tmass.mass_vel(mass, p + 0.5 * eps[:, None] * g)[go_on]
+    ckpt_v[:, go_on] = v_end
+    ckpt_q[:, go_on] = q[go_on] - 0.3 * torch.sign(eps[go_on])[:, None] * v_end
+    return dict(q=q, p=p, g=g, lp=lp, H0=H0, eps=eps, inv_mass=mass,
+                leaf_u=_t(rng.uniform(size=(C, (1 << D) - 1))),
+                ctr=torch.tensor([d, n], dtype=torch.int32), lsw=r(C),
+                sum_alpha=_t(rng.uniform(size=C)), prop_q=r(C, dim),
+                ckpt_q=ckpt_q, ckpt_v=ckpt_v, active=active,
+                turning=torch.zeros(C, dtype=torch.bool),
+                diverging=torch.zeros(C, dtype=torch.bool),
+                n_leaves=_t(rng.integers(0, 50, C)).to(torch.int32),
+                vel=r(C, dim))
+
+
+def _composition(ops, open_mask):
+    """The leaf as the launches it replaces: K2's closing launch (one kick,
+    the kinetic energy, v), K5, the counter's add and K2's opening launch
+    for the chains of ``open_mask`` ("after": those still active, as the
+    separate launches did; "start": those active when the leaf began, the
+    fused leaf's semantics)."""
+    from magi_v2_tpu_torch.sampler.hmc import leapfrog_update_plain
+
+    o = {k: v.clone() if isinstance(v, torch.Tensor) else v
+         for k, v in ops.items()}
+    start = o["active"].clone()
+    kin = leapfrog_update_plain(o["q"], o["p"], o["g"], o["eps"],
+                                o["inv_mass"], 1, False, True, o["active"],
+                                o["vel"])
+    _separate_epilogue(o["q"], o["vel"], o["lp"], kin, o["H0"], o["eps"],
+                       o["leaf_u"], o["ctr"], o["lsw"], o["sum_alpha"],
+                       o["prop_q"], o["ckpt_q"], o["ckpt_v"], o["active"],
+                       o["turning"], o["diverging"], o["n_leaves"], 1000.0)
+    d, n = (int(x) for x in o["ctr"].tolist())
+    o["ctr"][1:] += 1
+    if n + 1 < (1 << d):
+        leapfrog_update_plain(o["q"], o["p"], o["g"], o["eps"],
+                              o["inv_mass"], 1, True, False,
+                              start if open_mask == "start" else o["active"])
+    return o
+
+
+# (doubling, leaf): an even leaf (slot 1), an odd one checked against two
+# slots, the doubling's last leaf (odd, no opening) and the one-leaf
+# doubling's leaf (even, last)
+@pytest.mark.parametrize("d,n", [(3, 4), (3, 3), (2, 3), (0, 0)])
+@pytest.mark.parametrize("mass_form", ["dense", "diag", "tail"])
+def test_fused_leaf_matches_the_launches_it_replaces(mass_form, d, n):
+    """The fused plain leaf (close, epilogue, counter, next opening) against
+    K2's plain close, the separate epilogue's (K5's) plain body and K2's
+    plain open, in float64: every observable to rtol 1e-12 (the flags,
+    counts and the rows copied exactly); q, p and v of the chains that stay active as the composition
+    gives them; a chain that turns or diverges in the launch drifted once
+    more (opened with the mask of the leaf's start); chains masked before
+    the launch untouched, a NaN force included."""
+    ops = _leaf_case(mass_form, d, n)
+    fused = {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in ops.items()}
+    tnops.nuts_leaf(*fused.values())
+    after, start = _composition(ops, "after"), _composition(ops, "start")
+    before = ops["active"]
+    stay = fused["active"]
+    stopped = before & ~stay
+    idle = ~before
+    # the cases reach what they are meant to
+    assert bool(fused["diverging"][2]) and bool(fused["diverging"][3])
+    if n % 2:
+        assert bool(fused["turning"].any())
+    assert stay.any() and stopped.any()
+    for name in ("active", "turning", "diverging", "n_leaves", "ctr",
+                 "prop_q", "ckpt_q", "ckpt_v"):
+        np.testing.assert_array_equal(fused[name].numpy(),
+                                      after[name].numpy(), err_msg=name)
+    for name in ("lsw", "sum_alpha"):
+        np.testing.assert_allclose(fused[name].numpy(), after[name].numpy(),
+                                   rtol=1e-12)
+    for name in ("q", "p", "vel"):
+        np.testing.assert_allclose(fused[name][stay].numpy(),
+                                   after[name][stay].numpy(), rtol=1e-12)
+        np.testing.assert_allclose(fused[name][stopped].numpy(),
+                                   start[name][stopped].numpy(), rtol=1e-12)
+        assert torch.equal(fused[name][idle], ops[name][idle]), name
+    np.testing.assert_array_equal(fused["g"].numpy(), ops["g"].numpy())
+    assert torch.isfinite(fused["q"][stay]).all()
 
 
 def _gaussian_target(cov):
