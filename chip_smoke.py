@@ -14,9 +14,13 @@ only when all of them passed):
    and through its one-shot wrapper, against its plain PyTorch version on
    the same inputs at the SEIR bench shapes (256 chains, N_I = 161, D = 3)
    and at a chain count and grid that fill no tile (37 chains, N_I = 333);
-   two runs of one launch must agree bit for bit. K2 (the leapfrog update,
-   one launch per leapfrog on every mass form) on the full dense metric of
-   the SEIR recipe (489 wide) and on a diagonal and dense tails of 3 and 8
+   two runs of one launch must agree bit for bit; the same for the
+   functors of the six other registered fields (SIRW, FitzHugh-Nagumo,
+   Hes1, Hes1-log, Lotka-Volterra, protein transduction) at 37 chains and
+   N_I = 333 and at the Hes1 path's 64 chains and N_I = 129. K2 (the
+   leapfrog update, one launch per leapfrog on every mass form) on the
+   full dense metric of the SEIR recipe (489 wide) and on a diagonal and
+   dense tails of 3 and 8
    at the Lorenz width (3081), at 64, 256 and 257 chains, the replayed
    leapfrog's launch and the kinetic launches, each run twice; K2's full
    dense metric at the widths its earlier design refused (float64 1297,
@@ -27,7 +31,9 @@ only when all of them passed):
    next opening in one launch) on the dense 489 metric, a 3081 diagonal
    and a tail of 8 at 3081, at 64, 256 and 257 chains, at an odd, an even
    and a one-leaf doubling's leaf, each launch twice, masked chains
-   untouched. Float32 and float64, timed with CUDA events.
+   untouched; K2's NUTS form and the leaf kernel also on the Hes1 path's
+   397-wide diagonal at 64 chains. Float32 and float64, timed with CUDA
+   events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -46,7 +52,7 @@ only when all of them passed):
    compared.
 6b. SEIR NUTS path: the same fit, ``predict`` with the default algorithm
    (NUTS, trees up to depth 10) and otherwise the bench recipe, 256
-   chains, 1000 + 1000 transitions, float32. Fails on non-finite draws, a
+   chains, 500 + 500 transitions, float32. Fails on non-finite draws, a
    kernel that never launched (K1, K2, the leaf kernel), a transition
    that replayed no leaf, leaves that launched K2, rhat_max > 1.05 or a theta mean more than 15% from truth; prints
    the mean depth, leaves a chain and leaves replayed a transition (the
@@ -61,7 +67,22 @@ only when all of them passed):
    kernels (PyTorch evaluates the field and its VJPs) against their plain
    versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
    and N_I = 333, then its composed target and HMC and NUTS predicts on
-   the card, which must launch K1, held against the CPU's.
+   the card (16 chains, 100 + 100 steps; 200 + 200 before the Hes1 path
+   joined the smoke), which must launch K1, held against the CPU's.
+6c. Hes1 path (partially observed: H never observed): the data of
+   examples/hes1.py, ``initial_fit(2)`` at the config's full iteration
+   counts (N_I = 129, gradient matching for H and theta), beta = 1, and a
+   64-chain centered NUTS predict (1000 + 1000 transitions, no annealing,
+   sigma pinned at 0.15^2, diagonal mass) in float32. Fails on non-finite
+   draws, K1 not launched through the Hes1-log functor or launched
+   through its given kernels, K2 or the leaf kernel not launched, a
+   transition that replayed no leaf, a chain whose mean theta[5] is at
+   most 8 (out of the truth basin), or a pooled theta mean more than 3
+   posterior sd from the JAX package's recovery (results/hes1_long2.json);
+   rhat, ESS, depth and leaves are printed. Then the composed float64
+   centered target on the card against the CPU (8 states), 20 NUTS
+   transitions from the predict's last states by replayed graphs and by
+   eager (bit for bit) and the device profile of one transition.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
@@ -103,8 +124,9 @@ only when all of them passed):
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it; K2's NUTS form
-and the leaf kernel from the SEIR NUTS path, K1's given kernels from the
-FitzHugh-Nagumo predicts), error, times,
+and the leaf kernel from the SEIR NUTS and the Hes1 paths, K1's given
+kernels from the FitzHugh-Nagumo predicts, K1's Hes1-log functor from the
+Hes1 path), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
 time (null where no one PyTorch call computes the same function), and
@@ -151,6 +173,8 @@ REPLACES = {
     "leapfrog_update": "magi_v2_tpu/sampler/hmc.py:63",
     "leapfrog_update_nuts": "magi_v2_tpu/sampler/nuts.py:58",
     "nuts_leaf": "magi_v2_tpu/sampler/nuts.py:130",
+    # the centered target: log_posterior under value_and_grad
+    "hes1_centered": "magi_v2_tpu/sampler/magi_state.py:38",
     "banded_matvec": "magi_v2_tpu/ops/banded.py:212",
     "banded_matvec_adjoint": "magi_v2_tpu/ops/banded.py:212",
     "banded_matvec_pair": "magi_v2_tpu/ops/banded.py:212",
@@ -230,9 +254,12 @@ def graph_counts():
 
 
 def launch_counts():
+    from magi_v2_tpu_torch.ops import manifold
+
     out = {}
     for mod in _counters():
         out.update(mod.launch_counts())
+    out.update(manifold.functor_launch_counts())
     return out
 
 
@@ -261,28 +288,56 @@ def build():
     return lib
 
 
-def kernel_inputs(dtype, device, C=256, N=161, D=3, P=3, seed=0,
-                  model="seir"):
-    """Inputs of the three K1 kernels at realistic magnitudes of the SEIR
-    or the Lorenz model."""
+# K1's checks, by model: the states' sigma_pre and theta_pre (each +- 0.1)
+# and the reference trajectories x0 (D, N), at the magnitudes of the
+# model's paths (theta_pre the softplus pre-image of the registry's values
+# where it has them). "fhn" is the smoke's own FitzHugh-Nagumo, a field
+# registered nowhere (K1's given kernels).
+def _rand(g, shape):
+    return torch.rand(shape, generator=g, dtype=torch.float64)
+
+
+def _randn(g, shape):
+    return torch.randn(shape, generator=g, dtype=torch.float64)
+
+
+K1_STATES = {
+    "seir": (-10.5, (1.8, -0.3, 1.5), lambda g, s: 0.5 * _rand(g, s)),
+    "lorenz": (-1.5, (10.0, 28.0, 2.6), lambda g, s: 15.0 * _randn(g, s)),
+    "fhn": (-1.5, (-1.5, -1.5, 2.95), lambda g, s: 1.5 * _randn(g, s)),
+    "fitzhugh_nagumo": (-1.5, (-1.5, -1.5, 2.95),
+                        lambda g, s: 1.5 * _randn(g, s)),
+    "sirw": (-8.0, (0.5, -0.5, -1.0, 0.2, -1.5),
+             lambda g, s: 0.5 * _rand(g, s)),
+    "hes1": (-3.0, None, lambda g, s: 0.5 + 4.0 * _rand(g, s)),
+    "hes1_log": (-3.0, None,
+                 lambda g, s: torch.log(0.5 + 4.0 * _rand(g, s))),
+    "lotka_volterra": (-2.0, None, lambda g, s: 0.5 + 2.0 * _rand(g, s)),
+    "protein_transduction": (-6.0, None, lambda g, s: _rand(g, s)),
+}
+# the six functors ported with the partially observed path
+NEW_FUNCTORS = ("sirw", "fitzhugh_nagumo", "hes1", "hes1_log",
+                "lotka_volterra", "protein_transduction")
+
+
+def kernel_inputs(dtype, device, C=256, N=161, seed=0, model="seir"):
+    """Inputs of the three K1 kernels at realistic magnitudes of ``model``
+    (``K1_STATES``)."""
+    from magi_v2_tpu_torch.models import MODEL_REGISTRY
+
+    reg = MODEL_REGISTRY["fitzhugh_nagumo" if model == "fhn" else model]
+    D, P = reg.D, reg.D_thetas
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s, scale=1.0: (scale * torch.randn(s, generator=g,
                                                    dtype=torch.float64))
     dim = N * D + D + P
+    sigma_pre, theta_pre, draw_x0 = K1_STATES[model]
+    if theta_pre is None:
+        theta_pre = np.log(np.expm1(np.asarray(reg.true_thetas)))
     q = r(C, dim)
-    if model == "seir":
-        q[:, N * D: N * D + D] = -10.5 + r(C, D, scale=0.1)
-        q[:, N * D + D:] = torch.tensor([1.8, -0.3, 1.5]) + r(C, P, scale=0.1)
-        x0T = 0.5 * torch.rand((D, N), generator=g, dtype=torch.float64)
-    elif model == "fhn":
-        q[:, N * D: N * D + D] = -1.5 + r(C, D, scale=0.1)
-        q[:, N * D + D:] = torch.tensor([-1.5, -1.5, 2.95]) + r(C, P,
-                                                               scale=0.1)
-        x0T = 1.5 * torch.randn((D, N), generator=g, dtype=torch.float64)
-    else:
-        q[:, N * D: N * D + D] = -1.5 + r(C, D, scale=0.1)
-        q[:, N * D + D:] = torch.tensor([10.0, 28.0, 2.6]) + r(C, P, scale=0.1)
-        x0T = 15.0 * torch.randn((D, N), generator=g, dtype=torch.float64)
+    q[:, N * D: N * D + D] = sigma_pre + r(C, D, scale=0.1)
+    q[:, N * D + D:] = torch.tensor(theta_pre) + r(C, P, scale=0.1)
+    x0T = draw_x0(g, (D, N))
     mask = torch.zeros(D, N, dtype=torch.float64)
     mask[:, ::2] = 1.0
     inp = dict(
@@ -436,14 +491,16 @@ def same_twice(run, outputs, what):
         raise AssertionError(f"{what}: two runs of the same launch differ")
 
 
-def check_kernels(device, model="seir", N=161, C=256, tag=""):
+def check_kernels(device, model="seir", N=161, C=256, tag="", reps=200):
     """Each K1 kernel against its plain version, float32 and float64, as
     the target launches it (``ManifoldPlan``) and through its one-shot
     wrapper (the same kernel: the same bits); returns {name: {max_abs_err,
-    ms, plain_ms}} for float32 (the sampling dtype); names carry a
-    ``_lorenz`` suffix for the Lorenz model (``_fhn`` for FitzHugh-Nagumo,
-    a field with no functor: K1's given kernels, with PyTorch's evaluation
-    of the field and its VJPs in their time), and ``tag`` after it."""
+    ms, plain_ms}} for float32 (the sampling dtype); names carry the
+    model's name as a suffix (``_lorenz``, ``_hes1_log``, ...; none for
+    SEIR; ``_fhn`` for the smoke's FitzHugh-Nagumo, a field with no
+    functor: K1's given kernels, with PyTorch's evaluation of the field
+    and its VJPs in their time), and ``tag`` after it. Kernel and plain
+    version are timed over ``reps`` calls each."""
     from magi_v2_tpu_torch.models import MODEL_REGISTRY
     from magi_v2_tpu_torch.ops import manifold as mf
 
@@ -453,8 +510,7 @@ def check_kernels(device, model="seir", N=161, C=256, tag=""):
     results = {}
     stream = torch.cuda.current_stream(device).cuda_stream
     for dtype in (torch.float64, torch.float32):
-        x = kernel_inputs(dtype, device, C=C, N=N, model=model,
-                          D=2 if given else 3)
+        x = kernel_inputs(dtype, device, C=C, N=N, model=model)
         D, N = x["x0T"].shape
         plan, b, I = make_plan(f, x, device, dtype)
         q, bt = x["q"], x["beta_temp"]
@@ -522,7 +578,8 @@ def check_kernels(device, model="seir", N=161, C=256, tag=""):
             # no one PyTorch call computes a K1 kernel's fused epilogue
             more = dict(k1_bound(kname, C, N, D, P, dtype, given),
                         library_ms=None)
-            report(kname + suffix, dtype, errs, _time_ms(fk), _time_ms(fp),
+            report(kname + suffix, dtype, errs, _time_ms(fk, reps),
+                   _time_ms(fp, reps),
                    TOL[dtype], results,
                    extra=f" at {C} chains, N {N}, bound "
                          f"{more['bound_ms']:.4f} ms", more=more)
@@ -690,14 +747,17 @@ def k2_nuts_bound(C, on, dim, k, dtype):
                  5 * on * head + on * k * (2 * k + 4), dtype)
 
 
-def check_leapfrog_nuts(device, chains=NUTS_CHAINS, cases=K2_NUTS_CASES):
+def check_leapfrog_nuts(device, chains=NUTS_CHAINS, cases=K2_NUTS_CASES,
+                        record=("dense489", NUM_CHAINS,
+                                "leapfrog_update_nuts")):
     """K2's NUTS form (a signed step per chain, a mask, the velocities
     out) against its plain version: the leaf's opening launch (one kick,
     drift) and closing launch (one kick, kinetic energy and velocity), at
     each chain count, float64 and float32, each launch twice bit for bit;
     a quarter of the chains masked, the first of them with a NaN force,
     and their q and p must come back bit for bit. Returns the float32
-    numbers of the opening launch at the SEIR path's 256 chains."""
+    numbers of the opening launch at ``record`` (case, chains, name): by
+    default the SEIR path's dense 489 metric at 256 chains."""
     from magi_v2_tpu_torch.sampler.hmc import (
         bind_leapfrog,
         leapfrog_update,
@@ -764,11 +824,10 @@ def check_leapfrog_nuts(device, chains=NUTS_CHAINS, cases=K2_NUTS_CASES):
                 lines.append(f"{case} C{C} {ms:.4f} / {plain_ms:.4f} ms "
                              f"(bound {b['bound_ms']:.4f} {b['bound_by']}, "
                              f"{int(active.sum())} chains move)")
-                if (case, C, dtype) == ("dense489", NUM_CHAINS,
-                                        torch.float32):
+                if (case, C) == record[:2] and dtype == torch.float32:
                     worst = max(e[0] for t, e in errs.items()
                                 if t.startswith(f"{case}_C{C}_"))
-                    results["leapfrog_update_nuts"] = dict(
+                    results[record[2]] = dict(
                         max_abs_err=worst, ms=ms, plain_ms=plain_ms, **b,
                         library_ms=None)
         worst_part = max(errs, key=lambda t: errs[t][1])
@@ -902,7 +961,8 @@ def nuts_leaf_bound(C, on, dim, k, dtype, d, n, taken):
 
 
 def check_nuts_leaf(device, chains=NUTS_CHAINS, cases=NUTS_LEAF_CASES,
-                    leaves=NUTS_LEAVES):
+                    leaves=NUTS_LEAVES,
+                    record=("dense489", NUM_CHAINS, "nuts_leaf")):
     """The leaf kernel (close, epilogue, counter, next opening) against its
     plain version for each mass case, chain count and leaf, float64 and
     float32: each launch twice bit for bit, the chains masked before the
@@ -913,8 +973,9 @@ def check_nuts_leaf(device, chains=NUTS_CHAINS, cases=NUTS_LEAF_CASES,
     at the first leaf (float32): in a CUDA graph with q, p, the counter,
     ``active``, ``lsw`` and ``sum_alpha`` restored before every launch, so
     every timed launch does the work the bound counts; the plain version
-    the same way, back to back. Returns the float32 numbers of the dense
-    489 case at the SEIR path's 256 chains."""
+    the same way, back to back. Returns the float32 numbers at ``record``
+    (case, chains, name): by default the dense 489 case at the SEIR path's
+    256 chains."""
     from magi_v2_tpu_torch.ops import nuts as nu
 
     results = {}
@@ -993,10 +1054,10 @@ def check_nuts_leaf(device, chains=NUTS_CHAINS, cases=NUTS_LEAF_CASES,
                     lines.append(f"{tag} {ms:.4f} / {plain_ms:.4f} ms (bound "
                                  f"{b['bound_ms']:.4f} {b['bound_by']}, {on} "
                                  f"active, {taken} proposals)")
-                    if (case, C) == ("dense489", NUM_CHAINS):
+                    if (case, C) == record[:2]:
                         worst = max(e[0] for k_, e in errs.items()
                                     if k_.startswith(f"{tag}_"))
-                        results["nuts_leaf"] = dict(max_abs_err=worst, ms=ms,
+                        results[record[2]] = dict(max_abs_err=worst, ms=ms,
                                                     plain_ms=plain_ms, **b,
                                                     library_ms=None)
         worst_part = max(errs, key=lambda t: errs[t][1])
@@ -1087,7 +1148,9 @@ def main_path(device, num_steps=NUM_STEPS):
     return model, counts
 
 
-NUTS_STEPS = 1000
+# 500 + 500 since the Hes1 path joined the smoke (1000 + 1000 before), to
+# keep the smoke's wall inside its limit
+NUTS_STEPS = 500
 NUTS_RECIPE = dict(mass_matrix="dense", anneal_mode="reference",
                    dense_shrinkage=0.2, mass_window=(0.25, 0.45),
                    mass_window2=(0.50, 0.72), mass_window1_diag=True)
@@ -1176,33 +1239,50 @@ def nuts_path(model, device, num_steps=NUTS_STEPS):
     return counts, kr
 
 
-def _nuts_setup(model, device, kr, num_chains=NUM_CHAINS, seed=2):
-    """The SEIR float32 target, states near the fit, and the mass and
-    step size the NUTS predict adapted (``kr``, its kernel results)."""
+# the sigma_pre and theta_pre of the SEIR states near the fit
+SEIR_TAIL = (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6)
+
+
+def _nuts_setup(model, device, kr, num_chains=NUM_CHAINS, seed=2,
+                reparam="precond", tail=SEIR_TAIL, sigma_sqs_fixed=None,
+                start=None):
+    """The float32 target of ``reparam`` in dense storage (sigma pinned at
+    ``sigma_sqs_fixed`` if given), states near the fit (``tail`` their
+    sigma_pre and theta_pre) or ``start`` (C, dim), and the mass and step
+    size the NUTS predict adapted (``kr``, its kernel results)."""
     from magi_v2_tpu_torch.sampler.mass import mass_from_moments
 
-    mode, _, _ = model._build_sampling_setup("precond", "dense",
-                                             torch.float32)
+    kw = ({} if sigma_sqs_fixed is None
+          else {"sigma_sqs_fixed": sigma_sqs_fixed})
+    mode, _, _ = model._build_sampling_setup(reparam, "dense",
+                                             torch.float32, **kw)
     N, D = model.mag_I, model.D
     dim = N * D + D + model.D_thetas
     g = torch.Generator(device=device).manual_seed(seed)
     q0 = torch.cat([mode.X0.reshape(-1).float(),
-                    torch.tensor((-10.5, -10.5, -10.5, 1.8, -0.5, 0.6),
-                                 device=device)])
-    qs = q0 + 0.01 * torch.randn((num_chains, dim), generator=g,
-                                 device=device)
+                    torch.tensor(tail, dtype=torch.float32, device=device)])
+    if start is None:
+        qs = q0 + 0.01 * torch.randn((num_chains, dim), generator=g,
+                                     device=device)
+    else:
+        qs = torch.as_tensor(start, dtype=torch.float32, device=device)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    mass = mass_from_moments(t(kr["inv_mass"]), t(kr["tail_inv_mass"]))
+    mass = (t(kr["inv_mass"]) if kr["tail_inv_mass"] is None
+            else mass_from_moments(t(kr["inv_mass"]),
+                                   t(kr["tail_inv_mass"])))
     eps = t(kr["step_size"])
     return mode.logp_grad, qs, mass, eps, g
 
 
-def nuts_graph_vs_eager(model, device, kr, transitions=20):
+def nuts_graph_vs_eager(model, device, kr, transitions=20, label="SEIR NUTS",
+                        beta_temp=0.15, **setup):
     """``BoundNuts`` (captured CUDA graphs, replayed) against the eager
-    ``nuts_step`` on the SEIR float32 target, ``transitions`` times from
-    the same state with the same noise, at the predict's adapted step
-    size and mass and a tempered beta: states and every info field must
-    agree bit for bit."""
+    ``nuts_step`` on a float32 target (``_nuts_setup``'s, with ``setup``:
+    by default SEIR's), ``transitions`` times from the same state with the
+    same noise, at the predict's adapted step size and mass and at
+    ``beta_temp``: states and every info field must agree bit for bit.
+    Returns the bound transition, its last state and noise, and the step,
+    mass and temperature, for a profile."""
     from magi_v2_tpu_torch.sampler.nuts import (
         BoundNuts,
         NutsConfig,
@@ -1210,10 +1290,10 @@ def nuts_graph_vs_eager(model, device, kr, transitions=20):
         nuts_step,
     )
 
-    target, qs, mass, eps, g = _nuts_setup(model, device, kr)
+    target, qs, mass, eps, g = _nuts_setup(model, device, kr, **setup)
     C, dim = qs.shape
     cfg = NutsConfig(model.config.max_tree_depth)
-    bt = torch.tensor(0.15, device=device)
+    bt = torch.tensor(beta_temp, device=device)
     bound = BoundNuts(target, qs, mass, cfg)
     qe = qb = qs
     same, depths = 0, []
@@ -1229,12 +1309,13 @@ def nuts_graph_vs_eager(model, device, kr, transitions=20):
             same += 1
         qe, qb = qe2, qb2
     torch.cuda.synchronize()
-    print(f"SEIR NUTS: graph against eager, {transitions} transitions of "
+    print(f"{label}: graph against eager, {transitions} transitions of "
           f"{C} chains (step {float(eps):.4g}, deepest trees {depths}): "
           f"{same} of {transitions} bit for bit")
     if same < transitions:
-        raise AssertionError("SEIR NUTS: the replayed transition differs "
+        raise AssertionError(f"{label}: the replayed transition differs "
                              "from the eager one")
+    return bound, qb, noise, eps, mass, bt
 
 
 def kernel_counts(run):
@@ -1363,7 +1444,7 @@ def fitzhugh_nagumo_f_vec(t, X, thetas):
 FHN_CHAINS, FHN_GRID = 16, 81
 
 
-def unregistered_field(device, steps=200, chains=FHN_CHAINS):
+def unregistered_field(device, steps=100, chains=FHN_CHAINS):
     """A field with no CUDA functor on the card: FitzHugh-Nagumo (41
     observations on [0, 20], noise sd 0.2) fitted on the CPU in float64,
     then its composed float64 target on the card against the CPU's, and
@@ -1433,6 +1514,169 @@ def unregistered_field(device, steps=200, chains=FHN_CHAINS):
     return total
 
 
+# The Hes1 recipe of examples/hes1.py: P and M observed on the log scale
+# with noise sd 0.15, H never; 33 observations on [0, 240] simulated from
+# x0 at the registry's true theta; discretization 2 (N_I = 129, a flat
+# state of 397); beta = 1, sigma pinned at 0.15^2, centered coordinates,
+# no annealing, NUTS with a diagonal metric.
+HES1_X0 = np.array([1.439, 2.037, 17.904])
+HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 1000, 129
+HES1_SIGMA = 0.15 ** 2
+# the JAX package's converged recovery (results/hes1_long2.json: 16 chains
+# x 3000 + 8000 NUTS transitions, centered, float64 on a CPU): theta's
+# posterior mean and sd
+HES1_REF_MEAN = np.array([0.0151, 0.3787, 0.0343, 0.0293, 0.5841, 27.1933,
+                          0.1715])
+HES1_REF_SD = np.array([0.0048, 0.0429, 0.0055, 0.0020, 0.0657, 13.1686,
+                        0.0303])
+# a chain whose mean g (theta[5]) is at most 8 has left the truth basin for
+# the decoupled-H mode (scripts/hes1_long.py)
+HES1_BASIN_G = 8.0
+# K2's NUTS form and the leaf kernel at the Hes1 path's metric: a diagonal
+# over the 397-wide state
+HES1_NUTS_CASES = (("diag397", 397, 0),)
+
+
+def hes1_fit(device):
+    """The Hes1 data and ``initial_fit(2)`` on the card at the config's
+    full iteration counts (the partially observed branch: hyperparameters
+    of P and M, gradient matching of (H, theta), H's hyperparameters on the
+    grid), float32 sampling; then beta = 1."""
+    from magi_v2_tpu_torch import MAGI_v2, MagiConfig
+    from magi_v2_tpu_torch.models import MODEL_REGISTRY, hes1_log_f_vec
+    from magi_v2_tpu_torch.utils.data import simulate_ode
+
+    reg = MODEL_REGISTRY["hes1"]
+    ts, _, X_true = simulate_ode(reg.f_vec, x0=HES1_X0,
+                                 thetas=np.array(reg.true_thetas),
+                                 t_max=240.0, n_obs=33, noise_sd=0.0,
+                                 substeps=200)
+    X = np.log(X_true) + 0.15 * np.random.default_rng(0).standard_normal(
+        X_true.shape)
+    X[:, 2] = np.nan
+    model = MAGI_v2(7, ts, X, None, hes1_log_f_vec,
+                    MagiConfig(dtype=torch.float32, device=str(device)))
+    t0 = time.perf_counter()
+    model.initial_fit(discretization=2)
+    torch.cuda.synchronize()
+    print(f"Hes1 setup (initial_fit, discretization 2): "
+          f"{time.perf_counter() - t0:.2f} s {model.fit_timings}; N_I "
+          f"{model.mag_I}, thetas_init "
+          f"{np.round(model.thetas_init, 4).tolist()}, phi1s "
+          f"{np.round(model.phi1s, 4).tolist()}, phi2s "
+          f"{np.round(model.phi2s, 4).tolist()}")
+    if model.mag_I != HES1_GRID or model.unobserved_components.tolist() != [2]:
+        raise AssertionError("Hes1: the fit's grid or its unobserved "
+                             "component is not the recipe's")
+    model.beta = 1.0
+    return model
+
+
+def hes1_path(model, device, num_steps=HES1_STEPS):
+    """The Hes1 recipe's predict on the card: 64 chains, ``num_steps`` +
+    ``num_steps`` NUTS transitions in centered coordinates, float32. Fails
+    on non-finite draws, K1 launched through its given kernels or not
+    through the Hes1-log functor's, K2's NUTS form or the leaf kernel not
+    launched, a transition that replayed no leaf, a chain outside the
+    truth basin, or a pooled theta mean more than 3 posterior sd from the
+    JAX package's recovery; rhat, ESS, depth and leaves are printed (the
+    centered chains mix slowly). Returns the launch counts, the kernel
+    results and the chains' last states."""
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_chains=HES1_CHAINS, num_results=num_steps,
+                        num_burnin_steps=num_steps, init_jitter=0.02, seed=0,
+                        reparam="centered", use_annealing=False,
+                        sigma_sqs_fixed=HES1_SIGMA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    transitions = 2 * num_steps
+    depths, leaves = kr["depths"], kr["num_leapfrogs"]
+    replayed = 2.0 ** depths.max(axis=1) - 1.0
+    theta_mean = thetas.reshape(-1, 7).mean(axis=0)
+    z = (theta_mean - HES1_REF_MEAN) / HES1_REF_SD
+    g_chain = thetas[..., 5].mean(axis=0)
+    print(f"Hes1 predict wall: {wall:.2f} s ({num_steps}+{num_steps} "
+          f"transitions, {HES1_CHAINS} chains, centered, max tree depth "
+          f"{model.config.max_tree_depth}); {predict_phases(model, wall)}")
+    print(f"Hes1 sampling phase: mean depth {depths.mean():.3f} (max "
+          f"{depths.max()}), mean leaves a chain and transition "
+          f"{leaves.mean():.2f}, leaves replayed a transition "
+          f"{replayed.mean():.2f} (so "
+          f"{1 - leaves.mean() / replayed.mean():.1%} of the replayed leaf "
+          f"work is masked), divergence rate {kr['divergences'].mean():.5f}"
+          f", mean acceptance {kr['accept_probs'].mean():.4f}, step size "
+          f"{float(kr['step_size']):.5f}")
+    print(f"Hes1 over the predict: {graphs.get('nuts_leaf', 0)} leaves "
+          f"replayed ({graphs.get('nuts_leaf', 0) / transitions:.2f} a "
+          f"transition), {graphs.get('nuts_prologue', 0)} doublings")
+    print(f"Hes1: theta pooled means {np.round(theta_mean, 4).tolist()} "
+          f"(JAX recovery {HES1_REF_MEAN.tolist()}, in its sd "
+          f"{np.round(z, 2).tolist()}); per-chain mean g from "
+          f"{g_chain.min():.2f} to {g_chain.max():.2f}; ESS_min "
+          f"{summ['ess_min']:.1f}, rhat_max {summ['rhat_max']:.4f}, ESS/s "
+          f"{summ['ess_per_sec_min']:.2f}")
+    print(f"Hes1 launch counts: {counts}; CUDA graphs {graphs}")
+
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("Hes1: non-finite draws")
+    check_launched(counts, [f"{k}_hes1_log" for k in mf.KERNELS]
+                   + ["leapfrog_update", "nuts_leaf"], "Hes1")
+    given = {k: counts[f"{k}_given"] for k in mf.KERNELS}
+    if any(given.values()):
+        raise AssertionError(f"Hes1: K1 launched its given kernels {given}")
+    if not (graphs.get("nuts_start", 0) == transitions
+            and graphs.get("nuts_leaf", 0) >= transitions):
+        raise AssertionError(f"Hes1: not every one of {transitions} "
+                             f"transitions replayed its leaves: {graphs}")
+    if not np.all(g_chain > HES1_BASIN_G):
+        raise AssertionError(f"Hes1: chains {np.flatnonzero(g_chain <= 8)} "
+                             "left the truth basin (mean g <= 8)")
+    if not np.all(np.abs(z) <= 3.0):
+        raise AssertionError(f"Hes1: theta means {theta_mean} are more than"
+                             f" 3 posterior sd from the JAX recovery: {z}")
+    return counts, kr, res["sample_results"][-1]
+
+
+def hes1_after(model, device, kr, last):
+    """After the Hes1 predict: its composed float64 centered target on the
+    card against the CPU; 20 NUTS transitions of its float32 target (beta
+    1, sigma pinned) by replayed graphs and by eager, bit for bit, from the
+    predict's last states ``last`` (C, dim; at the fit's state, far from
+    the posterior's mass, the first leapfrog diverges); and the device time
+    by kernel and busy share of one replayed transition."""
+    pre_fix = model._sigma_bounds(None, HES1_SIGMA)[2]
+    tail = tuple(pre_fix.tolist()
+                 + np.log(np.expm1(model.thetas_init)).tolist())
+    check_composed(model, device, tail=tail, reparam="centered")
+    bound, q, noise, eps, mass, bt = nuts_graph_vs_eager(
+        model, device, kr, label="Hes1 NUTS", beta_temp=1.0,
+        num_chains=HES1_CHAINS, reparam="centered", tail=tail,
+        sigma_sqs_fixed=HES1_SIGMA, start=last)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, info = bound(q, eps, mass, bt, noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    d = int(info.depth.max())
+    print(f"Hes1 NUTS: one transition (deepest tree {d}, {2 ** d - 1} leaves "
+          f"replayed, mean leaves a chain "
+          f"{float(info.num_leapfrogs.float().mean()):.2f}): ms "
+          f"{[round(w, 3) for w in walls]}")
+    device_profile(lambda: bound(q, eps, mass, bt, noise),
+                   "Hes1 NUTS replayed")
+
+
 def predict_phases(model, wall):
     """The last predict's phases on the host's clock, the device waited
     for at each end (``predict_timings``): building the target and its
@@ -1452,12 +1696,12 @@ def check_launched(counts, kernels, path):
                              f"{idle}")
 
 
-def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
-                                                          -10.5, 1.8, -0.5,
-                                                          0.6)):
-    """The float64 target of ``storage`` on the card against the same
-    target, moved to the CPU (plain versions), at 8 states near the fit
-    (``tail`` the sigma_pre and theta_pre of the states)."""
+def check_composed(model, device, storage="dense", tail=SEIR_TAIL,
+                   reparam="precond"):
+    """The float64 target of ``reparam`` and ``storage`` on the card
+    against the same target, moved to the CPU (plain versions), at 8
+    states near the fit (``tail`` the sigma_pre and theta_pre of the
+    states), at the model's beta."""
     from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
 
     arrays = {f: getattr(model, f) for f in FIT_FIELDS}
@@ -1467,7 +1711,8 @@ def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
         exact_operators=(model._exact_operators() if storage == "hybrid"
                          else None),
     )
-    mode, _, _ = m64._build_sampling_setup("precond", storage, torch.float64)
+    m64.beta = model.beta
+    mode, _, _ = m64._build_sampling_setup(reparam, storage, torch.float64)
     target = mode.logp_grad
     cpu_target = target.to("cpu")
     rng = np.random.default_rng(1)
@@ -1479,7 +1724,7 @@ def check_composed(model, device, storage="dense", tail=(-10.5, -10.5,
     torch.cuda.synchronize()
     e_lp = _relerr(lp_c, lp_d.cpu())[1]
     e_g = _relerr(g_c, g_d.cpu())[1]
-    print(f"composed float64 {storage} target, card vs CPU: lp rel "
+    print(f"composed float64 {reparam} {storage} target, card vs CPU: lp rel "
           f"{e_lp:.3e}, grad rel {e_g:.3e} (tol {COMPOSED_TOL:.0e})")
     if not (e_lp <= COMPOSED_TOL and e_g <= COMPOSED_TOL):
         raise AssertionError(f"composed {storage} target disagrees between "
@@ -2319,11 +2564,26 @@ def main():
     timing = check_kernels(device)
     # a chain count and a grid that fill no tile of K1's or K3's
     check_kernels(device, N=333, C=37)
+    # the functors of the six other fields there and at the Hes1 path's 64
+    # chains and N_I = 129
+    for name in NEW_FUNCTORS:
+        check_kernels(device, model=name, N=333, C=37, reps=20)
+        timing.update(check_kernels(device, model=name, N=HES1_GRID,
+                                    C=HES1_CHAINS, reps=50))
     timing.update(check_leapfrog(device))
     check_wide_leapfrog(device)
     timing.update(check_leapfrog_nuts(device))
     timing.update(check_nuts_leaf(device))
+    # K2's NUTS form and the leaf kernel on the Hes1 path's diagonal metric
+    timing.update(check_leapfrog_nuts(
+        device, chains=(HES1_CHAINS,), cases=HES1_NUTS_CASES,
+        record=("diag397", HES1_CHAINS, "leapfrog_update_nuts_hes1")))
+    timing.update(check_nuts_leaf(
+        device, chains=(HES1_CHAINS,), cases=HES1_NUTS_CASES,
+        record=("diag397", HES1_CHAINS, "nuts_leaf_hes1")))
+    print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     model, counts_seir = main_path(device)
+    print(f"SEIR HMC path done at {time.perf_counter() - t_start:.1f} s")
     check_composed(model, device)
     profile_leapfrog(model, device)
     graph_vs_eager(model, device, "dense", NUM_CHAINS, NUM_LEAPFROGS,
@@ -2332,6 +2592,7 @@ def main():
     counts_nuts, kr_nuts = nuts_path(model, device)
     nuts_graph_vs_eager(model, device, kr_nuts)
     profile_nuts(model, device, kr_nuts)
+    print(f"SEIR NUTS path done at {time.perf_counter() - t_start:.1f} s")
     # K1's given kernels at the unregistered field's shapes (16 chains,
     # N_I = 81) and at a ragged count and grid of several CTAs a chain
     timing.update(check_kernels(device, model="fhn", N=FHN_GRID,
@@ -2339,6 +2600,11 @@ def main():
     check_kernels(device, model="fhn", N=333, C=RAGGED_CHAINS)
     counts_fhn = unregistered_field(device)
     print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
+
+    hmodel = hes1_fit(device)
+    counts_hes1, kr_hes1, last = hes1_path(hmodel, device)
+    hes1_after(hmodel, device, kr_hes1, last)
+    print(f"Hes1 phases done at {time.perf_counter() - t_start:.1f} s")
 
     lmodel = lorenz_fit(device)
     timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I))
@@ -2352,6 +2618,7 @@ def main():
                            LORENZ_STEPS, gate_theta=True)
     counts_b = lorenz_path(lmodel, device, "banded", BANDED_CHAINS,
                            BANDED_STEPS, gate_theta=False)
+    print(f"Lorenz paths done at {time.perf_counter() - t_start:.1f} s")
     lorenz_tail = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
     for storage in ("hybrid", "banded"):
         check_composed(lmodel, device, storage, tail=lorenz_tail)
@@ -2379,6 +2646,12 @@ def main():
     kernels += [entry(f"{k}_fhn", k, "manifold", "fhn_unregistered",
                       counts_fhn)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels += [dict(name=f"{k}_hes1_log", route="cuda",
+                     source=SOURCES["manifold"],
+                     replaces=REPLACES["hes1_centered"], path="hes1_centered",
+                     launches=counts_hes1[f"{k}_hes1_log"],
+                     **timing[f"{k}_hes1_log"])
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
     kernels += [entry(f"{k}_lorenz", k, "manifold", "lorenz_hybrid",
                       counts_h)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
@@ -2398,6 +2671,13 @@ def main():
         **timing["leapfrog_update_nuts"]))
     kernels.append(entry("nuts_leaf", "nuts_leaf", "nuts", "seir_nuts",
                          counts_nuts))
+    kernels.append(dict(
+        name="leapfrog_update_nuts_hes1", route="cuda",
+        source=SOURCES["leapfrog"], replaces=REPLACES["leapfrog_update_nuts"],
+        path="hes1_centered", launches=counts_hes1["leapfrog_update"],
+        **timing["leapfrog_update_nuts_hes1"]))
+    kernels.append(entry("nuts_leaf_hes1", "nuts_leaf", "nuts",
+                         "hes1_centered", counts_hes1))
     kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
                 for k in ("banded_solve", "banded_solve_adjoint")]
     kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)

@@ -8,11 +8,13 @@ there in ``config.dtype``. The fitted state is kept as host NumPy arrays,
 like the JAX model's, so a fit can be carried across packages
 (utils/checkpoint.py).
 
-Ported so far: the fully-observed ``initial_fit`` and ``predict`` with
-``algorithm="nuts"`` (the default) or ``"hmc"``, ``reparam="precond"`` in
-every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``),
-``sigma_sqs_fixed`` and ``gn_anchor``. Every other argument value raises
-NotImplementedError naming its ROADMAP.md item.
+Ported so far: ``initial_fit`` for fully and partially observed systems
+(the gradient-matching init of unobserved components), and ``predict``
+with ``algorithm="nuts"`` (the default) or ``"hmc"``, ``reparam="precond"``
+in every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``) and
+``reparam="centered"`` in dense storage, ``sigma_sqs_fixed`` and
+``gn_anchor``. Every other argument value raises NotImplementedError naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ import torch
 from magi_v2_tpu_torch import preprocess
 from magi_v2_tpu_torch.config import DEFAULT_CONFIG, MagiConfig
 from magi_v2_tpu_torch.hparams import fit_kernel_hparams
-from magi_v2_tpu_torch.init import fit_theta_fully_observed
+from magi_v2_tpu_torch.init import (
+    fit_theta_fully_observed,
+    fit_unobserved_gradient_matching,
+)
 from magi_v2_tpu_torch.ops.kernels import magi_kernel_matrices, uniform_spacing
 from magi_v2_tpu_torch.ops.linalg import band_part, sym_pinv, sym_sqrt
 from magi_v2_tpu_torch.posterior import make_posterior_data, to_banded_data
@@ -90,6 +95,11 @@ class MAGI_v2:
             np.arange(self.D), self.observed_components
         )
         self.D_unobserved = len(self.unobserved_components)
+        # the column order of [observed | unobserved] back to the model's
+        self.proper_order = np.argsort(
+            np.concatenate([self.observed_components,
+                            self.unobserved_components])
+        )
         self.N_ds = (~np.isnan(self.X_obs)).sum(axis=0)
 
         self.I = None
@@ -139,20 +149,30 @@ class MAGI_v2:
 
     def initial_fit(self, discretization: int, verbose: bool = False,
                     thetas_init=None):
-        """Discretize, fit GP hyperparameters, initialize theta. Fully
-        observed systems only (the gradient-matching branch is ROADMAP.md
-        queue 1 item 8). Host wall seconds per phase land in
-        ``fit_timings``; each phase ends by copying its result to the host,
-        so the walls include the device work.
+        """Discretize, fit GP hyperparameters, initialize theta and, for a
+        partially observed system, the unobserved trajectories (the JAX
+        package's gradient-matching branch: the observed components
+        CV-smoothed, a multi-start gradient-matching fit of (X_unobs,
+        theta), the unobserved components' hyperparameters fitted on the
+        grid). Host wall seconds per phase land in ``fit_timings``; each
+        phase ends by copying its result to the host, so the walls include
+        the device work.
 
-        ``thetas_init`` (D_thetas,) skips the theta fit and starts theta
-        there. On dense grids the fit through K^{-1} can be ill-posed
-        (Lorenz at N_I = 1025: K's cancellation falls below float64's
-        resolution, see ROADMAP.md queue 3); a fit of the same data at a
-        coarser discretization is then a sound start."""
-        if not np.all(self.observed_indicators):
-            raise _not_ported("initial_fit with unobserved components", "8")
+        ``thetas_init`` (D_thetas,) skips the theta fit of a fully observed
+        system and starts theta there. On dense grids the fit through
+        K^{-1} can be ill-posed (Lorenz at N_I = 1025: K's cancellation
+        falls below float64's resolution, see ROADMAP.md queue 3); a fit of
+        the same data at a coarser discretization is then a sound start. A
+        partially observed system fits theta jointly with its unobserved
+        trajectories, which the JAX package does from no given start, so
+        ``thetas_init`` is refused there."""
+        partial = not np.all(self.observed_indicators)
         if thetas_init is not None:
+            if partial:
+                raise ValueError(
+                    "thetas_init is taken only by a fully observed system: "
+                    "with unobserved components theta is fitted jointly "
+                    "with their trajectories by gradient matching")
             thetas_init = np.asarray(thetas_init, np.float64)
             if thetas_init.shape != (self.D_thetas,) or not np.all(
                     np.isfinite(thetas_init)):
@@ -160,16 +180,18 @@ class MAGI_v2:
                     f"thetas_init must be {self.D_thetas} finite values, got "
                     f"{thetas_init!r}")
         cfg = self.config
+        obs = self.observed_indicators
         self.I, self.X_obs_discret = preprocess.discretize(
             self.ts_obs, self.X_obs, discretization
         )
         self.mag_I = self.I.shape[0]
         self.beta = (self.D * self.mag_I) / self.N_ds.sum()
         self.obs_index = preprocess.build_observation_index(self.X_obs_discret)
-        self.X_interp_obs = preprocess.linear_interpolate(self.X_obs_discret)
+        self.X_interp_obs = preprocess.linear_interpolate(
+            self.X_obs_discret[:, obs])
         if cfg.hparam_fit_points == "obs":
             fit_I = self.ts_obs.reshape(-1, 1)
-            fit_X = preprocess.linear_interpolate(self.X_obs)
+            fit_X = preprocess.linear_interpolate(self.X_obs[:, obs])
         elif cfg.hparam_fit_points == "grid":
             fit_I, fit_X = self.I, self.X_interp_obs
         else:
@@ -177,9 +199,8 @@ class MAGI_v2:
                 f"unknown hparam_fit_points {cfg.hparam_fit_points!r}"
             )
         timings = self.fit_timings = {}
-        t0 = time.perf_counter()
-        hp = fit_kernel_hparams(
-            fit_I, fit_X,
+        hparams = lambda I, X: fit_kernel_hparams(
+            I, X,
             nu=cfg.matern_nu,
             learning_rate=cfg.hparam_learning_rate,
             num_iters=cfg.hparam_num_iters,
@@ -187,18 +208,49 @@ class MAGI_v2:
             optimizer=cfg.hparam_optimizer,
             device=cfg.torch_device,
         )
-        timings["hparam_mle"] = time.perf_counter() - t0
-        self.phi1s, self.phi2s = hp["phi1s"], hp["phi2s"]
-        self.sigma_sqs_init = hp["sigma_sqs"]
-        self.Xhat_init = self.X_interp_obs.copy()
-        self.mu_ds = self.X_interp_obs.mean(axis=0)
         t0 = time.perf_counter()
-        self.C_d_invs, self.m_ds, self.K_d_invs = self._build_inverse_matrices(
-            self.phi1s, self.phi2s
-        )
+        hp = hparams(fit_I, fit_X)
+        timings["hparam_mle"] = time.perf_counter() - t0
+        self.Xhat_init = self.X_obs_discret.copy()
+        self.C_d_invs, self.m_ds, self.K_d_invs = (
+            np.zeros((self.D, self.mag_I, self.mag_I)) for _ in range(3))
+        t0 = time.perf_counter()
+        self._set_components(self.observed_components, hp, self.X_interp_obs)
         timings["kernel_matrices"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if thetas_init is None:
+        if partial:
+            X_smoothed_obs = preprocess.cv_cubic_smoother(
+                self.I,
+                self.X_interp_obs,
+                n_splits=cfg.spline_cv_folds,
+                obs_per_knot=cfg.spline_obs_per_knot,
+                min_points=cfg.spline_min_points,
+            )
+            X_unobs, self.thetas_init, _ = fit_unobserved_gradient_matching(
+                self.f_vec,
+                self._f64(self.I),
+                self._f64(X_smoothed_obs),
+                self.proper_order,
+                self.D_unobserved,
+                self.D_thetas,
+                learning_rate=cfg.init_learning_rate,
+                num_iters=cfg.init_num_iters,
+                # the winner by the observed-manifold score (see the JAX
+                # function), from the observed components' operators
+                observed_components=self.observed_components,
+                m_ds_obs=self._f64(self.m_ds[obs]),
+                K_invs_obs=self._f64(self.K_d_invs[obs]),
+                mu_obs=self._f64(self.mu_ds[obs]),
+            )
+            timings["gradient_matching"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hp_unobs = hparams(self.I, X_unobs)
+            timings["hparam_mle_unobserved"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._set_components(self.unobserved_components, hp_unobs,
+                                 X_unobs)
+            timings["kernel_matrices"] += time.perf_counter() - t0
+        elif thetas_init is None:
             self.thetas_init, _ = fit_theta_fully_observed(
                 self.f_vec,
                 self._f64(self.I),
@@ -210,9 +262,10 @@ class MAGI_v2:
                 learning_rate=cfg.init_learning_rate,
                 num_iters=cfg.init_num_iters,
             )
+            timings["theta_init"] = time.perf_counter() - t0
         else:
             self.thetas_init = thetas_init.copy()
-        timings["theta_init"] = time.perf_counter() - t0
+            timings["theta_init"] = time.perf_counter() - t0
         self._apply_band_truncation(verbose)
         t0 = time.perf_counter()
         self.Xhat_init = preprocess.cv_cubic_smoother(
@@ -225,6 +278,20 @@ class MAGI_v2:
         timings["cv_smoother"] = time.perf_counter() - t0
         if verbose:
             print(f"initial_fit phases (s): {timings}")
+
+    def _set_components(self, comps, hp, X_init):
+        """Write the fitted hyperparameters ``hp``, the initial
+        trajectories X_init (N_I, len(comps)), their means and the
+        operators built from the hyperparameters into the slots ``comps``
+        of the model's per-component state."""
+        self.phi1s[comps] = hp["phi1s"]
+        self.phi2s[comps] = hp["phi2s"]
+        self.sigma_sqs_init[comps] = hp["sigma_sqs"]
+        self.Xhat_init[:, comps] = X_init
+        self.mu_ds[comps] = X_init.mean(axis=0)
+        ops = self._build_inverse_matrices(hp["phi1s"], hp["phi2s"])
+        for stack, op in zip((self.C_d_invs, self.m_ds, self.K_d_invs), ops):
+            stack[comps] = op
 
     def _apply_band_truncation(self, verbose: bool = False):
         """Band-truncate C^{-1}/K^{-1}/m and record, per operator family,
@@ -448,16 +515,17 @@ class MAGI_v2:
         ``reparam="precond"`` and ``storage`` "dense", "hybrid" (banded GN
         whitening around the exact operators: the accurate dense-grid
         mode) or "banded" (every operator O(N_I * bandsize); the target is
-        the band-truncated posterior), ``sigma_sqs_fixed`` (known noise
-        variances, pinned) and ``gn_anchor`` (banded/hybrid only); the
-        other values raise NotImplementedError. With num_chains > 1 the
+        the band-truncated posterior), or ``reparam="centered"`` (X
+        sampled directly, like the reference) with ``storage="dense"``;
+        ``sigma_sqs_fixed`` (known noise variances, pinned) and
+        ``gn_anchor`` (precond banded/hybrid only); the other values raise
+        NotImplementedError (``reparam="whitened"`` and centered banded or
+        hybrid storage: ROADMAP.md queue 1 item 9). With num_chains > 1 the
         ``*_samps`` arrays carry a chain axis at position 1. Host wall
         seconds per phase land in ``predict_timings`` (the device is waited
         for at the end of each): the parts of the sampling setup
         ("setup_*", with "setup_rest" the remainder), "sampling" and
         "unwhiten"."""
-        if reparam != "precond":
-            raise _not_ported(f"reparam={reparam!r}", "9")
         if init_states is not None:
             raise _not_ported("init_states", "9")
         if precond_refresh_steps:

@@ -56,11 +56,14 @@
 // dim = N*D + D + P; x0T, a0, f0, s0, mask, y (D, N).
 //
 // The model enters as a functor (f, vjp_x, vjp_theta: the field and its
-// vector-Jacobian products); a new ODE model adds a struct and one
-// instantiation line. A field with no functor (an ODE model written in
-// PyTorch alone) takes the given_* kernels below: PyTorch evaluates the
-// field and its VJPs on the card, and the kernels do the rest of the same
-// work, with D and P read at run time (D <= kMaxD).
+// vector-Jacobian products), one for each field of magi_v2_tpu/models/
+// odes.py; a new ODE model adds a struct and one instantiation line. A
+// chain's per-CTA partial sums are P + D wide in manifold_bwd (11 at most
+// here, protein transduction), within the 16 of a `part` row
+// (ops/manifold.py: _PART_WIDTH). A field with no functor (an ODE model
+// written in PyTorch alone) takes the given_* kernels below: PyTorch
+// evaluates the field and its VJPs on the card, and the kernels do the rest
+// of the same work, with D and P read at run time (D <= kMaxD).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,6 +182,239 @@ struct Lorenz {
     gth[0] = g[0] * (x[1] - x[0]);
     gth[1] = g[1] * x[0];
     gth[2] = -g[2] * x[2];
+  }
+};
+
+// SIRW (magi_v2_tpu/models/odes.py:sirw_f_vec): x = (S, I, R, W),
+// theta = (beta, phi, xi, chi, kappa).
+struct Sirw {
+  static constexpr int D = 4;
+  static constexpr int P = 5;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T S = x[0], I = x[1], R = x[2], W = x[3];
+    const T bsi = th[0] * S * I, ciw = th[3] * I * W;
+    out[0] = -bsi + th[4] * W;
+    out[1] = bsi - th[1] * I;
+    out[2] = th[1] * I - th[2] * R + ciw;
+    out[3] = th[2] * R - ciw - th[4] * W;
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    const T S = x[0], I = x[1], W = x[3];
+    const T d10 = g[1] - g[0], d23 = g[2] - g[3];
+    gx[0] = th[0] * I * d10;
+    gx[1] = th[0] * S * d10 + th[1] * (g[2] - g[1]) + th[3] * W * d23;
+    gx[2] = th[2] * (g[3] - g[2]);
+    gx[3] = th[4] * (g[0] - g[3]) + th[3] * I * d23;
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T S = x[0], I = x[1], R = x[2], W = x[3];
+    gth[0] = S * I * (g[1] - g[0]);
+    gth[1] = I * (g[2] - g[1]);
+    gth[2] = R * (g[3] - g[2]);
+    gth[3] = I * W * (g[2] - g[3]);
+    gth[4] = W * (g[0] - g[3]);
+  }
+};
+
+// FitzHugh-Nagumo (magi_v2_tpu/models/odes.py:fitzhugh_nagumo_f_vec):
+// x = (V, R), theta = (a, b, c).
+struct FitzHughNagumo {
+  static constexpr int D = 2;
+  static constexpr int P = 3;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T V = x[0], R = x[1];
+    out[0] = th[2] * (V - V * V * V / T(3) + R);
+    out[1] = -(V - th[0] + th[1] * R) / th[2];
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    const T V = x[0], c = th[2];
+    gx[0] = c * (T(1) - V * V) * g[0] - g[1] / c;
+    gx[1] = c * g[0] - th[1] * g[1] / c;
+  }
+
+  // d f1 / d c = (V - a + b R) / c^2
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T V = x[0], R = x[1], c = th[2];
+    gth[0] = g[1] / c;
+    gth[1] = -R * g[1] / c;
+    gth[2] = g[0] * (V - V * V * V / T(3) + R) +
+             g[1] * (V - th[0] + th[1] * R) / (c * c);
+  }
+};
+
+// Hes1 (magi_v2_tpu/models/odes.py:hes1_f_vec): x = (P, M, H),
+// theta = (a, b, c, d, e, f, g); q = 1 / (1 + P^2), dq/dP = -2 P q^2.
+struct Hes1 {
+  static constexpr int D = 3;
+  static constexpr int P = 7;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T Pr = x[0], M = x[1], H = x[2];
+    const T aph = th[0] * Pr * H, q = T(1) / (T(1) + Pr * Pr);
+    out[0] = -aph + th[1] * M - th[2] * Pr;
+    out[1] = -th[3] * M + th[4] * q;
+    out[2] = -aph + th[5] * q - th[6] * H;
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    const T Pr = x[0], H = x[2];
+    const T q = T(1) / (T(1) + Pr * Pr), g02 = g[0] + g[2];
+    gx[0] = -th[0] * H * g02 - th[2] * g[0] -
+            T(2) * Pr * q * q * (th[4] * g[1] + th[5] * g[2]);
+    gx[1] = th[1] * g[0] - th[3] * g[1];
+    gx[2] = -th[0] * Pr * g02 - th[6] * g[2];
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T Pr = x[0], M = x[1], H = x[2];
+    const T q = T(1) / (T(1) + Pr * Pr);
+    gth[0] = -Pr * H * (g[0] + g[2]);
+    gth[1] = M * g[0];
+    gth[2] = -Pr * g[0];
+    gth[3] = -M * g[1];
+    gth[4] = q * g[1];
+    gth[5] = q * g[2];
+    gth[6] = -H * g[2];
+  }
+};
+
+// Hes1 on the log scale (magi_v2_tpu/models/odes.py:hes1_log_f_vec):
+// x = (log P, log M, log H), theta = (a, b, c, d, e, f, g). With
+// q = 1 / (1 + P^2), r = b M / P, u = e q / M, w = f q / H and
+// s = 2 P^2 q (so that d q / d log P = -s q):
+//   f = (-a H + r - c, -d + u, -a P + w - g),
+//   d r / d log P = -r, d u / d log P = -s u, d w / d log P = -s w.
+// The exponentials are the accurate exp/expf (no fast math in the build).
+struct Hes1Log {
+  static constexpr int D = 3;
+  static constexpr int P = 7;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T Pr = ex(x[0]), M = ex(x[1]), H = ex(x[2]);
+    const T q = T(1) / (T(1) + Pr * Pr);
+    out[0] = -th[0] * H + th[1] * M / Pr - th[2];
+    out[1] = -th[3] + th[4] * q / M;
+    out[2] = -th[0] * Pr + th[5] * q / H - th[6];
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    const T Pr = ex(x[0]), M = ex(x[1]), H = ex(x[2]);
+    const T q = T(1) / (T(1) + Pr * Pr);
+    const T r = th[1] * M / Pr, u = th[4] * q / M, w = th[5] * q / H;
+    const T s = T(2) * Pr * Pr * q;
+    gx[0] = -r * g[0] - s * u * g[1] - (th[0] * Pr + s * w) * g[2];
+    gx[1] = r * g[0] - u * g[1];
+    gx[2] = -th[0] * H * g[0] - w * g[2];
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T Pr = ex(x[0]), M = ex(x[1]), H = ex(x[2]);
+    const T q = T(1) / (T(1) + Pr * Pr);
+    gth[0] = -H * g[0] - Pr * g[2];
+    gth[1] = M / Pr * g[0];
+    gth[2] = -g[0];
+    gth[3] = -g[1];
+    gth[4] = q / M * g[1];
+    gth[5] = q / H * g[2];
+    gth[6] = -g[2];
+  }
+};
+
+// Lotka-Volterra (magi_v2_tpu/models/odes.py:lotka_volterra_f_vec):
+// x = (u, v), theta = (a, b, c, d).
+struct LotkaVolterra {
+  static constexpr int D = 2;
+  static constexpr int P = 4;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T uv = x[0] * x[1];
+    out[0] = th[0] * x[0] - th[1] * uv;
+    out[1] = th[2] * uv - th[3] * x[1];
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    gx[0] = (th[0] - th[1] * x[1]) * g[0] + th[2] * x[1] * g[1];
+    gx[1] = -th[1] * x[0] * g[0] + (th[2] * x[0] - th[3]) * g[1];
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T uv = x[0] * x[1];
+    gth[0] = x[0] * g[0];
+    gth[1] = -uv * g[0];
+    gth[2] = uv * g[1];
+    gth[3] = -x[1] * g[1];
+  }
+};
+
+// Protein transduction (magi_v2_tpu/models/odes.py:
+// protein_transduction_f_vec): x = (S, S_d, R, S_R, R_pp),
+// theta = (k1, k2, k3, k4, V, Km). The Michaelis-Menten term
+// mm = V R_pp / (Km + R_pp) enters f_2 with + and f_4 with -; by the
+// quotient rule d mm / d R_pp = V Km / (Km + R_pp)^2,
+// d mm / d V = R_pp / (Km + R_pp), d mm / d Km = -V R_pp / (Km + R_pp)^2.
+struct ProteinTransduction {
+  static constexpr int D = 5;
+  static constexpr int P = 6;
+
+  template <typename T>
+  __device__ static void f(const T* x, const T* th, T* out) {
+    const T S = x[0], R = x[2], SR = x[3], Rpp = x[4];
+    const T ksr = th[1] * S * R, mm = th[4] * Rpp / (th[5] + Rpp);
+    out[0] = -th[0] * S - ksr + th[2] * SR;
+    out[1] = th[0] * S;
+    out[2] = -ksr + th[2] * SR + mm;
+    out[3] = ksr - (th[2] + th[3]) * SR;
+    out[4] = th[3] * SR - mm;
+  }
+
+  template <typename T>
+  __device__ static void vjp_x(const T* x, const T* th, const T* g, T* gx) {
+    const T S = x[0], R = x[2], Rpp = x[4];
+    const T k = T(1) / (th[5] + Rpp);
+    const T g302 = g[3] - g[0] - g[2];
+    gx[0] = th[0] * (g[1] - g[0]) + th[1] * R * g302;
+    gx[1] = T(0);
+    gx[2] = th[1] * S * g302;
+    gx[3] = th[2] * (g[0] + g[2] - g[3]) + th[3] * (g[4] - g[3]);
+    gx[4] = th[4] * th[5] * k * k * (g[2] - g[4]);
+  }
+
+  template <typename T>
+  __device__ static void vjp_theta(const T* x, const T* th, const T* g,
+                                   T* gth) {
+    const T S = x[0], R = x[2], SR = x[3], Rpp = x[4];
+    const T k = T(1) / (th[5] + Rpp), g24 = g[2] - g[4];
+    gth[0] = S * (g[1] - g[0]);
+    gth[1] = S * R * (g[3] - g[0] - g[2]);
+    gth[2] = SR * (g[0] + g[2] - g[3]);
+    gth[3] = SR * (g[4] - g[3]);
+    gth[4] = Rpp * k * g24;
+    gth[5] = -th[4] * Rpp * k * k * g24;
   }
 };
 
@@ -675,5 +911,19 @@ MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, float, f32)
 MAGI_MANIFOLD_ENTRY_POINTS(Seir, seir, double, f64)
 MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, float, f32)
 MAGI_MANIFOLD_ENTRY_POINTS(Lorenz, lorenz, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(Sirw, sirw, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(Sirw, sirw, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(FitzHughNagumo, fitzhugh_nagumo, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(FitzHughNagumo, fitzhugh_nagumo, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(Hes1, hes1, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(Hes1, hes1, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(Hes1Log, hes1_log, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(Hes1Log, hes1_log, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(LotkaVolterra, lotka_volterra, float, f32)
+MAGI_MANIFOLD_ENTRY_POINTS(LotkaVolterra, lotka_volterra, double, f64)
+MAGI_MANIFOLD_ENTRY_POINTS(ProteinTransduction, protein_transduction, float,
+                           f32)
+MAGI_MANIFOLD_ENTRY_POINTS(ProteinTransduction, protein_transduction, double,
+                           f64)
 MAGI_MANIFOLD_GIVEN_ENTRY_POINTS(float, f32)
 MAGI_MANIFOLD_GIVEN_ENTRY_POINTS(double, f64)

@@ -54,14 +54,16 @@ class Launch:
     ctypes values here, so that a call converts nothing. ``rebind`` points
     one argument at another tensor (the caller keeps that tensor alive; the
     tensors given here are kept by the object); a call takes the stream,
-    raises when the launch is refused, and adds one to ``counts[key]``."""
+    raises when the launch is refused, and adds one to ``counts[key]``
+    (to each of the keys, for a tuple of them)."""
 
-    __slots__ = ("fn", "cargs", "counts", "key", "keep")
+    __slots__ = ("fn", "cargs", "counts", "key", "keys", "keep")
 
-    def __init__(self, fn, args, counts: dict, key: str):
+    def __init__(self, fn, args, counts: dict, key):
         import torch
 
-        self.fn, self.counts, self.key = fn, counts, key
+        self.keys = (key,) if isinstance(key, str) else tuple(key)
+        self.fn, self.counts, self.key = fn, counts, self.keys[0]
         self.keep = [a for a in args if isinstance(a, torch.Tensor)]
         if len(args) + 1 != len(fn.argtypes):
             raise TypeError(f"{key} takes {len(fn.argtypes) - 1} arguments "
@@ -79,7 +81,8 @@ class Launch:
         if err != 0:
             raise RuntimeError(f"CUDA launch of {self.key} failed: error "
                                f"{err}")
-        self.counts[self.key] += 1
+        for key in self.keys:
+            self.counts[key] += 1
 
 
 def _nvcc() -> str:

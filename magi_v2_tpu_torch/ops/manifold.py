@@ -23,7 +23,9 @@ kernel) and its VJPs (before the bwd kernel) on the card's tensors, and
 the kernels do the rest; a CUDA graph captures both. Which kernels a field
 takes is fixed by the field; a launch that fails raises either way.
 ``LAUNCH_COUNTS`` counts kernel launches only, under the three names
-whichever kernels they are.
+whichever kernels they are (``launch_counts``), and again under the name
+and the functor (``functor_launch_counts``: "manifold_fwd_hes1_log", ...;
+"manifold_fwd_given" for the given kernels).
 
 What is checked when, and which buffers are reused. The three wrapper
 functions check every argument on every call and allocate their outputs
@@ -54,24 +56,41 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from magi_v2_tpu_torch.models.odes import cuda_model_of
+from magi_v2_tpu_torch.models.odes import MODEL_REGISTRY, cuda_model_of
 
 KERNELS = ("manifold_fwd", "manifold_energy", "manifold_bwd")
-LAUNCH_COUNTS = {k: 0 for k in KERNELS}
+# the kernels' model functors (csrc/manifold.cu), and "given"
+FUNCTORS = tuple(m.cuda_model for m in MODEL_REGISTRY.values()
+                 if m.cuda_model) + ("given",)
+LAUNCH_COUNTS = {k: 0 for k in KERNELS
+                 + tuple(f"{k}_{m}" for k in KERNELS for m in FUNCTORS)}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in LAUNCH_COUNTS:
         LAUNCH_COUNTS[k] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCH_COUNTS)
+    """Launches by kernel, whichever functor."""
+    return {k: LAUNCH_COUNTS[k] for k in KERNELS}
+
+
+def functor_launch_counts() -> dict:
+    """Launches by kernel and functor ("manifold_fwd_hes1_log", ...)."""
+    return {k: n for k, n in LAUNCH_COUNTS.items() if k not in KERNELS}
 
 
 # --------------------------------------------------------------------------
 # plain versions (the CPU path and the oracle of the kernels)
 # --------------------------------------------------------------------------
+
+
+def _softplus(x):
+    """log(1 + e^x) to the last bit at any x, as the kernels and
+    jax.nn.softplus compute it (F.softplus returns x itself above 20,
+    which is e^-20 off: 1e-10 of theta = 20, Hes1's f)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _split_q(q, N, D):
@@ -85,7 +104,7 @@ def field_values(f_vec, I, delta, q, x0T):
     that the plain fwd and the given fwd kernel take."""
     C, D, N = delta.shape
     X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
-    return f_vec(I, X, F.softplus(_split_q(q, N, D)[1]))
+    return f_vec(I, X, _softplus(_split_q(q, N, D)[1]))
 
 
 def field_vjp(f_vec, I, gdr, delta, q, x0T):
@@ -95,7 +114,7 @@ def field_vjp(f_vec, I, gdr, delta, q, x0T):
     C, D, N = delta.shape
     X = (x0T[None] + delta).transpose(1, 2)                  # (C, N, D)
     _, vjp = torch.func.vjp(lambda X_, th_: f_vec(I, X_, th_), X,
-                            F.softplus(_split_q(q, N, D)[1]))
+                            _softplus(_split_q(q, N, D)[1]))
     return vjp(gdr.permute(1, 2, 0))
 
 
@@ -110,7 +129,7 @@ def manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y,
     gcat = torch.empty_like(RmD)
     gcat[..., :N] = -scale * (Rd + a0[:, None, :])
     t1 = torch.sum(Rd * (Rd + 2.0 * a0[:, None, :]), dim=(0, 2))
-    inv_var = 1.0 / (F.softplus(sp) + sigma_lb)               # (C, D)
+    inv_var = 1.0 / (_softplus(sp) + sigma_lb)               # (C, D)
     r = x0T[None] + delta - y[None]                           # (C, D, N)
     t4 = torch.sum(torch.sum(mask * r * r, dim=-1) * inv_var, dim=-1)
     return dr.contiguous(), gcat, torch.stack([t1, t4], dim=-1)
@@ -121,7 +140,7 @@ def manifold_energy_plain(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
     D, C, N = Ds.shape
     sp, tp = _split_q(q, N, D)
     t2 = torch.sum(Ds * (Ds + 2.0 * s0[:, None, :]), dim=(0, 2))
-    sig2 = F.softplus(sp) + sigma_lb
+    sig2 = _softplus(sp) + sigma_lb
     t3 = torch.sum(n_ds * torch.log(2.0 * torch.pi * sig2), dim=-1)
     lj = (torch.sum(F.logsigmoid(sp), dim=-1)
           + torch.sum(F.logsigmoid(tp), dim=-1))
@@ -137,7 +156,7 @@ def manifold_bwd_plain(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
     sp, tp = _split_q(q, N, D)
     gX, gth = field_vjp(f_vec, I, gdr, delta, q, x0T)        # (C,N,D), (C,P)
     gcat[..., N:] = gdr
-    sig2 = F.softplus(sp) + sigma_lb                          # (C, D)
+    sig2 = _softplus(sp) + sigma_lb                          # (C, D)
     r = x0T[None] + delta - y[None]                           # (C, D, N)
     ssr = torch.sum(mask * r * r, dim=-1)
     gpart = (gX.transpose(1, 2)
@@ -182,9 +201,13 @@ _ENTRIES = {}
 
 # points of a chain per CTA (csrc/manifold.cu: kThreads) and the widest row
 # of per-CTA partial sums (manifold_bwd: P + D values for a functor's
-# model, D for a given field; at most _PART_WIDTH)
+# model, 11 at most among the registered fields; kMaxD = 8 for a given
+# field; at most _PART_WIDTH)
 _CHUNK = 128
-_PART_WIDTH = 8
+_PART_WIDTH = 16
+# the most components a field with no functor may have (csrc/manifold.cu:
+# kMaxD)
+_GIVEN_MAX_D = 8
 
 
 def _given(f_vec) -> bool:
@@ -222,17 +245,16 @@ def _check_width(f_vec, D: int, P: int) -> None:
     """The per-chain sums the kernels pass for this model fit a row of
     ``part``."""
     if _given(f_vec):
-        if D > _PART_WIDTH:
+        if D > _GIVEN_MAX_D:
             raise ValueError(
                 f"the CUDA manifold kernels take a field of at most "
-                f"{_PART_WIDTH} components, not {D}; widen _PART_WIDTH in "
-                "ops/manifold.py and kMaxD in csrc/manifold.cu")
+                f"{_GIVEN_MAX_D} components, not {D}; widen kMaxD in "
+                "csrc/manifold.cu and _GIVEN_MAX_D here")
     elif P + D > _PART_WIDTH:
         raise ValueError(
             f"the CUDA manifold kernels pass at most {_PART_WIDTH} per-chain "
             f"sums of a model (theta and sigma gradients: P + D = {P} + {D}); "
-            "widen _PART_WIDTH in ops/manifold.py and csrc/manifold.cu for "
-            "this model")
+            "widen _PART_WIDTH in ops/manifold.py for this model")
 
 
 def make_scratch(C: int, N: int, dtype, device):
@@ -297,8 +319,9 @@ _AT = {False: dict(fwd=dict(q=2, beta_temp=9),
 def _prepare(kernel, f_vec, dtype, args):
     from magi_v2_tpu_torch.ops._build import Launch
 
+    family = f"manifold_{kernel}"
     return Launch(_entry(kernel, f_vec, dtype), args, LAUNCH_COUNTS,
-                  f"manifold_{kernel}")
+                  (family, f"{family}_{cuda_model_of(f_vec) or 'given'}"))
 
 
 def _launch(kernel, f_vec, dtype, args):

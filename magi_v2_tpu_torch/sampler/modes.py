@@ -1,5 +1,5 @@
 """Sampler coordinate systems for MAGI_v2.predict() (counterpart of
-magi_v2_tpu/sampler/modes.py, ``reparam="precond"``): Gauss-Newton
+magi_v2_tpu/sampler/modes.py). ``reparam="precond"``: Gauss-Newton
 whitening around a float64 relative-energy zero point, with
 
 - ``storage="dense"``: z = L^{-1}(x - mu), L from a dense (ND, ND) eigh;
@@ -10,11 +10,16 @@ whitening around a float64 relative-energy zero point, with
   operators, every per-leapfrog product O(ND * b) (the target itself is
   the band-truncated posterior).
 
+``reparam="centered"`` with ``storage="dense"``: X sampled directly, like
+the reference, through the same relative-energy target (the identity as
+its whitening stage).
+
 Each map is linear and fixed, so the posterior over X is the same in all
 of them. Known-sigma pinning (``sigma_sqs_fixed``) is applied here, inside
-``build_sampling_mode``. The centered and GP-prior whitened modes,
-user-supplied initial states and the mid-warmup re-anchoring
-(``precond_refresh_steps``) are ROADMAP.md queue 1 items 9 to 11.
+``build_sampling_mode``. The GP-prior whitened mode, centered coordinates
+in banded or hybrid storage, user-supplied initial states and the
+mid-warmup re-anchoring (``precond_refresh_steps``) are ROADMAP.md queue 1
+items 9 and 10.
 """
 
 from __future__ import annotations
@@ -88,7 +93,8 @@ class SamplingMode:
       sigma pinning (if any) applied;
     - ``X0`` — initial X-block coordinates (N_I, D) in the sampling dtype;
     - ``factor`` — maps z draws back to trajectories: L (x = mu + L z) in
-      dense storage, an ``UpperFactor`` U (x = mu + U^{-1} z) otherwise;
+      dense storage, an ``UpperFactor`` U (x = mu + U^{-1} z) in banded
+      and hybrid storage, None in centered coordinates (x = z);
     - ``gn`` — the banded-GN parts (U_blocks, U_dinv, factor, ref, z0,
       z064, info), or None.
     """
@@ -177,11 +183,15 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     for the banded/hybrid GN factor and zero point (predict's
     ``gn_anchor``), instead of (Xhat_init, thetas_init); ``timer`` times
     the parts (``timing.PhaseTimer``)."""
-    if reparam != "precond" or storage not in ("dense", "banded", "hybrid"):
+    if reparam not in ("precond", "centered", "whitened"):
+        raise ValueError(f"unknown reparam mode {reparam!r}")
+    if (reparam == "whitened" or storage not in ("dense", "banded", "hybrid")
+            or (reparam == "centered" and storage != "dense")):
         raise NotImplementedError(
             f"reparam={reparam!r}, storage={storage!r} is not ported; only "
             "reparam='precond' with storage 'dense', 'banded' or 'hybrid' "
-            "is (ROADMAP.md queue 1 item 9)"
+            "and reparam='centered' with storage 'dense' are (ROADMAP.md "
+            "queue 1 item 9)"
         )
     if anchor is not None and storage == "dense":
         raise ValueError(
@@ -193,7 +203,24 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                     dtype=torch.float64, device=dev)
 
-    if storage in ("banded", "hybrid"):
+    if reparam == "centered":
+        from magi_v2_tpu_torch.posterior import make_ref_point
+        from magi_v2_tpu_torch.sampler.precond import (
+            make_tempered_logp_grad_centered,
+        )
+
+        with timer("setup_ref_point"):
+            ref = make_ref_point(
+                model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
+                model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
+            )
+        with timer("setup_target"):
+            logp_grad = make_tempered_logp_grad_centered(
+                data, model.f_vec, model.mag_I, model.D, model.D_thetas,
+                ref=ref, z0=ref.x0.reshape(-1),
+            )
+        factor, gn, X0 = None, None, ref.x0
+    elif storage in ("banded", "hybrid"):
         anchor_X, anchor_th = ((model.Xhat_init, model.thetas_init)
                                if anchor is None else anchor)
         logp_grad, gn = _build_banded_gn_parts(
@@ -249,8 +276,11 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
 
 def unwhiten_draws(mode: SamplingMode, Z, mu_ds, max_bytes: int = 1 << 30):
     """Trajectories from z draws Z (T, C, N_I, D): X = mu + L z (one
-    batched GEMM per chunk) or X = mu + U^{-1} z (K4 over the chunk's
-    draws and chains), the chunk bounded by ``max_bytes`` of output."""
+    batched GEMM per chunk), X = mu + U^{-1} z (K4 over the chunk's draws
+    and chains), the chunk bounded by ``max_bytes`` of output, or, in
+    centered coordinates, X = z."""
+    if mode.factor is None:
+        return Z.clone()
     T = Z.shape[0]
     per_draw = max(1, Z[0].numel() * Z.element_size())
     chunk = max(1, max_bytes // per_draw)

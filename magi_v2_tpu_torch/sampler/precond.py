@@ -23,12 +23,19 @@ intermediates in fixed buffers and every stage bound to them once
 that an evaluation only launches. The two stages:
 
 - the whitening stage, delta = W (z - z0) and its adjoint: a dense GEMM
-  with L (``DenseWhitening``) or the K4 solve with U (``BandedWhitening``);
+  with L (``DenseWhitening``), the K4 solve with U (``BandedWhitening``),
+  or the identity in centered coordinates (``IdentityWhitening``);
 - the operator stage, [R; m] delta, S dr and their adjoints: dense batched
   GEMMs (``DenseOperators``) or K3 on the band-truncated factors
   (``BandedOperators``).
 
 Dense storage = (L, dense), hybrid = (K4, dense), banded = (K4, K3).
+
+Centered coordinates (``reparam="centered"``: the sampler's X block is the
+trajectories themselves) take the identity as the whitening stage
+(``IdentityWhitening``: delta = x - x0) with the dense operators, so they
+keep the factored ||R x||^2 forms and the relative energies, which a raw
+float32 x'C^{-1}x would lose.
 """
 
 from __future__ import annotations
@@ -195,15 +202,22 @@ def gauss_newton_precision_band(
     obs_diag = (np.asarray(obs_mask, np.float64)
                 / np.asarray(sigma_sqs, np.float64)[None, :]).ravel()
     lam = (lam + sp.diags(obs_diag)).tocsr()
+    return sparse_band(lam, int(min(bw, ND - 1)))
 
-    bw = int(min(bw, ND - 1))
-    band = np.zeros((2 * bw + 1, ND), np.float64)
-    for k in range(-bw, bw + 1):
-        diag = lam.diagonal(k)
-        if k >= 0:
-            band[bw + k, : ND - k] = diag
-        else:
-            band[bw + k, -k:] = diag
+
+def sparse_band(lam, bw: int):
+    """The (2 bw + 1, n) band storage of the square sparse ``lam``:
+    band[bw + k] is lam.diagonal(k), left-aligned for k < 0 and
+    right-padded for k >= 0, so band[bw + (j - i), i] = lam[i, j]. One
+    scatter of the nonzeros: a diagonal extraction is a pass over all of
+    them, and 2 bw + 1 such passes dominated the host setup of the Lorenz
+    dense grid (scripts/gn_band_probe.py)."""
+    lam = lam.tocoo()
+    lam.sum_duplicates()
+    k = lam.col - lam.row
+    keep = np.abs(k) <= bw
+    band = np.zeros((2 * bw + 1, lam.shape[0]), np.float64)
+    band[bw + k[keep], lam.row[keep]] = lam.data[keep]
     return band
 
 
@@ -322,6 +336,29 @@ class DenseWhitening:
             forward=lambda stream: torch.mm(dz, self.Lt_perm, out=delta2),
             backward=lambda grad, stream: torch.mm(g_delta2, self.L_perm,
                                                    out=grad[:, :ND]))
+
+    to = _to
+
+
+class IdentityWhitening:
+    """Centered coordinates: delta = x - x0, the sampler's (C, N*D) block
+    of x - x0 (interleaved, n*D + d) permuted to the component-major (C, D,
+    N) delta; the adjoint g_x = g_delta, permuted back into the gradient's
+    leading N*D columns."""
+
+    def __init__(self, N: int, D: int):
+        self.N, self.D = N, D
+
+    def bind(self, b):
+        dz = b["dz"]
+        C, ND = dz.shape
+        N, D = self.N, self.D
+        dz3 = dz.view(C, N, D).permute(0, 2, 1)
+        g_delta = b["g_delta"].permute(1, 2, 0)         # (C, N, D) view
+        return SimpleNamespace(
+            forward=lambda stream: b["delta"].copy_(dz3),
+            backward=lambda grad, stream: grad[:, :ND].view(C, N, D).copy_(
+                g_delta))
 
     to = _to
 
@@ -572,6 +609,23 @@ def make_tempered_logp_grad_gn(data, f_vec, L, N_I: int, D: int,
         raise ValueError("the relative target needs C_inv_sqrts and K_inv_sqrts")
     return GNTarget(
         data, f_vec, DenseWhitening(L, N_I, D),
+        DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
+        ref, z0, N_I, D, D_thetas,
+    )
+
+
+def make_tempered_logp_grad_centered(data, f_vec, N_I: int, D: int,
+                                     D_thetas: int, ref, z0):
+    """Centered coordinates, dense storage: delta = x - x0 with z0 the
+    flattened x0 (``ref.x0`` in the sampling dtype), dense operators, the
+    relative energies around ``ref``. Its log-posterior differs from the
+    JAX package's absolute ``log_posterior`` by the constant energy of the
+    reference point."""
+    _relative_only(ref, z0)
+    if data.C_inv_sqrts is None or data.K_inv_sqrts is None:
+        raise ValueError("the relative target needs C_inv_sqrts and K_inv_sqrts")
+    return GNTarget(
+        data, f_vec, IdentityWhitening(N_I, D),
         DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
         ref, z0, N_I, D, D_thetas,
     )

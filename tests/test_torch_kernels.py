@@ -128,7 +128,8 @@ def test_lorenz_kernels_match_plain_versions(device):
 @pytest.mark.parametrize("model,C,N", [
     ("seir", 37, 333), ("lorenz", 1, 128), ("lorenz", 3, 129),
     ("seir", 5, 17), ("lorenz", 300, 1000), ("lorenz", 64, 1025),
-    ("lorenz", 257, 1025)])
+    ("lorenz", 257, 1025), ("hes1_log", 64, 129),
+    ("protein_transduction", 37, 333), ("sirw", 3, 300)])
 def test_kernels_at_sizes_that_fill_no_tile(device, model, C, N):
     """K1 through the target's plan and through the one-shot wrappers, at
     chain counts and grids around the kernels' 128 points per CTA: one CTA

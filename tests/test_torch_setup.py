@@ -181,8 +181,11 @@ def test_unported_branches_raise(seir_data):
     ts, X, _ = seir_data
     X = X.copy()
     X[:, 1] = np.nan
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        T.MAGI_v2(3, ts, X, None, tseir, TINY_T).initial_fit(1)
+    # a partially observed system fits theta jointly with its unobserved
+    # trajectories (gradient matching): it takes no theta start
+    with pytest.raises(ValueError, match="thetas_init"):
+        T.MAGI_v2(3, ts, X, None, tseir, TINY_T).initial_fit(
+            1, thetas_init=np.ones(3))
     with pytest.raises(NotImplementedError, match="item 11"):
         thp.fit_kernel_hparams(ts, X[:, :1], optimizer="lbfgs",
                                device="cpu")

@@ -103,7 +103,9 @@ def test_unwhiten_draws_matches_jax(fitted):
 
 @pytest.mark.parametrize("override,exc", [
     ({"algorithm": "slice"}, ValueError),
-    ({"reparam": "centered"}, NotImplementedError),
+    ({"reparam": "whitened"}, NotImplementedError),
+    ({"reparam": "centered", "storage": "banded"}, NotImplementedError),
+    ({"reparam": "centered", "storage": "hybrid"}, NotImplementedError),
     ({"precond_refresh_steps": 10}, NotImplementedError),
     ({"init_states": {"thetas": np.ones(3)}}, NotImplementedError),
     ({"pt_betas": (1.0, 0.5)}, NotImplementedError),
