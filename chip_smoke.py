@@ -32,8 +32,13 @@ only when all of them passed):
    and a tail of 8 at 3081, at 64, 256 and 257 chains, at an odd, an even
    and a one-leaf doubling's leaf, each launch twice, masked chains
    untouched; K2's NUTS form and the leaf kernel also on the Hes1 path's
-   397-wide diagonal at 64 chains. Float32 and float64, timed with CUDA
-   events.
+   397-wide diagonal at 64 chains. K1's fwd in its whitened form (t1 =
+   ||z||^2 from dz and z0, the seed -(beta_T/beta) z; R delta's half of
+   RmD set to NaN, unread) as the whitened target launches it and through
+   its one-shot wrapper, at the SEIR shapes, at 37 chains and N_I = 333,
+   and in the given kernels (FitzHugh-Nagumo, 16 chains, N_I = 81), each
+   launch twice bit for bit, float32 within 5e-7 and float64 within 1e-14
+   of each output's scale. Float32 and float64, timed with CUDA events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -61,8 +66,18 @@ only when all of them passed):
    state and noise, which must agree bit for bit; a profile of one leaf
    (which must launch the leaf kernel once beside its evaluation, and no
    K2 or other op) and one transition (device time by kernel, busy
-   share), and the share of leaf replays in which no chain was active;
-   and an ODE
+   share), and the share of leaf replays in which no chain was active.
+   Then the whitened SEIR path on the same fit: ``predict(reparam=
+   "whitened")`` with the NUTS recipe, 256 chains, 300 + 300 transitions,
+   float32, dense storage; fails on non-finite draws, K1's fwd launched in
+   its GN form or never in its whitened form (counted as
+   "manifold_fwd_whitened_seir"), a transition that replayed no leaf, or a
+   theta mean more than 15% from truth (rhat, ESS, depth, step printed
+   only); its composed float64 target card vs CPU, 20 NUTS transitions by
+   graph and by eager (bit for bit) and the leaf's profile. Then
+   ``map_warmstart_iters`` on the SEIR fit (precond, dense): 200 Adam
+   steps whose log-posterior must rise, and a short predict that takes
+   them. And an ODE
    field with no CUDA functor (FitzHugh-Nagumo, defined here): K1's given
    kernels (PyTorch evaluates the field and its VJPs) against their plain
    versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
@@ -72,7 +87,8 @@ only when all of them passed):
 6c. Hes1 path (partially observed: H never observed): the data of
    examples/hes1.py, ``initial_fit(2)`` at the config's full iteration
    counts (N_I = 129, gradient matching for H and theta), beta = 1, and a
-   64-chain centered NUTS predict (1000 + 1000 transitions, no annealing,
+   64-chain centered NUTS predict (500 + 500 transitions since the
+   Laplace-start phase joined the smoke, 1000 + 1000 before; no annealing,
    sigma pinned at 0.15^2, diagonal mass) in float32. Fails on non-finite
    draws, K1 not launched through the Hes1-log functor or launched
    through its given kernels, K2 or the leaf kernel not launched, a
@@ -82,7 +98,23 @@ only when all of them passed):
    rhat, ESS, depth and leaves are printed. Then the composed float64
    centered target on the card against the CPU (8 states), 20 NUTS
    transitions from the predict's last states by replayed graphs and by
-   eager (bit for bit) and the device profile of one transition.
+   eager (bit for bit) and the device profile of one transition. H's 95%
+   band coverage of the true H is printed.
+6d. Hes1 with Laplace starts, on the same fit: the per-evaluation
+   unwhitening of map_estimate's "gn" objective timed both ways (dense
+   solve_triangular, K4 at one chain), float64; then
+   ``map_estimate(sigma_sqs_fixed=0.15^2, laplace_draws=64)`` and a
+   64-chain centered NUTS predict from its joint draws
+   (``init_states``), 500 + 500 transitions, the Hes1 recipe otherwise
+   (scripts/hes1_long.py --init laplace, cut from 16 x 3000 + 8000).
+   Fails on a Laplace Hessian not SPD beyond float64 roundoff (an
+   eigenvalue below -1e-12 of its largest), a MAP outside the truth basin,
+   non-finite draws, a chain whose mean g is at most 8, or a pooled theta
+   more than 3 posterior sd from the JAX package's Laplace-start run
+   (results/hes1_laplace_r4.json); prints the MAP's wall, L-BFGS-B
+   iterations and convergence (not gated: the JAX package's own
+   map_estimate does not meet its criterion on this fit), H's band
+   coverage beside the heuristic starts', rhat and ESS.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
@@ -121,12 +153,19 @@ only when all of them passed):
 13. Leapfrog profile of the banded path at its 64 chains, as phase 6.
 14. The hybrid and banded paths' transitions by graph and by eager, 20
    each from the same state and noise, compared as in phase 6.
+15. Centered coordinates in banded storage on the Lorenz fit: the composed
+   float64 target card vs CPU (8 states), then ``predict(reparam=
+   "centered", storage="banded")``, 64 chains, 100 + 100 HMC steps (L <=
+   64), sigma pinned at 0.25; fails on non-finite draws, K1, K2 or one of
+   K3's four entries never launched, K3 not once per evaluation, or K4
+   launched (step and theta printed only: centered coordinates at N_I =
+   1025 are ~1e8-stiff); then 20 transitions by graph and by eager.
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it; K2's NUTS form
 and the leaf kernel from the SEIR NUTS and the Hes1 paths, K1's given
 kernels from the FitzHugh-Nagumo predicts, K1's Hes1-log functor from the
-Hes1 path), error, times,
+Hes1 path, K1's whitened fwd from the whitened SEIR path), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
 time (null where no one PyTorch call computes the same function), and
@@ -170,6 +209,8 @@ REPLACES = {
     "manifold_fwd": "magi_v2_tpu/sampler/precond.py:540",
     "manifold_energy": "magi_v2_tpu/posterior.py:288",
     "manifold_bwd": "magi_v2_tpu/sampler/precond.py:549",
+    # the whitened target's t1 = ||z||^2 (through posterior.py:230)
+    "manifold_fwd_whitened": "magi_v2_tpu/sampler/magi_state.py:102",
     "leapfrog_update": "magi_v2_tpu/sampler/hmc.py:63",
     "leapfrog_update_nuts": "magi_v2_tpu/sampler/nuts.py:58",
     "nuts_leaf": "magi_v2_tpu/sampler/nuts.py:130",
@@ -220,6 +261,9 @@ def k1_bound(kname, C, N, D, P, dtype, given=False):
     csrc/manifold.cu (the (C, D, N) blocks, the (D, N) reference rows, the
     sigma/theta entries of q and grad, t14 and lp; for the given kernels
     also the field's values or its VJPs)."""
+    # the whitened fwd reads dz and z0 in place of R delta and a0: the
+    # same bytes and operations as the GN form's
+    kname = kname.replace("_whitened", "")
     pts, row, tail = C * N * D, D * N, C * (D + P)
     elems = {"manifold_fwd": 5 * pts + 5 * row + tail + 2 * C,
              "manifold_energy": 2 * pts + row + tail + 3 * C,
@@ -583,6 +627,76 @@ def check_kernels(device, model="seir", N=161, C=256, tag="", reps=200):
                    TOL[dtype], results,
                    extra=f" at {C} chains, N {N}, bound "
                          f"{more['bound_ms']:.4f} ms", more=more)
+    return results
+
+
+# K1's whitened fwd against its plain version, relative to each output's
+# scale: what the K1 rows measured (PERF.md: float32 <= 4.9e-7, float64
+# <= 1.1e-15)
+WHITENED_TOL = {torch.float32: 5e-7, torch.float64: 1e-14}
+
+
+def check_whitened_kernels(device, model="seir", N=161, C=256, tag="",
+                           reps=200):
+    """K1's fwd in its whitened form (t1 = sum dz (dz + 2 z0), the seed
+    -(beta_T/beta) z), against its plain version in float64 and float32,
+    launched as the whitened target launches it (``ManifoldPlan(...,
+    whitened=True)``) and through the one-shot wrapper (the same bits),
+    each launch twice bit for bit, with R delta's half of RmD set to NaN
+    (the form must not read it); dz ~ 0.3 and z0 ~ 3 per coordinate, the
+    whitened SEIR path's magnitudes. ``model`` as in ``check_kernels``
+    ("fhn": the given kernels). Returns {name: {...}} for float32."""
+    from magi_v2_tpu_torch.models import MODEL_REGISTRY
+    from magi_v2_tpu_torch.ops import manifold as mf
+
+    given = model == "fhn"
+    f = fitzhugh_nagumo_f_vec if given else MODEL_REGISTRY[model].f_vec
+    name = "manifold_fwd_whitened" + (
+        "" if model == "seir" else f"_{model}") + tag
+    results = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for dtype in (torch.float64, torch.float32):
+        x = kernel_inputs(dtype, device, C=C, N=N, model=model)
+        D, N = x["x0T"].shape
+        g = torch.Generator(device="cpu").manual_seed(7)
+        on = lambda t: t.to(device=device, dtype=dtype).contiguous()
+        dz = on(0.3 * _randn(g, (C, D, N)))
+        z0 = on(3.0 * _randn(g, (D, N)))
+        RmD = x["RmD"].clone()
+        RmD[..., :N] = float("nan")
+        new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+        b = dict(delta=x["delta"], RmD=RmD, Ds=x["Ds"], gdr=x["gdr"], dz=dz,
+                 gcat=new(D, C, 2 * N), t14=new(C, 2),
+                 **{k: new(D, C, N) for k in ("dr", "gDs", "gpart")})
+        consts = dict({k: x[k] for k in K1_CONSTS}, a0=z0)
+        I = torch.zeros((N, 1), dtype=dtype, device=device)
+        q, bt = x["q"], x["beta_temp"]
+        plan = mf.ManifoldPlan(f, I, consts, x["beta"], q.shape[1], b,
+                               whitened=True)
+        fwd = lambda: plan.fwd(q, bt, stream)
+        same_twice(fwd, lambda: (b["dr"], b["t14"], b["gcat"][..., :N]),
+                   name)
+        args = (f, I, x["delta"], RmD, q, x["x0T"], z0, x["f0"], x["mask"],
+                x["y"], x["sigma_lb"], bt, x["beta"])
+        pdr, pgcat, pt14 = mf.manifold_fwd_plain(*args, dz=dz)
+        errs = part_errors([("dr", pdr, b["dr"]), ("t14", pt14, b["t14"]),
+                            ("g_z", pgcat[..., :N], b["gcat"][..., :N])],
+                           N, D)
+        dr1, gcat1, t141 = mf.manifold_fwd(*args, dz=dz)
+        torch.cuda.synchronize()
+        if not (torch.equal(dr1, b["dr"]) and torch.equal(t141, b["t14"])
+                and torch.equal(gcat1[..., :N], b["gcat"][..., :N])):
+            raise AssertionError(f"{name}: the one-shot wrapper and the plan "
+                                 "launch one kernel and must agree bit for "
+                                 "bit")
+        P = q.shape[1] - N * D - D
+        more = dict(k1_bound("manifold_fwd_whitened", C, N, D, P, dtype,
+                             given), library_ms=None)
+        report(name, dtype, errs, _time_ms(fwd, reps),
+               _time_ms(lambda: mf.manifold_fwd_plain(*args, dz=dz), reps),
+               WHITENED_TOL[dtype], results,
+               extra=f" at {C} chains, N {N}, bound "
+                     f"{more['bound_ms']:.4f} ms", more=more)
     return results
 
 
@@ -1239,6 +1353,104 @@ def nuts_path(model, device, num_steps=NUTS_STEPS):
     return counts, kr
 
 
+# the whitened SEIR path: predict's default NUTS in the GP prior's
+# whitened coordinates, otherwise the SEIR NUTS path's recipe
+WHITENED_STEPS = 300
+
+
+def whitened_path(model, device, num_steps=WHITENED_STEPS):
+    """``predict(reparam="whitened")`` on the HMC phase's SEIR fit: NUTS
+    (trees up to depth 10), 256 chains, ``num_steps`` + ``num_steps``
+    transitions, dense storage and metric, float32. Fails on non-finite
+    draws, K1's fwd launched in its GN form or its whitened form never, a
+    transition that replayed no leaf, or a theta mean more than 15% from
+    truth; rhat, ESS, depth, leaves and the step are printed only (these
+    coordinates keep the manifold's stiffness that the GN whitening
+    removes). Returns the launch counts and the kernel results."""
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_results=num_steps, num_burnin_steps=num_steps,
+                        num_chains=NUM_CHAINS, seed=0, init_jitter=0.01,
+                        reparam="whitened", **NUTS_RECIPE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    transitions = 2 * num_steps
+    depths, leaves = kr["depths"], kr["num_leapfrogs"]
+    replayed = 2.0 ** depths.max(axis=1) - 1.0
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    print(f"SEIR whitened predict wall: {wall:.2f} s ({num_steps}+"
+          f"{num_steps} transitions, {NUM_CHAINS} chains, NUTS, max tree "
+          f"depth {model.config.max_tree_depth}); "
+          f"{predict_phases(model, wall)}")
+    print(f"SEIR whitened sampling phase: mean depth {depths.mean():.3f} "
+          f"(max {depths.max()}), mean leaves a chain and transition "
+          f"{leaves.mean():.2f}, leaves replayed a transition "
+          f"{replayed.mean():.2f}, {graphs.get('nuts_leaf', 0)} leaves "
+          f"replayed in all, divergence rate {kr['divergences'].mean():.5f}"
+          f", mean acceptance {kr['accept_probs'].mean():.4f}, step size "
+          f"{float(kr['step_size']):.5f}")
+    print(f"SEIR whitened: theta pooled means "
+          f"{np.round(theta_mean, 4).tolist()} (truth "
+          f"{TRUE_THETAS.tolist()}); ESS_min {summ['ess_min']:.1f}, rhat_max "
+          f"{summ['rhat_max']:.4f}, ESS/s {summ['ess_per_sec_min']:.2f}")
+    print(f"SEIR whitened launch counts: {counts}; CUDA graphs {graphs}")
+
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("SEIR whitened: non-finite draws")
+    check_launched(counts, ["manifold_fwd_whitened_seir", "manifold_energy",
+                            "manifold_bwd", "leapfrog_update", "nuts_leaf"],
+                   "SEIR whitened")
+    if counts["manifold_fwd_seir"] != 0:
+        raise AssertionError("SEIR whitened: K1's fwd launched in its GN "
+                             f"form: {counts}")
+    if not (graphs.get("nuts_start", 0) == transitions
+            and graphs.get("nuts_leaf", 0) >= transitions):
+        raise AssertionError(f"SEIR whitened: not every one of {transitions}"
+                             f" transitions replayed its leaves: {graphs}")
+    rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
+    if not np.all(rel <= 0.15):
+        raise AssertionError(f"SEIR whitened: theta means {theta_mean} off "
+                             f"truth by {rel}")
+    return counts, kr
+
+
+def warmstart_check(model, device, iters=200):
+    """predict's ``map_warmstart_iters`` on the SEIR fit (precond, dense):
+    ``iters`` Adam steps on the float32 target at beta 1 from the start
+    near the fit, whose log-posterior must rise; then a short predict that
+    takes them runs."""
+    from magi_v2_tpu_torch.api import map_warmstart
+
+    mode, _, _ = model._build_sampling_setup("precond", "dense",
+                                             torch.float32)
+    q0 = np.concatenate([mode.X0.cpu().numpy().ravel(), SEIR_TAIL])
+    t0 = time.perf_counter()
+    _, vals = map_warmstart(mode.logp_grad, q0, iters,
+                            model.config.init_learning_rate, torch.float32,
+                            device)
+    wall = time.perf_counter() - t0
+    print(f"map_warmstart on SEIR (precond, dense): lp {vals[0]:.3f} -> "
+          f"{vals[-1]:.3f} over {iters} Adam steps ({wall:.2f} s)")
+    if not vals[-1] > vals[0]:
+        raise AssertionError("map_warmstart: the log-posterior did not rise")
+    res = model.predict(num_results=20, num_burnin_steps=20, num_chains=16,
+                        seed=0, algorithm="hmc", hmc_num_leapfrogs=16,
+                        mass_matrix="diag", map_warmstart_iters=iters)
+    torch.cuda.synchronize()
+    if not np.all(np.isfinite(res["thetas_samps"])):
+        raise AssertionError("map_warmstart: non-finite draws")
+    print(f"predict(map_warmstart_iters={iters}): phases "
+          + ", ".join(f"{k} {v:.2f}" for k, v in model.predict_timings.items()))
+
+
 # the sigma_pre and theta_pre of the SEIR states near the fit
 SEIR_TAIL = (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6)
 
@@ -1331,8 +1543,10 @@ def kernel_counts(run):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
-    """Where a NUTS transition's time goes on the SEIR float32 path, at the
+def profile_nuts(model, device, kr, replays=100, settle=10, counted=20,
+                 reparam="precond", label="SEIR NUTS"):
+    """Where a NUTS transition's time goes on the SEIR float32 path (in the
+    coordinates of ``reparam``; ``label`` names it in the output), at the
     sampling phase's temperature, step and mass, from a state ``settle``
     transitions on from the fit: the launches a leaf holds (the leaf
     kernel once beside the evaluation's, no K2, no counter op); one leaf's
@@ -1350,7 +1564,8 @@ def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
         draw_noise,
     )
 
-    target, qs, mass, eps, g = _nuts_setup(model, device, kr)
+    target, qs, mass, eps, g = _nuts_setup(model, device, kr,
+                                           reparam=reparam)
     C, dim = qs.shape
     cfg = NutsConfig(model.config.max_tree_depth)
     bt = torch.tensor(1.0 / np.log(2002.0), device=device)
@@ -1377,14 +1592,14 @@ def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
     fused, k2 = by_name("nuts_leaf_kernel"), by_name("leapfrog_kernel")
     # the counter's add, were it a PyTorch op (an int32 add)
     counter = by_name("CUDAFunctor_add<int>")
-    print(f"SEIR NUTS: a leaf's graph launches {held} of the port's "
+    print(f"{label}: a leaf's graph launches {held} of the port's "
           f"kernels; on the card it ran the leaf kernel {fused} time(s), "
           f"K2 {k2}, an integer add {counter}, and in all "
           f"{sum(in_leaf.values())} kernels (the evaluation's and the "
           "re-arming's with it)")
     if not (held.get("nuts_leaf") == 1 and "leapfrog_update" not in held
             and fused == 1 and k2 == 0 and counter == 0):
-        raise AssertionError("SEIR NUTS: a leaf is not its evaluation and "
+        raise AssertionError(f"{label}: a leaf is not its evaluation and "
                              f"one launch of the leaf kernel: {held}, "
                              f"{in_leaf}")
     for _ in range(3):
@@ -1396,10 +1611,10 @@ def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
     host_us = (time.perf_counter() - t0) / replays * 1e6
     torch.cuda.synchronize()
     leaf_ms = (time.perf_counter() - t0) / replays * 1e3
-    print(f"SEIR NUTS: one leaf replayed {replays} times back to back, every "
+    print(f"{label}: one leaf replayed {replays} times back to back, every "
           f"chain active (re-armed before each replay): host {host_us:.2f} "
           f"us to enqueue, {leaf_ms:.4f} ms each until the card finished")
-    device_profile(one_leaf, "SEIR NUTS one leaf")
+    device_profile(one_leaf, f"{label} one leaf")
     # the replays in which no chain was still active
     idle = [0, 0]
 
@@ -1413,7 +1628,7 @@ def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
         noise = draw_noise(g, C, dim, cfg.max_tree_depth, torch.float32,
                            device)
         qs, _ = bound(qs, eps, mass, bt, noise, on_doubling=count)
-    print(f"SEIR NUTS: over {counted} settled transitions {idle[0]} of "
+    print(f"{label}: over {counted} settled transitions {idle[0]} of "
           f"{idle[1]} leaf replays had no chain still active "
           f"({idle[0] / idle[1]:.1%}): what stopping a doubling once every "
           "chain's subtree has ended would save")
@@ -1424,12 +1639,12 @@ def profile_nuts(model, device, kr, replays=100, settle=10, counted=20):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     d = int(info.depth.max())
-    print(f"SEIR NUTS: one transition (deepest tree {d}, "
+    print(f"{label}: one transition (deepest tree {d}, "
           f"{2 ** d - 1} leaves replayed, mean leaves a chain "
           f"{float(info.num_leapfrogs.float().mean()):.2f}): ms "
           f"{[round(w, 3) for w in walls]}")
     device_profile(lambda: bound(qs, eps, mass, bt, noise),
-                   "SEIR NUTS replayed")
+                   f"{label} replayed")
 
 
 def fitzhugh_nagumo_f_vec(t, X, thetas):
@@ -1520,7 +1735,10 @@ def unregistered_field(device, steps=100, chains=FHN_CHAINS):
 # state of 397); beta = 1, sigma pinned at 0.15^2, centered coordinates,
 # no annealing, NUTS with a diagonal metric.
 HES1_X0 = np.array([1.439, 2.037, 17.904])
-HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 1000, 129
+# 500 + 500 transitions since the Laplace-start phase joined the smoke
+# (1000 + 1000 before), to keep the smoke's wall inside its limit; the
+# Laplace-start run takes the same depth, so their H coverages compare
+HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 500, 129
 HES1_SIGMA = 0.15 ** 2
 # the JAX package's converged recovery (results/hes1_long2.json: 16 chains
 # x 3000 + 8000 NUTS transitions, centered, float64 on a CPU): theta's
@@ -1535,13 +1753,37 @@ HES1_BASIN_G = 8.0
 # K2's NUTS form and the leaf kernel at the Hes1 path's metric: a diagonal
 # over the 397-wide state
 HES1_NUTS_CASES = (("diag397", 397, 0),)
+# the Laplace-start recipe (scripts/hes1_long.py --init laplace, its draws'
+# seed 101), cut from 16 chains x 3000 + 8000 transitions
+HES1_LAPLACE_STEPS = 500
+# the JAX package's run from Laplace starts (results/hes1_laplace_r4.json:
+# 16 chains x 3000 + 8000 NUTS transitions, centered, float32): theta's
+# posterior mean and sd
+HES1_LAPLACE_MEAN = np.array([0.0154, 0.3787, 0.0344, 0.0293, 0.5834,
+                              26.5378, 0.1705])
+HES1_LAPLACE_SD = np.array([0.005, 0.0437, 0.0055, 0.002, 0.0641, 12.6025,
+                            0.0307])
+# the most negative smallest-over-largest Hessian eigenvalue taken for
+# positive: float64 roundoff of the eigendecomposition (the JAX package's
+# Hessian at its Hes1 MAP has a smallest eigenvalue of 2.4e-16 of its
+# largest)
+HES1_SPD_ROUNDOFF = 1e-12
+
+
+def h_coverage(res, logH_true):
+    """The share of grid points where the true log H lies in the pooled
+    95% band of the draws (scripts/hes1_long.py's H_coverage_95)."""
+    H = np.asarray(res["X_samps"])[..., 2].reshape(-1, logH_true.size)
+    lo, hi = np.quantile(H, [0.025, 0.975], axis=0)
+    return float(((logH_true >= lo) & (logH_true <= hi)).mean())
 
 
 def hes1_fit(device):
     """The Hes1 data and ``initial_fit(2)`` on the card at the config's
     full iteration counts (the partially observed branch: hyperparameters
     of P and M, gradient matching of (H, theta), H's hyperparameters on the
-    grid), float32 sampling; then beta = 1."""
+    grid), float32 sampling; then beta = 1. Returns the model and the
+    true log H on the grid (for the band's coverage)."""
     from magi_v2_tpu_torch import MAGI_v2, MagiConfig
     from magi_v2_tpu_torch.models import MODEL_REGISTRY, hes1_log_f_vec
     from magi_v2_tpu_torch.utils.data import simulate_ode
@@ -1569,19 +1811,23 @@ def hes1_fit(device):
         raise AssertionError("Hes1: the fit's grid or its unobserved "
                              "component is not the recipe's")
     model.beta = 1.0
-    return model
+    logH_true = np.interp(np.linspace(0, 240, model.mag_I),
+                          np.linspace(0, 240, len(X_true)),
+                          np.log(X_true[:, 2]))
+    return model, logH_true
 
 
-def hes1_path(model, device, num_steps=HES1_STEPS):
+def hes1_path(model, device, logH_true, num_steps=HES1_STEPS):
     """The Hes1 recipe's predict on the card: 64 chains, ``num_steps`` +
     ``num_steps`` NUTS transitions in centered coordinates, float32. Fails
     on non-finite draws, K1 launched through its given kernels or not
     through the Hes1-log functor's, K2's NUTS form or the leaf kernel not
     launched, a transition that replayed no leaf, a chain outside the
     truth basin, or a pooled theta mean more than 3 posterior sd from the
-    JAX package's recovery; rhat, ESS, depth and leaves are printed (the
-    centered chains mix slowly). Returns the launch counts, the kernel
-    results and the chains' last states."""
+    JAX package's recovery; rhat, ESS, depth, leaves and H's 95% band
+    coverage of the true H are printed (the centered chains mix slowly).
+    Returns the launch counts, the kernel results, the chains' last states
+    and the coverage."""
     from magi_v2_tpu_torch.ops import manifold as mf
     from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
 
@@ -1625,6 +1871,9 @@ def hes1_path(model, device, num_steps=HES1_STEPS):
           f"{summ['ess_min']:.1f}, rhat_max {summ['rhat_max']:.4f}, ESS/s "
           f"{summ['ess_per_sec_min']:.2f}")
     print(f"Hes1 launch counts: {counts}; CUDA graphs {graphs}")
+    coverage = h_coverage(res, logH_true)
+    print(f"Hes1 (heuristic starts): H's 95% band covers the true H at "
+          f"{coverage:.3f} of the grid")
 
     if not (np.all(np.isfinite(res["X_samps"]))
             and np.all(np.isfinite(thetas))):
@@ -1644,7 +1893,162 @@ def hes1_path(model, device, num_steps=HES1_STEPS):
     if not np.all(np.abs(z) <= 3.0):
         raise AssertionError(f"Hes1: theta means {theta_mean} are more than"
                              f" 3 posterior sd from the JAX recovery: {z}")
-    return counts, kr, res["sample_results"][-1]
+    return counts, kr, res["sample_results"][-1], coverage
+
+
+def time_map_unwhitening(model, device, reps=200):
+    """The per-evaluation unwhitening of map_estimate's "gn" objective on
+    the card, float64, one chain at the Hes1 grid: x - mu = U^{-1} w and
+    its gradient, by a dense solve_triangular and by K4 (the block-banded
+    solve under autograd, its adjoint the backward); the two must agree.
+    Prints ms per value-and-gradient of each (map_laplace takes the dense
+    solve, the faster on the card)."""
+    from magi_v2_tpu_torch.map_laplace import _dense_upper
+    from magi_v2_tpu_torch.ops.banded import (
+        banded_diag_tile_inverses,
+        banded_to_blocks_upper,
+        block_banded_triangular_solve_upper,
+    )
+    from magi_v2_tpu_torch.ops.linalg import sym_sqrt
+    from magi_v2_tpu_torch.sampler.precond import build_gn_cholesky_banded
+
+    f64 = lambda a: torch.tensor(np.asarray(a, np.float64),
+                                 dtype=torch.float64, device=device)
+    U_band, _ = build_gn_cholesky_banded(
+        model, sigma_sqs_init=np.full(model.D, HES1_SIGMA),
+        C_inv_sqrts=sym_sqrt(f64(model.C_d_invs)),
+        K_inv_sqrts=sym_sqrt(f64(model.K_d_invs)))
+    U = f64(_dense_upper(U_band))
+    blocks = banded_to_blocks_upper(f64(U_band))
+    dinv = banded_diag_tile_inverses(blocks, U.shape[0])
+    g = torch.Generator(device="cpu").manual_seed(3)
+    w0, c = (torch.randn(U.shape[0], generator=g, dtype=torch.float64).to(
+        device) for _ in range(2))
+    solves = {
+        "dense solve_triangular": lambda w: torch.linalg.solve_triangular(
+            U, w[:, None], upper=True)[:, 0],
+        "K4": lambda w: block_banded_triangular_solve_upper(blocks, w,
+                                                            diag_inv=dinv),
+    }
+
+    def value_and_grad(solve):
+        w = w0.clone().requires_grad_(True)
+        v = torch.sum(solve(w) * c)
+        (gw,) = torch.autograd.grad(v, w)
+        return v.detach(), gw
+
+    (v0, g0), (v1, g1) = (value_and_grad(f) for f in solves.values())
+    e = max(_relerr(v0[None], v1[None])[1], _relerr(g0, g1)[1])
+    ms = {k: _time_ms(lambda f=f: value_and_grad(f), reps)
+          for k, f in solves.items()}
+    print(f"map_estimate 'gn' unwhitening at N*D = {U.shape[0]}, float64, "
+          "one value and gradient: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f" (the two agree to {e:.1e})")
+    if not e <= 1e-12:
+        raise AssertionError("the dense and K4 unwhitenings disagree")
+    return ms
+
+
+def hes1_laplace(model, device, logH_true, heuristic_coverage,
+                 num_steps=HES1_LAPLACE_STEPS):
+    """The Laplace-start recipe on the Hes1 fit:
+    ``map_estimate(sigma_sqs_fixed=0.15^2, laplace_draws=64)`` (float64 on
+    the card, L-BFGS-B on the host), then a 64-chain centered NUTS
+    predict from its joint draws (``init_states``: X and theta),
+    ``num_steps`` + ``num_steps`` transitions, no annealing, sigma pinned,
+    diagonal mass, init_jitter 0.02, float32. Fails on a Laplace Hessian
+    with an eigenvalue below -1e-12 of its largest (not SPD beyond
+    roundoff), a MAP outside the truth basin (g <= 8), non-finite
+    draws, a chain whose mean g is at most 8, or a pooled theta more than 3
+    posterior sd from the JAX package's Laplace-start run; prints the MAP's
+    wall, L-BFGS iterations and whether it met its convergence criterion
+    (not gated: the JAX package's does not on this fit), H's band coverage
+    beside the heuristic starts', rhat and ESS."""
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    time_map_unwhitening(model, device)
+    t0 = time.perf_counter()
+    r = model.map_estimate(sigma_sqs_fixed=HES1_SIGMA,
+                           laplace_draws=HES1_CHAINS, draws_seed=101)
+    torch.cuda.synchronize()
+    map_wall = time.perf_counter() - t0
+    print(f"Hes1 map_estimate: {map_wall:.2f} s in all ({r['wall_s']:.2f} s "
+          f"to the MAP), {r['lbfgs_iters']} L-BFGS-B iterations, converged "
+          f"{r['converged']} (projected gradient {r['grad_norm']:.3g}, "
+          f"{r['lbfgs_message']}), -log p {r['neg_logpost']:.3f}, theta_map "
+          f"{np.round(r['theta_map'], 4).tolist()}, theta_sd "
+          f"{np.round(r['theta_sd'], 4).tolist()}, Hessian SPD "
+          f"{r['hessian_spd']} (min/max eigenvalue "
+          f"{r['hessian_min_eig_rel']:.3e}); draws' g from "
+          f"{r['theta_draws'][:, 5].min():.2f} to "
+          f"{r['theta_draws'][:, 5].max():.2f}")
+    # Not gated on ``converged``: on this fit the JAX package's own
+    # map_estimate ends its four L-BFGS-B passes (51,179 iterations) with a
+    # projected gradient of 8.7, far above its criterion 1e-3 (1 + |F|) at
+    # F = -5.6, the posterior's f/g ridge being flat; and its Hessian's
+    # smallest eigenvalue there is 2.4e-16 of the largest, zero to float64
+    # roundoff, so "SPD" is held to that roundoff. What the starts need is
+    # a point in the truth basin with a Laplace Hessian that is positive
+    # but for roundoff, and the chains' own gates below.
+    if not (r["hessian_min_eig_rel"] >= -HES1_SPD_ROUNDOFF
+            and np.all(np.isfinite(r["X_draws"]))):
+        raise AssertionError("Hes1 map_estimate: its Laplace Hessian is not "
+                             "SPD beyond roundoff or its draws are not "
+                             "finite")
+    if not r["theta_map"][5] > HES1_BASIN_G:
+        raise AssertionError(f"Hes1 map_estimate: theta_map "
+                             f"{r['theta_map']} is outside the truth basin")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_chains=HES1_CHAINS, num_results=num_steps,
+                        num_burnin_steps=num_steps, init_jitter=0.02, seed=0,
+                        reparam="centered", use_annealing=False,
+                        sigma_sqs_fixed=HES1_SIGMA,
+                        init_states={"X": r["X_draws"],
+                                     "thetas": r["theta_draws"]})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    theta_mean = thetas.reshape(-1, 7).mean(axis=0)
+    z = (theta_mean - HES1_LAPLACE_MEAN) / HES1_LAPLACE_SD
+    g_chain = thetas[..., 5].mean(axis=0)
+    coverage = h_coverage(res, logH_true)
+    print(f"Hes1 Laplace-start predict wall: {wall:.2f} s ({num_steps}+"
+          f"{num_steps} transitions, {HES1_CHAINS} chains, centered); "
+          f"{predict_phases(model, wall)}; mean depth "
+          f"{kr['depths'].mean():.3f}, {graphs.get('nuts_leaf', 0)} leaves "
+          f"replayed, step size {float(kr['step_size']):.5f}")
+    print(f"Hes1 Laplace starts: theta pooled means "
+          f"{np.round(theta_mean, 4).tolist()} (the JAX package's "
+          f"Laplace-start run {HES1_LAPLACE_MEAN.tolist()}, in its sd "
+          f"{np.round(z, 2).tolist()}); per-chain mean g from "
+          f"{g_chain.min():.2f} to {g_chain.max():.2f}; ESS_min "
+          f"{summ['ess_min']:.1f}, rhat_max {summ['rhat_max']:.4f}")
+    print(f"Hes1: H's 95% band covers the true H at {coverage:.3f} of the "
+          f"grid from Laplace starts, {heuristic_coverage:.3f} from the "
+          "heuristic starts (the JAX package: 0.597 and 0.256 at 16 x 3000 "
+          "+ 8000)")
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("Hes1 Laplace starts: non-finite draws")
+    check_launched(counts, [f"{k}_hes1_log" for k in ("manifold_fwd",
+                                                      "manifold_energy",
+                                                      "manifold_bwd")]
+                   + ["leapfrog_update", "nuts_leaf"], "Hes1 Laplace")
+    if not np.all(g_chain > HES1_BASIN_G):
+        raise AssertionError(f"Hes1 Laplace starts: chains "
+                             f"{np.flatnonzero(g_chain <= HES1_BASIN_G)} left "
+                             "the truth basin (mean g <= 8)")
+    if not np.all(np.abs(z) <= 3.0):
+        raise AssertionError(f"Hes1 Laplace starts: theta means {theta_mean} "
+                             "are more than 3 posterior sd from the JAX "
+                             f"package's Laplace-start run: {z}")
+    return counts
 
 
 def hes1_after(model, device, kr, last):
@@ -1935,7 +2339,7 @@ def profile_leapfrog(model, device, storage="dense", tail=(-10.5, -10.5,
 
 def graph_vs_eager(model, device, storage, num_chains, max_leapfrogs, tail,
                    step_size, beta_temp, dense_mass, sigma_fixed=None,
-                   transitions=20):
+                   transitions=20, reparam="precond"):
     """The sampler's two transitions on one path's float32 target: the
     bound transition (captured CUDA graphs, replayed) and the eager
     ``hmc_step``, each run ``transitions`` times from the same state with
@@ -1951,7 +2355,7 @@ def graph_vs_eager(model, device, storage, num_chains, max_leapfrogs, tail,
     from magi_v2_tpu_torch.sampler.mass import mass_from_moments
 
     kw = {} if sigma_fixed is None else {"sigma_sqs_fixed": sigma_fixed}
-    mode, _, _ = model._build_sampling_setup("precond", storage,
+    mode, _, _ = model._build_sampling_setup(reparam, storage,
                                              torch.float32, **kw)
     target = mode.logp_grad
     N, D = model.mag_I, model.D
@@ -1999,7 +2403,8 @@ def graph_vs_eager(model, device, storage, num_chains, max_leapfrogs, tail,
             gap = max(gap, _relerr(qe2, qb1)[1])
         qe, qb = qe2, qb2
     torch.cuda.synchronize()
-    print(f"{storage}: graph against eager, {transitions} transitions of "
+    print(f"{reparam} {storage}: graph against eager, {transitions} "
+          "transitions of "
           f"{num_chains} chains (L {min(lengths)}..{max(lengths)}, step "
           f"{float(eps):.4g}, mean "
           f"acceptance {np.mean(accepts):.3f}): {same} of {transitions} bit "
@@ -2554,6 +2959,58 @@ def lorenz_path(model, device, storage, num_chains, num_steps, gate_theta):
     return counts
 
 
+# the centered banded path: centered coordinates at N_I = 1025 are ~1e8
+# stiff (the GP prior's curvature), so the run is short and its step and
+# theta are printed only
+CENTERED_BANDED_STEPS = 100
+CENTERED_BANDED_KERNELS = ("manifold_fwd", "manifold_energy", "manifold_bwd",
+                           "leapfrog_update", "banded_matvec",
+                           "banded_matvec_adjoint", "banded_matvec_pair",
+                           "banded_matvec_adjoint_pair")
+
+
+def centered_banded_path(model, device, num_steps=CENTERED_BANDED_STEPS):
+    """``predict(reparam="centered", storage="banded")`` on the Lorenz fit:
+    64 chains, ``num_steps`` + ``num_steps`` HMC steps (L <= 64), sigma
+    pinned at 0.25, reference annealing, diagonal mass, float32. Fails on
+    non-finite draws, K1, K2 or one of K3's four entries never launched,
+    K3 not once per evaluation, or K4 launched (centered coordinates have
+    no factor to solve with). Returns the kernel results."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(
+        num_results=num_steps, num_burnin_steps=num_steps,
+        num_chains=BANDED_CHAINS, seed=0, algorithm="hmc",
+        hmc_num_leapfrogs=LORENZ_LEAPFROGS, storage="banded",
+        reparam="centered", anneal_mode="reference", sigma_sqs_fixed=0.25,
+        mass_matrix="diag")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+    kr = res["kernel_results"]
+    theta_mean = res["thetas_samps"].reshape(-1, 3).mean(axis=0)
+    evals = counts["manifold_fwd"]
+    k3 = {k: counts[k] for k in CENTERED_BANDED_KERNELS
+          if k.startswith("banded_matvec")}
+    print(f"Lorenz centered banded predict wall: {wall:.2f} s ({num_steps}+"
+          f"{num_steps} steps, {BANDED_CHAINS} chains, L<="
+          f"{LORENZ_LEAPFROGS}); {predict_phases(model, wall)}; step size "
+          f"{float(kr['step_size']):.3e}, mean acceptance "
+          f"{kr['accept_probs'].mean():.4f}, theta pooled means "
+          f"{np.round(theta_mean, 4).tolist()}; {evals} target evaluations, "
+          f"K3 launches {k3}, K4 {counts['banded_solve']}")
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(res["thetas_samps"]))):
+        raise AssertionError("Lorenz centered banded: non-finite draws")
+    check_launched(counts, CENTERED_BANDED_KERNELS, "Lorenz centered banded")
+    check_replays(graphs, 2 * num_steps, "Lorenz centered banded")
+    if any(n != evals for n in k3.values()) or counts["banded_solve"]:
+        raise AssertionError("the centered banded path must launch each of "
+                             "K3's four entries once per evaluation and K4 "
+                             f"never: {counts}")
+    return kr
+
+
 def main():
     t_start = time.perf_counter()
     smi = check_device()
@@ -2570,6 +3027,12 @@ def main():
         check_kernels(device, model=name, N=333, C=37, reps=20)
         timing.update(check_kernels(device, model=name, N=HES1_GRID,
                                     C=HES1_CHAINS, reps=50))
+    # K1's whitened form at the SEIR shapes, at a ragged count and grid,
+    # and in the given kernels
+    timing.update(check_whitened_kernels(device))
+    check_whitened_kernels(device, N=333, C=37, reps=20)
+    check_whitened_kernels(device, model="fhn", N=FHN_GRID, C=FHN_CHAINS,
+                           reps=20)
     timing.update(check_leapfrog(device))
     check_wide_leapfrog(device)
     timing.update(check_leapfrog_nuts(device))
@@ -2593,6 +3056,14 @@ def main():
     nuts_graph_vs_eager(model, device, kr_nuts)
     profile_nuts(model, device, kr_nuts)
     print(f"SEIR NUTS path done at {time.perf_counter() - t_start:.1f} s")
+    counts_wh, kr_wh = whitened_path(model, device)
+    check_composed(model, device, reparam="whitened")
+    nuts_graph_vs_eager(model, device, kr_wh, label="SEIR whitened NUTS",
+                        reparam="whitened")
+    profile_nuts(model, device, kr_wh, settle=2, counted=2,
+                 reparam="whitened", label="SEIR whitened NUTS")
+    warmstart_check(model, device)
+    print(f"SEIR whitened path done at {time.perf_counter() - t_start:.1f} s")
     # K1's given kernels at the unregistered field's shapes (16 chains,
     # N_I = 81) and at a ragged count and grid of several CTAs a chain
     timing.update(check_kernels(device, model="fhn", N=FHN_GRID,
@@ -2601,10 +3072,13 @@ def main():
     counts_fhn = unregistered_field(device)
     print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
 
-    hmodel = hes1_fit(device)
-    counts_hes1, kr_hes1, last = hes1_path(hmodel, device)
+    hmodel, logH_true = hes1_fit(device)
+    counts_hes1, kr_hes1, last, coverage = hes1_path(hmodel, device,
+                                                     logH_true)
     hes1_after(hmodel, device, kr_hes1, last)
     print(f"Hes1 phases done at {time.perf_counter() - t_start:.1f} s")
+    hes1_laplace(hmodel, device, logH_true, coverage)
+    print(f"Hes1 Laplace phase done at {time.perf_counter() - t_start:.1f} s")
 
     lmodel = lorenz_fit(device)
     timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I))
@@ -2635,6 +3109,15 @@ def main():
         graph_vs_eager(lmodel, device, storage, chains, LORENZ_LEAPFROGS,
                        lorenz_tail, step_size=eps, beta_temp=0.3,
                        dense_mass=False, sigma_fixed=0.25)
+    check_composed(lmodel, device, "banded", tail=lorenz_tail,
+                   reparam="centered")
+    kr_cb = centered_banded_path(lmodel, device)
+    graph_vs_eager(lmodel, device, "banded", BANDED_CHAINS, LORENZ_LEAPFROGS,
+                   lorenz_tail, step_size=float(kr_cb["step_size"]),
+                   beta_temp=0.3, dense_mass=False, sigma_fixed=0.25,
+                   reparam="centered")
+    print(f"Lorenz centered banded done at "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, kernel, source, path, counts):
         return dict(name=name, route="cuda", source=SOURCES[source],
@@ -2643,6 +3126,11 @@ def main():
 
     kernels = [entry(k, k, "manifold", "seir_dense", counts_seir)
                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels.append(dict(
+        name="manifold_fwd_whitened", route="cuda",
+        source=SOURCES["manifold"], replaces=REPLACES["manifold_fwd_whitened"],
+        path="seir_whitened", launches=counts_wh["manifold_fwd_whitened_seir"],
+        **timing["manifold_fwd_whitened"]))
     kernels += [entry(f"{k}_fhn", k, "manifold", "fhn_unregistered",
                       counts_fhn)
                 for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]

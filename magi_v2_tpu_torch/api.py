@@ -9,12 +9,15 @@ like the JAX model's, so a fit can be carried across packages
 (utils/checkpoint.py).
 
 Ported so far: ``initial_fit`` for fully and partially observed systems
-(the gradient-matching init of unobserved components), and ``predict``
-with ``algorithm="nuts"`` (the default) or ``"hmc"``, ``reparam="precond"``
-in every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``) and
-``reparam="centered"`` in dense storage, ``sigma_sqs_fixed`` and
-``gn_anchor``. Every other argument value raises NotImplementedError naming
-its ROADMAP.md item.
+(the gradient-matching init of unobserved components); ``predict`` with
+``algorithm="nuts"`` (the default) or ``"hmc"``, ``reparam="precond"`` in
+every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``),
+``reparam="centered"`` in dense and banded storage and
+``reparam="whitened"`` in dense storage, ``sigma_sqs_fixed``,
+``gn_anchor``, ``init_states`` and ``map_warmstart_iters``; and
+``map_estimate`` (the exact posterior's MAP with Laplace draws, the
+starts ``init_states`` takes). Every other argument value raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,7 +42,12 @@ from magi_v2_tpu_torch.sampler.magi_state import (
     flatten_state,
     unflatten_samples,
 )
-from magi_v2_tpu_torch.sampler.modes import build_sampling_mode, unwhiten_draws
+from magi_v2_tpu_torch.sampler.modes import (
+    apply_init_states,
+    build_sampling_mode,
+    check_reparam_storage,
+    unwhiten_draws,
+)
 from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_chains
 from magi_v2_tpu_torch.timing import PhaseTimer, untimed
 
@@ -412,6 +420,7 @@ class MAGI_v2:
                 + (" (the posterior itself evaluates untruncated)"
                    if storage == "hybrid" else "")
             )
+        check_reparam_storage(reparam, storage)
         if storage == "hybrid":
             with timer("setup_exact_operators"):
                 C_ops, m_ops, K_ops = self._exact_operators()
@@ -515,24 +524,27 @@ class MAGI_v2:
         ``reparam="precond"`` and ``storage`` "dense", "hybrid" (banded GN
         whitening around the exact operators: the accurate dense-grid
         mode) or "banded" (every operator O(N_I * bandsize); the target is
-        the band-truncated posterior), or ``reparam="centered"`` (X
-        sampled directly, like the reference) with ``storage="dense"``;
-        ``sigma_sqs_fixed`` (known noise variances, pinned) and
-        ``gn_anchor`` (precond banded/hybrid only); the other values raise
-        NotImplementedError (``reparam="whitened"`` and centered banded or
-        hybrid storage: ROADMAP.md queue 1 item 9). With num_chains > 1 the
-        ``*_samps`` arrays carry a chain axis at position 1. Host wall
-        seconds per phase land in ``predict_timings`` (the device is waited
-        for at the end of each): the parts of the sampling setup
-        ("setup_*", with "setup_rest" the remainder), "sampling" and
+        the band-truncated posterior), ``reparam="centered"`` (X sampled
+        directly, like the reference) with ``storage`` "dense" or "banded",
+        or ``reparam="whitened"`` (the GP prior's whitening, t1 = ||z||^2)
+        with ``storage="dense"``; other combinations raise ValueError, as
+        in the JAX package. ``sigma_sqs_fixed`` (known noise variances,
+        pinned), ``gn_anchor`` (precond banded/hybrid only),
+        ``map_warmstart_iters`` (Adam steps, eps 1e-7 at the config's
+        init_learning_rate, on this target at beta 1 from the default
+        start, before the jitter) and ``init_states`` (natural-coordinate
+        starts, applied after the jitter: ``sampler/modes.py:
+        apply_init_states``; e.g. ``map_estimate(laplace_draws=num_chains)
+        ``'s X_draws and theta_draws). Refresh, PT, checkpoints and
+        profiling raise NotImplementedError naming their ROADMAP.md item.
+        With num_chains > 1 the ``*_samps`` arrays carry a chain axis at
+        position 1. Host wall seconds per phase land in
+        ``predict_timings`` (the device is waited for at the end of each):
+        the parts of the sampling setup ("setup_*", with "setup_rest" the
+        remainder), "map_warmstart" if asked for, "sampling" and
         "unwhiten"."""
-        if init_states is not None:
-            raise _not_ported("init_states", "9")
         if precond_refresh_steps:
-            raise _not_ported("precond_refresh_steps (its restarts need "
-                              "map_estimate, item 11)", "10")
-        if map_warmstart_iters:
-            raise _not_ported("map_warmstart_iters", "11")
+            raise _not_ported("precond_refresh_steps", "10")
         if pt_betas:
             raise _not_ported("pt_betas", "12")
         if checkpoint_path or profile_timings:
@@ -585,6 +597,14 @@ class MAGI_v2:
             torch.as_tensor(sigma_pre0, dtype=dtype),
             torch.as_tensor(theta_pre0, dtype=dtype),
         ).numpy()
+        if map_warmstart_iters:
+            with timer("map_warmstart"):
+                q0, vals = map_warmstart(mode.logp_grad, q0,
+                                         map_warmstart_iters,
+                                         cfg.init_learning_rate, dtype, dev)
+            if verbose:
+                print(f"[map_warmstart] logp {vals[0]:.1f} -> "
+                      f"{vals[-1]:.1f} over {map_warmstart_iters} steps")
         q0 = np.broadcast_to(q0, (num_chains, q0.shape[0])).copy()
         ND = self.mag_I * self.D
         if init_jitter > 0.0 and num_chains > 1:
@@ -592,6 +612,9 @@ class MAGI_v2:
             q0[1:, :ND] += init_jitter * rng.standard_normal(
                 (num_chains - 1, ND)
             )
+        if init_states is not None:
+            q0 = apply_init_states(q0, init_states, mode, self, sigma_sqs_LB,
+                                   sigma_sqs_fixed)
 
         sampler_config = SamplerConfig(
             num_results=num_results,
@@ -676,3 +699,35 @@ class MAGI_v2:
                                else None),
             "minutes_elapsed": minutes,
         }
+
+    def map_estimate(self, **kwargs):
+        """Joint MAP of the exact (untruncated, beta = 1) posterior with
+        Laplace credible sds and, with ``laplace_draws``, joint draws for
+        ``predict(init_states=...)``; the arguments and result keys of
+        magi_v2_tpu.MAGI_v2.map_estimate (see ``map_laplace.map_estimate``).
+        Float64 on the config's device; L-BFGS-B on the host."""
+        from magi_v2_tpu_torch.map_laplace import map_estimate
+
+        return map_estimate(self, **kwargs)
+
+
+def map_warmstart(logp_grad, q0, iters: int, learning_rate: float, dtype,
+                  device):
+    """``iters`` Adam steps (eps 1e-7, ``optax.adam(lr, eps=1e-7)``'s
+    update) ascending the sampler's own target ``logp_grad`` at beta 1
+    from the single start ``q0`` (dim,) (NumPy): predict's
+    ``map_warmstart_iters``, the JAX package's MAP polish of the heuristic
+    start. Returns (the polished start, the log-posterior before each
+    step, as floats)."""
+    q = torch.as_tensor(q0, dtype=dtype, device=device)[None].clone()
+    q.requires_grad_(True)
+    opt = torch.optim.Adam([q], lr=learning_rate, eps=1e-7)
+    one = torch.ones((), dtype=dtype, device=device)
+    vals = torch.empty((iters,), dtype=dtype, device=device)
+    for i in range(iters):
+        with torch.no_grad():
+            v, g = logp_grad(q.detach(), one)
+        vals[i] = v[0]
+        q.grad = -g
+        opt.step()
+    return q.detach()[0].cpu().numpy(), vals.tolist()

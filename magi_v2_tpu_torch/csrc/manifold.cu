@@ -463,9 +463,16 @@ __device__ __forceinline__ void stage_parameters(const T* qc, const T* lb,
     par[i] = T(1) / (softplus(qc[ND + i - P]) + lb[i - P]);
 }
 
-template <class M, typename T>
+// kWhitened: the whitened target's form (see the note above the entry
+// points): the t1 operand u is dz (C, D, N), read where the target's
+// difference z - z0 wrote it, and a is z0 (D, N); otherwise u is R delta,
+// the first half of RmD, and a is a0 = R (x0 - mu). Either way
+// t1 = sum u (u + 2 a) and the seed written to gcat[..., :N] is
+// -(beta_T / beta)(u + a).
+template <class M, typename T, bool kWhitened>
 __global__ void __launch_bounds__(kThreads)
 manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
+                    const T* __restrict__ dz,
                     const T* __restrict__ q, const T* __restrict__ x0T,
                     const T* __restrict__ a0, const T* __restrict__ f0,
                     const T* __restrict__ mask, const T* __restrict__ y,
@@ -488,12 +495,13 @@ manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
     const bool in = n < N;
     // every load of the point first, so that all are in flight together
     // and under way while the parameters are staged
-    T dl[D], Rd[D], md[D], xr[D], a[D], fr[D], yv[D], mk[D];
+    T dl[D], u[D], md[D], xr[D], a[D], fr[D], yv[D], mk[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const size_t row = (size_t)d * C + c;
-      dl[d] = in ? delta[((size_t)c * D + d) * N + n] : T(0);
-      Rd[d] = in ? RmD[row * 2 * N + n] : T(0);
+      const size_t cdn = ((size_t)c * D + d) * N + n;
+      dl[d] = in ? delta[cdn] : T(0);
+      u[d] = in ? (kWhitened ? dz[cdn] : RmD[row * 2 * N + n]) : T(0);
       md[d] = in ? RmD[row * 2 * N + N + n] : T(0);
       xr[d] = in ? x0T[d * N + n] : T(0);
       a[d] = in ? a0[d * N + n] : T(0);
@@ -514,8 +522,8 @@ manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
     for (int d = 0; d < D; ++d) {
       const size_t row = (size_t)d * C + c;
       dr[row * N + n] = (f[d] - fr[d]) - md[d];
-      gcat[row * 2 * N + n] = -scale * (Rd[d] + a[d]);
-      acc[0] += Rd[d] * (Rd[d] + T(2) * a[d]);
+      gcat[row * 2 * N + n] = -scale * (u[d] + a[d]);
+      acc[0] += u[d] * (u[d] + T(2) * a[d]);
       const T r = x[d] - yv[d];
       acc[1] += mk[d] * r * r * par[P + d];
     }
@@ -691,9 +699,10 @@ inline int chunks_of(int N, int C) {
 
 constexpr int kMaxD = 8;
 
-template <typename T>
+template <typename T, bool kWhitened>
 __global__ void __launch_bounds__(kThreads)
 given_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
+                 const T* __restrict__ dz,
                  const T* __restrict__ q, const T* __restrict__ x0T,
                  const T* __restrict__ a0, const T* __restrict__ f0,
                  const T* __restrict__ mask, const T* __restrict__ y,
@@ -717,11 +726,14 @@ given_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
     for (int d = 0; d < kMaxD; ++d) {
       if (d >= D) break;
       const size_t row = (size_t)d * C + c;
-      const T Rd = RmD[row * 2 * N + n], a = a0[d * N + n];
-      const T x = x0T[d * N + n] + delta[((size_t)c * D + d) * N + n];
+      const size_t cdn = ((size_t)c * D + d) * N + n;
+      // the t1 operand, as in manifold_fwd_kernel
+      const T u = kWhitened ? dz[cdn] : RmD[row * 2 * N + n];
+      const T a = a0[d * N + n];
+      const T x = x0T[d * N + n] + delta[cdn];
       dr[row * N + n] = (fn[d] - f0[d * N + n]) - RmD[row * 2 * N + N + n];
-      gcat[row * 2 * N + n] = -scale * (Rd + a);
-      acc[0] += Rd * (Rd + T(2) * a);
+      gcat[row * 2 * N + n] = -scale * (u + a);
+      acc[0] += u * (u + T(2) * a);
       const T r = x - y[d * N + n];
       acc[1] += mask[d * N + n] * r * r * inv[d];
     }
@@ -832,6 +844,18 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
 
 }  // namespace
 
+// The whitened form (reparam="whitened"; replaces the t1 = ||z||^2 of
+// magi_v2_tpu/sampler/magi_state.py:make_tempered_logp_grad_whitened under
+// jax.value_and_grad). There X = mu + L z with L = C^{1/2}, so relative to
+// the reference point t1 = ||z||^2 - ||z0||^2 = sum dz (dz + 2 z0) over the
+// chain's N*D coordinates, and its gradient in z, -(beta_T / beta) z, needs
+// no operator: the target adds L' g_delta onto it. The fwd kernels take dz
+// (C, D, N) and z0 (D, N) where the GN form takes R delta and a0, and are
+// otherwise the same; the energy and bwd kernels serve both forms. The form
+// is a template parameter (a separate instantiation and entry point, chosen
+// when the target is made), so the GN form compiles as before. What bounds
+// it does not change: one read of dz in place of R delta.
+
 #define MAGI_MANIFOLD_ENTRY_POINTS(MODEL, NAME, T, SUF)                        \
   extern "C" int magi_manifold_fwd_##NAME##_##SUF(                             \
       const T* delta, const T* RmD, const T* q, const T* x0T, const T* a0,    \
@@ -839,10 +863,22 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
       const T* beta_temp, double beta, int C, int N, int dim, T* dr,          \
       T* gcat, T* t14, T* part, int* ticket, void* stream) {                  \
     const int G = chunks_of(N, C);                                               \
-    manifold_fwd_kernel<MODEL, T>                                             \
+    manifold_fwd_kernel<MODEL, T, false>                                      \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            delta, RmD, q, x0T, a0, f0, mask, y, lb, beta_temp, (T)beta, C,   \
-            N, G, dim, dr, gcat, t14, part, ticket);                          \
+            delta, RmD, nullptr, q, x0T, a0, f0, mask, y, lb, beta_temp,      \
+            (T)beta, C, N, G, dim, dr, gcat, t14, part, ticket);              \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int magi_manifold_fwd_whitened_##NAME##_##SUF(                    \
+      const T* delta, const T* RmD, const T* dz, const T* q, const T* x0T,    \
+      const T* z0, const T* f0, const T* mask, const T* y, const T* lb,       \
+      const T* beta_temp, double beta, int C, int N, int dim, T* dr,          \
+      T* gcat, T* t14, T* part, int* ticket, void* stream) {                  \
+    const int G = chunks_of(N, C);                                            \
+    manifold_fwd_kernel<MODEL, T, true>                                       \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp, (T)beta,  \
+            C, N, G, dim, dr, gcat, t14, part, ticket);                       \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_energy_##NAME##_##SUF(                          \
@@ -877,9 +913,23 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
       int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
     if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
     const int G = chunks_of(N, C);                                            \
-    given_fwd_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(        \
-        delta, RmD, q, x0T, a0, f0, mask, y, lb, beta_temp, fv, (T)beta, C,   \
-        N, G, D, dim, dr, gcat, t14, part, ticket);                           \
+    given_fwd_kernel<T, false>                                                \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            delta, RmD, nullptr, q, x0T, a0, f0, mask, y, lb, beta_temp, fv,  \
+            (T)beta, C, N, G, D, dim, dr, gcat, t14, part, ticket);           \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int magi_manifold_fwd_whitened_given_##SUF(                      \
+      const T* delta, const T* RmD, const T* dz, const T* q, const T* x0T,    \
+      const T* z0, const T* f0, const T* mask, const T* y, const T* lb,       \
+      const T* beta_temp, const T* fv, double beta, int C, int N, int D,      \
+      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
+    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+    const int G = chunks_of(N, C);                                            \
+    given_fwd_kernel<T, true>                                                 \
+        <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
+            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp, fv,       \
+            (T)beta, C, N, G, D, dim, dr, gcat, t14, part, ticket);           \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_energy_given_##SUF(                            \

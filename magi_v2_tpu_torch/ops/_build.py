@@ -38,6 +38,10 @@ SIGNATURES = {
     "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 4 + [_P],
     "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_P],
     "manifold_fwd_given": [_P] * 11 + [_D] + [_I] * 4 + [_P] * 5 + [_P],
+    # the whitened form: dz after RmD
+    "manifold_fwd_whitened": [_P] * 11 + [_D, _I, _I, _I] + [_P] * 5 + [_P],
+    "manifold_fwd_whitened_given": [_P] * 12 + [_D] + [_I] * 4 + [_P] * 5
+    + [_P],
     "manifold_energy_given": [_P] * 7 + [_D] + [_I] * 4 + [_P] * 4 + [_P],
     "manifold_bwd_given": [_P] * 11 + [_I] * 4 + [_P] * 5 + [_P],
     "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],

@@ -13,6 +13,14 @@ them is three kernels, each here as a wrapper:
 - ``manifold_bwd``: J_f^T g_dr plus the t4 term, the sigma_pre/theta_pre
   gradients, g_dr copied beside g_Rd.
 
+The whitened target (reparam="whitened", X = mu + L z with L = C^{1/2})
+takes ``manifold_fwd`` in its whitened form: given dz = z - z0 (C, D, N)
+and z0 (D, N) in place of R delta and a0, t1 = sum dz (dz + 2 z0) and the
+seed -(beta_T/beta)(dz + z0) is the gradient of t1 in z itself (the target
+adds L' g_delta onto it). The form is fixed when the plan is made
+(``whitened=True``); its launches count under "manifold_fwd" and under
+"manifold_fwd_whitened_<functor>".
+
 Each wrapper checks its arguments, takes the plain version (``*_plain``)
 for tensors on the CPU, and on a CUDA tensor launches the hand-written
 kernel of csrc/manifold.cu or raises: there is no fallback on the card.
@@ -63,7 +71,8 @@ KERNELS = ("manifold_fwd", "manifold_energy", "manifold_bwd")
 FUNCTORS = tuple(m.cuda_model for m in MODEL_REGISTRY.values()
                  if m.cuda_model) + ("given",)
 LAUNCH_COUNTS = {k: 0 for k in KERNELS
-                 + tuple(f"{k}_{m}" for k in KERNELS for m in FUNCTORS)}
+                 + tuple(f"{k}_{m}" for k in KERNELS + ("manifold_fwd_whitened",)
+                         for m in FUNCTORS)}
 
 
 def reset_launch_counts() -> None:
@@ -77,7 +86,8 @@ def launch_counts() -> dict:
 
 
 def functor_launch_counts() -> dict:
-    """Launches by kernel and functor ("manifold_fwd_hes1_log", ...)."""
+    """Launches by kernel and functor ("manifold_fwd_hes1_log", ...; the
+    whitened form's as "manifold_fwd_whitened_seir", ...)."""
     return {k: n for k, n in LAUNCH_COUNTS.items() if k not in KERNELS}
 
 
@@ -119,11 +129,15 @@ def field_vjp(f_vec, I, gdr, delta, q, x0T):
 
 
 def manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y,
-                       sigma_lb, beta_temp, beta):
+                       sigma_lb, beta_temp, beta, dz=None):
+    """With ``dz`` (C, D, N), the whitened form: dz is t1's operand in
+    place of R delta (the first half of RmD, then not read) and ``a0`` is
+    z0."""
     C, D, N = delta.shape
     sp, tp = _split_q(q, N, D)
     f = field_values(f_vec, I, delta, q, x0T).permute(2, 0, 1)  # (D, C, N)
-    Rd, md = RmD[..., :N], RmD[..., N:]
+    Rd = RmD[..., :N] if dz is None else dz.transpose(0, 1)
+    md = RmD[..., N:]
     dr = (f - f0[:, None, :]) - md
     scale = beta_temp / beta
     gcat = torch.empty_like(RmD)
@@ -289,8 +303,10 @@ def _given_vjp(f_vec, I, gdr, delta, q, x0T):
 # values (fwd) or VJPs (bwd) after beta_temp and D after N; ``_AT`` holds
 # where each per-call argument stands.
 def _fwd_args(given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
-              beta_temp, fv, beta, C, N, D, dim, dr, gcat, t14, scratch):
-    return ([delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp]
+              beta_temp, fv, beta, C, N, D, dim, dr, gcat, t14, scratch,
+              dz=None):
+    return ([delta, RmD] + ([] if dz is None else [dz])
+            + [q, x0T, a0, f0, mask, y, sigma_lb, beta_temp]
             + ([fv] if given else []) + [float(beta), C, N]
             + ([D] if given else []) + [dim, dr, gcat, t14, *scratch])
 
@@ -309,19 +325,24 @@ def _bwd_args(given, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp,
 
 
 _AT = {False: dict(fwd=dict(q=2, beta_temp=9),
+                   fwd_whitened=dict(q=3, beta_temp=10),
                    energy=dict(q=3, beta_temp=6, lp=11),
                    bwd=dict(q=2, beta_temp=8, grad=14)),
        True: dict(fwd=dict(q=2, beta_temp=9, fv=10),
+                  fwd_whitened=dict(q=3, beta_temp=10, fv=11),
                   energy=dict(q=3, beta_temp=6, lp=12),
                   bwd=dict(q=2, beta_temp=8, gx=9, gth=10, grad=17))}
 
 
 def _prepare(kernel, f_vec, dtype, args):
+    """The launch of ``kernel`` ("fwd", "fwd_whitened", "energy", "bwd"),
+    counted under its kernel's name and under its own name and functor."""
     from magi_v2_tpu_torch.ops._build import Launch
 
-    family = f"manifold_{kernel}"
+    name = f"manifold_{kernel}"
     return Launch(_entry(kernel, f_vec, dtype), args, LAUNCH_COUNTS,
-                  (family, f"{family}_{cuda_model_of(f_vec) or 'given'}"))
+                  (name.replace("_whitened", ""),
+                   f"{name}_{cuda_model_of(f_vec) or 'given'}"))
 
 
 def _launch(kernel, f_vec, dtype, args):
@@ -336,8 +357,9 @@ def _on_card(name, dev, f_vec, D, dim, N):
 
 
 def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
-                 beta_temp, beta: float):
-    """-> dr (D, C, N), gcat (D, C, 2N) with the first half set, t14 (C, 2)."""
+                 beta_temp, beta: float, dz=None):
+    """-> dr (D, C, N), gcat (D, C, 2N) with the first half set, t14 (C, 2).
+    With ``dz`` (C, D, N), the whitened form (``a0`` is then z0)."""
     C, D, N = delta.shape
     dev, dt = delta.device, delta.dtype
     dim = q.shape[1]
@@ -346,19 +368,19 @@ def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
         ("q", q, (C, dim)), ("x0T", x0T, (D, N)), ("a0", a0, (D, N)),
         ("f0", f0, (D, N)), ("mask", mask, (D, N)), ("y", y, (D, N)),
         ("sigma_lb", sigma_lb, (D,)), ("beta_temp", beta_temp, ()),
-    ), dt, dev)
+    ) + (() if dz is None else (("dz", dz, (C, D, N)),)), dt, dev)
     if _takes_plain(dev):
         return manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask,
-                                  y, sigma_lb, beta_temp, beta)
+                                  y, sigma_lb, beta_temp, beta, dz)
     _on_card("manifold_fwd", dev, f_vec, D, dim, N)
     given = _given(f_vec)
     fv = _given_values(f_vec, I, delta, q, x0T) if given else None
     dr = torch.empty((D, C, N), dtype=dt, device=dev)
     gcat = torch.empty((D, C, 2 * N), dtype=dt, device=dev)
     t14 = torch.empty((C, 2), dtype=dt, device=dev)
-    _launch("fwd", f_vec, dt, _fwd_args(
+    _launch("fwd" if dz is None else "fwd_whitened", f_vec, dt, _fwd_args(
         given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp, fv,
-        beta, C, N, D, dim, dr, gcat, t14, make_scratch(C, N, dt, dev)))
+        beta, C, N, D, dim, dr, gcat, t14, make_scratch(C, N, dt, dev), dz))
     return dr, gcat, t14
 
 
@@ -418,7 +440,9 @@ class ManifoldPlan:
     ``consts``: x0T, a0, f0, s0, mask, y (D, N), sigma_lb, n_ds (D,).
     ``bufs``: delta (C, D, N), RmD, gcat (D, C, 2N), dr, Ds, gDs, gdr,
     gpart (D, C, N), t14 (C, 2); the operator stages around the kernels
-    write delta, RmD, Ds and gdr, the kernels the rest. Everything is
+    write delta, RmD, Ds and gdr, the kernels the rest. ``whitened``: fwd
+    takes its whitened form, reading ``bufs["dz"]`` (C, D, N) and z0 as
+    ``consts["a0"]``, and RmD's second half only. Everything is
     checked here, once. ``fwd``, ``energy`` and ``bwd`` then take the
     state q (C, dim), the 0-dim beta_temp, the output that belongs to the
     caller (lp (C,), grad (C, dim)) and the stream, trust them (the
@@ -427,7 +451,7 @@ class ManifoldPlan:
     VJPs with PyTorch on the card and point the launch at the result."""
 
     def __init__(self, f_vec, I, consts: dict, beta: float, dim: int,
-                 bufs: dict):
+                 bufs: dict, whitened: bool = False):
         delta = bufs["delta"]
         C, D, N = delta.shape
         dev, dt = delta.device, delta.dtype
@@ -439,8 +463,11 @@ class ManifoldPlan:
             + (("delta", delta, (C, D, N)), ("t14", bufs["t14"], (C, 2)))
             + tuple((k, bufs[k], (D, C, 2 * N)) for k in ("RmD", "gcat"))
             + tuple((k, bufs[k], blk)
-                    for k in ("dr", "Ds", "gDs", "gdr", "gpart")),
+                    for k in ("dr", "Ds", "gDs", "gdr", "gpart"))
+            + ((("dz", bufs["dz"], (C, D, N)),) if whitened else ()),
             dt, dev)
+        self.whitened = whitened
+        self.fwd_kernel = "fwd_whitened" if whitened else "fwd"
         if dim < N * D + D:
             raise ValueError(f"a state of {dim} entries does not hold "
                              f"{N} x {D} points and {D} noise levels")
@@ -457,10 +484,11 @@ class ManifoldPlan:
         # q and beta_temp (and lp, grad, the field's values and VJPs) are
         # bound at each call: the pointers given here stand in for them
         q0 = bt0 = out0 = delta
-        self._fwd = _prepare("fwd", f_vec, dt, _fwd_args(
+        self._fwd = _prepare(self.fwd_kernel, f_vec, dt, _fwd_args(
             self.given, delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"],
             c["mask"], c["y"], c["sigma_lb"], bt0, out0, self.beta, C, N, D,
-            dim, b["dr"], b["gcat"], b["t14"], self.scratch))
+            dim, b["dr"], b["gcat"], b["t14"], self.scratch,
+            b["dz"] if whitened else None))
         self._energy = _prepare("energy", f_vec, dt, _energy_args(
             self.given, b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"],
             c["n_ds"], bt0, self.beta, C, N, D, dim, out0, b["gDs"],
@@ -476,13 +504,14 @@ class ManifoldPlan:
         launch(stream)
 
     def fwd(self, q, beta_temp, stream) -> None:
-        """dr, gcat[..., :N] and t14 from delta and RmD."""
+        """dr, gcat[..., :N] and t14 from delta and RmD (and, in the
+        whitened form, dz)."""
         c, b = self.consts, self.bufs
         if self.plain:
             dr, gcat, t14 = manifold_fwd_plain(
                 self.f_vec, self.I, b["delta"], b["RmD"], q, c["x0T"],
                 c["a0"], c["f0"], c["mask"], c["y"], c["sigma_lb"],
-                beta_temp, self.beta)
+                beta_temp, self.beta, b["dz"] if self.whitened else None)
             N = dr.shape[-1]
             b["dr"].copy_(dr)
             b["gcat"][..., :N].copy_(gcat[..., :N])
@@ -494,7 +523,7 @@ class ManifoldPlan:
             # orders its reuse on this stream
             now["fv"] = _given_values(self.f_vec, self.I, b["delta"], q,
                                       c["x0T"])
-        self._run(self._fwd, self.at["fwd"], stream, **now)
+        self._run(self._fwd, self.at[self.fwd_kernel], stream, **now)
 
     def energy(self, q, beta_temp, lp, stream) -> None:
         """lp (the caller's) and gDs from Ds and t14."""

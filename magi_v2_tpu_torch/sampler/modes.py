@@ -10,16 +10,18 @@ whitening around a float64 relative-energy zero point, with
   operators, every per-leapfrog product O(ND * b) (the target itself is
   the band-truncated posterior).
 
-``reparam="centered"`` with ``storage="dense"``: X sampled directly, like
-the reference, through the same relative-energy target (the identity as
-its whitening stage).
+``reparam="whitened"`` (dense storage only): the GP prior's whitening
+z_d = C_d^{-1/2}(x_d - mu_d), t1 = ||z||^2. ``reparam="centered"``: X
+sampled directly, like the reference, through the same relative-energy
+target (the identity as its whitening stage), in dense or banded storage;
+hybrid storage takes ``precond`` only, as in the JAX package.
 
 Each map is linear and fixed, so the posterior over X is the same in all
 of them. Known-sigma pinning (``sigma_sqs_fixed``) is applied here, inside
-``build_sampling_mode``. The GP-prior whitened mode, centered coordinates
-in banded or hybrid storage, user-supplied initial states and the
-mid-warmup re-anchoring (``precond_refresh_steps``) are ROADMAP.md queue 1
-items 9 and 10.
+``build_sampling_mode``; user-supplied starts (``init_states``) enter
+through ``apply_init_states`` and each mode's float64 ``whiten64``. The
+mid-warmup re-anchoring (``precond_refresh_steps``) is ROADMAP.md queue 1
+item 10.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ import numpy as np
 import torch
 
 from magi_v2_tpu_torch.ops.banded import UpperFactor, banded_solve
+from magi_v2_tpu_torch.sampler.magi_state import (
+    gp_sqrt_factors,
+    unwhiten_Z,
+    whiten_X,
+)
 from magi_v2_tpu_torch.timing import untimed
 
 # grid size from which float32 sampling in dense storage warns (the JAX
@@ -96,7 +103,12 @@ class SamplingMode:
       dense storage, an ``UpperFactor`` U (x = mu + U^{-1} z) in banded
       and hybrid storage, None in centered coordinates (x = z);
     - ``gn`` — the banded-GN parts (U_blocks, U_dinv, factor, ref, z0,
-      z064, info), or None.
+      z064, info), or None;
+    - ``whiten64(X) -> z`` — natural-coordinate trajectories X (..., N_I,
+      D, float64 on the model's device) into this mode's X-block
+      coordinates, in float64 exactly as ``X0`` was made (the identity in
+      centered coordinates); ``apply_init_states`` maps user starts with
+      it.
     """
 
     reparam: str
@@ -105,6 +117,7 @@ class SamplingMode:
     X0: torch.Tensor
     factor: object
     gn: Optional[dict] = None
+    whiten64: Optional[Callable] = None
 
 
 def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
@@ -147,11 +160,7 @@ def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
                  else model.m_ds)
         R_ref, S_ref = R64, S64
     else:
-        i = torch.arange(N, device=dev)
-        in_band = ((i[:, None] - i[None, :]).abs() <= model.BANDSIZE)[None]
-        zero = torch.zeros((), dtype=torch.float64, device=dev)
-        R_ref = torch.where(in_band, R64, zero)
-        S_ref = torch.where(in_band, S64, zero)
+        R_ref, S_ref = _band_truncated(model, R64, S64)
         m_ref = model.m_ds
     with timer("setup_ref_point"):
         ref = make_ref_point(model.I, anchor_X, model.mu_ds, anchor_th,
@@ -167,9 +176,40 @@ def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
     with timer("setup_target"):
         lp = maker(data, model.f_vec, factor, N, D, model.D_thetas, ref=ref,
                    z0=z0)
+    whiten64 = lambda X: whiten_X_banded(X, f64(model.mu_ds), U_blocks64)
     return lp, {"U_blocks": factor.tiles, "U_dinv": factor.dinv,
                 "factor": factor, "ref": ref, "z0": z0, "z064": z064,
-                "info": gn_info}
+                "info": gn_info, "whiten64": whiten64}
+
+
+def _band_truncated(model, R64, S64):
+    """R64 and S64 with everything beyond the model's bandsize zeroed: the
+    float64 operators the banded target evaluates through K3."""
+    i = torch.arange(model.mag_I, device=R64.device)
+    in_band = ((i[:, None] - i[None, :]).abs() <= model.BANDSIZE)[None]
+    zero = torch.zeros((), dtype=torch.float64, device=R64.device)
+    return torch.where(in_band, R64, zero), torch.where(in_band, S64, zero)
+
+
+def check_reparam_storage(reparam: str, storage: str) -> None:
+    """The JAX package's combinations: hybrid storage takes only the GN
+    whitening, banded storage not the GP-prior one (whose factors are
+    dense)."""
+    if reparam not in ("precond", "centered", "whitened"):
+        raise ValueError(f"unknown reparam mode {reparam!r}")
+    if storage not in ("dense", "banded", "hybrid"):
+        raise ValueError(f"unknown storage mode {storage!r}")
+    if storage == "banded" and reparam == "whitened":
+        raise ValueError(
+            "storage='banded' supports reparam='precond' (banded "
+            "Gauss-Newton whitening, the recommended large-grid mode) or "
+            "'centered'; the GP-prior whitening factors are dense"
+        )
+    if storage == "hybrid" and reparam != "precond":
+        raise ValueError(
+            "storage='hybrid' is the banded-GN-whitened exact-operator mode; "
+            "it requires reparam='precond'"
+        )
 
 
 def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
@@ -183,17 +223,8 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     for the banded/hybrid GN factor and zero point (predict's
     ``gn_anchor``), instead of (Xhat_init, thetas_init); ``timer`` times
     the parts (``timing.PhaseTimer``)."""
-    if reparam not in ("precond", "centered", "whitened"):
-        raise ValueError(f"unknown reparam mode {reparam!r}")
-    if (reparam == "whitened" or storage not in ("dense", "banded", "hybrid")
-            or (reparam == "centered" and storage != "dense")):
-        raise NotImplementedError(
-            f"reparam={reparam!r}, storage={storage!r} is not ported; only "
-            "reparam='precond' with storage 'dense', 'banded' or 'hybrid' "
-            "and reparam='centered' with storage 'dense' are (ROADMAP.md "
-            "queue 1 item 9)"
-        )
-    if anchor is not None and storage == "dense":
+    check_reparam_storage(reparam, storage)
+    if anchor is not None and (reparam != "precond" or storage == "dense"):
         raise ValueError(
             "anchor= (predict gn_anchor=) is supported for the banded-GN "
             "modes only (reparam='precond', storage='banded'/'hybrid') — "
@@ -203,23 +234,57 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                     dtype=torch.float64, device=dev)
 
+    whiten64 = None
     if reparam == "centered":
         from magi_v2_tpu_torch.posterior import make_ref_point
         from magi_v2_tpu_torch.sampler.precond import (
             make_tempered_logp_grad_centered,
+            make_tempered_logp_grad_centered_banded,
         )
 
+        banded = storage == "banded"
+        # the banded target evaluates t1 and t2 through the band-truncated
+        # square roots, so its zero point is built from the same ones
+        R_ref, S_ref = (_band_truncated(model, R64, S64) if banded
+                        else (R64, S64))
         with timer("setup_ref_point"):
             ref = make_ref_point(
                 model.I, model.Xhat_init, model.mu_ds, model.thetas_init,
-                model.f_vec, R64, S64, model.m_ds, dtype, device=dev,
+                model.f_vec, R_ref, S_ref, model.m_ds, dtype, device=dev,
             )
+        maker = (make_tempered_logp_grad_centered_banded if banded
+                 else make_tempered_logp_grad_centered)
         with timer("setup_target"):
-            logp_grad = make_tempered_logp_grad_centered(
-                data, model.f_vec, model.mag_I, model.D, model.D_thetas,
-                ref=ref, z0=ref.x0.reshape(-1),
-            )
+            logp_grad = maker(data, model.f_vec, model.mag_I, model.D,
+                              model.D_thetas, ref=ref,
+                              z0=ref.x0.reshape(-1))
         factor, gn, X0 = None, None, ref.x0
+        whiten64 = lambda X: X
+    elif reparam == "whitened":
+        from magi_v2_tpu_torch.posterior import make_ref_point
+        from magi_v2_tpu_torch.sampler.precond import (
+            make_tempered_logp_grad_whitened,
+        )
+
+        mu64 = f64(model.mu_ds)
+        with timer("setup_gp_whitening"):
+            L64, L_inv64 = gp_sqrt_factors(f64(model.C_d_invs))
+        whiten64 = lambda X: whiten_X(X, mu64, L_inv64)
+        # z0 in float64, then cast; the zero point x0 = mu + L z0 is built
+        # from the cast z0, so that x = x0 + L (z - z0) is mu + L z exactly
+        X0 = whiten64(f64(model.Xhat_init)).to(dtype)
+        with timer("setup_ref_point"):
+            ref = make_ref_point(
+                model.I, unwhiten_Z(X0.double(), mu64, L64), model.mu_ds,
+                model.thetas_init, model.f_vec, R64, S64, model.m_ds, dtype,
+                device=dev,
+            )
+        factor, gn = L64.to(dtype), None
+        with timer("setup_target"):
+            logp_grad = make_tempered_logp_grad_whitened(
+                data, model.f_vec, factor, model.mag_I, model.D,
+                model.D_thetas, ref=ref, z0=X0.reshape(-1),
+            )
     elif storage in ("banded", "hybrid"):
         anchor_X, anchor_th = ((model.Xhat_init, model.thetas_init)
                                if anchor is None else anchor)
@@ -228,7 +293,7 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
             np.asarray(anchor_th, np.float64), exact=storage == "hybrid",
             timer=timer,
         )
-        factor = gn["factor"]
+        factor, whiten64 = gn["factor"], gn["whiten64"]
         X0 = gn["z064"].to(dtype)
     else:
         if dtype == torch.float32 and model.mag_I >= DENSE_FLOAT32_WARN_N_I:
@@ -264,6 +329,8 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
             )
         gn = None
         X0 = z064.to(dtype)
+        mu64 = f64(model.mu_ds)
+        whiten64 = lambda X: whiten_X_full(X, mu64, L_inv64)
     if sig_pre_fix is not None:
         logp_grad = pin_sigma_coordinates(
             logp_grad, torch.as_tensor(np.asarray(sig_pre_fix), dtype=dtype,
@@ -271,14 +338,84 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
             model.mag_I, model.D,
         )
     return SamplingMode(reparam=reparam, storage=storage, logp_grad=logp_grad,
-                        X0=X0, factor=factor, gn=gn)
+                        X0=X0, factor=factor, gn=gn, whiten64=whiten64)
+
+
+def apply_init_states(q0, init_states: dict, mode: SamplingMode, model,
+                      sigma_sqs_LB, sigma_sqs_fixed):
+    """Overwrite blocks of the chains' start ``q0`` (num_chains, N_I*D + D
+    + D_thetas; NumPy in the sampling dtype, changed in place and
+    returned) from natural-coordinate user values, as the JAX function
+    does (predict's ``init_states``). Keys, each optional:
+
+    - "X": trajectories (num_chains, N_I, D) or (N_I, D) (broadcast),
+      mapped through the mode's float64 ``whiten64``, the map that made
+      ``mode.X0``;
+    - "thetas": (num_chains, D_thetas) or (D_thetas,), natural scale;
+    - "sigma_sqs": (num_chains, D) or (D,) noise variances, refused when
+      ``sigma_sqs_fixed`` pins sigma.
+
+    thetas and sigma_sqs go through the inverse softplus above their
+    lower bound (0 and ``sigma_sqs_LB``) and to -5.0 at or below it, as
+    predict's default start does. The standard use: Laplace-scattered
+    starts, ``map_estimate(laplace_draws=num_chains)``'s X_draws and
+    theta_draws."""
+    unknown = set(init_states) - {"X", "thetas", "sigma_sqs"}
+    if unknown:
+        raise ValueError(
+            f"init_states has unknown keys {sorted(unknown)}; expected a "
+            "subset of {'X', 'thetas', 'sigma_sqs'}"
+        )
+    num_chains = q0.shape[0]
+    N, D, Dth = model.mag_I, model.D, model.D_thetas
+
+    def per_chain(name, arr, shape):
+        arr = np.asarray(arr, np.float64)
+        if arr.shape == shape:
+            arr = np.broadcast_to(arr, (num_chains,) + shape)
+        if arr.shape != (num_chains,) + shape:
+            raise ValueError(
+                f"init_states[{name!r}] has shape {arr.shape}; expected "
+                f"{(num_chains,) + shape} or {shape}"
+            )
+        if np.any(np.isnan(arr)):
+            raise ValueError(f"init_states[{name!r}] contains NaNs")
+        return arr
+
+    def pre(vals, lower):
+        out = np.full_like(vals, -5.0)
+        above = vals > lower
+        y = (vals - lower)[above]
+        out[above] = y + np.log(-np.expm1(-y))
+        return out
+
+    if "X" in init_states:
+        Xi = per_chain("X", init_states["X"], (N, D))
+        dev = model.config.torch_device
+        Z = mode.whiten64(torch.tensor(Xi, dtype=torch.float64,
+                                       device=dev))
+        q0[:, : N * D] = Z.reshape(num_chains, N * D).cpu().numpy()
+    if "sigma_sqs" in init_states:
+        if sigma_sqs_fixed is not None:
+            raise ValueError(
+                "init_states['sigma_sqs'] conflicts with sigma_sqs_fixed "
+                "(sigma coordinates are pinned)"
+            )
+        ss = per_chain("sigma_sqs", init_states["sigma_sqs"], (D,))
+        lb = np.broadcast_to(np.asarray(sigma_sqs_LB, np.float64), (D,))
+        q0[:, N * D: N * D + D] = pre(ss, lb[None, :])
+    if "thetas" in init_states:
+        th = per_chain("thetas", init_states["thetas"], (Dth,))
+        q0[:, N * D + D:] = pre(th, np.zeros((1, Dth)))
+    return q0
 
 
 def unwhiten_draws(mode: SamplingMode, Z, mu_ds, max_bytes: int = 1 << 30):
-    """Trajectories from z draws Z (T, C, N_I, D): X = mu + L z (one
-    batched GEMM per chunk), X = mu + U^{-1} z (K4 over the chunk's draws
-    and chains), the chunk bounded by ``max_bytes`` of output, or, in
-    centered coordinates, X = z."""
+    """Trajectories from z draws Z (T, C, N_I, D): X = mu + L z (one GEMM
+    per chunk, or, for the GP factor of the whitened mode, one batched
+    over its D blocks, x_d = mu_d + L_d z_d), X = mu + U^{-1} z (K4 over
+    the chunk's draws and chains), the chunk bounded by ``max_bytes`` of
+    output, or, in centered coordinates, X = z."""
     if mode.factor is None:
         return Z.clone()
     T = Z.shape[0]
@@ -292,6 +429,8 @@ def unwhiten_draws(mode: SamplingMode, Z, mu_ds, max_bytes: int = 1 << 30):
             x = out[i: i + chunk].view(flat.shape)
             banded_solve(mode.factor, flat.contiguous(), x)
             x += mu_ds.repeat(z.shape[-2])
+        elif mode.reparam == "whitened":
+            out[i: i + chunk] = unwhiten_Z(z, mu_ds, mode.factor)
         else:
             flat = z.reshape(z.shape[:2] + (-1,))
             out[i: i + chunk] = (flat @ mode.factor.T).reshape(z.shape) + mu_ds

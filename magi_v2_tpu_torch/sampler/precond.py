@@ -33,9 +33,14 @@ Dense storage = (L, dense), hybrid = (K4, dense), banded = (K4, K3).
 
 Centered coordinates (``reparam="centered"``: the sampler's X block is the
 trajectories themselves) take the identity as the whitening stage
-(``IdentityWhitening``: delta = x - x0) with the dense operators, so they
-keep the factored ||R x||^2 forms and the relative energies, which a raw
-float32 x'C^{-1}x would lose.
+(``IdentityWhitening``: delta = x - x0) with the dense operators (dense
+storage) or K3 (banded storage), so they keep the factored ||R x||^2 forms
+and the relative energies, which a raw float32 x'C^{-1}x would lose.
+
+The GP-prior whitened coordinates (``reparam="whitened"``: X = mu + L z,
+L = C^{1/2} per component) take ``GPWhitening`` (delta = L dz, one batched
+GEMM over the components) with the m-only operators: t1 is ||z||^2, which
+K1's whitened form takes from dz itself, so R is never applied.
 """
 
 from __future__ import annotations
@@ -128,8 +133,9 @@ def build_gn_whitening(model, C_inv_sqrts, K_inv_sqrts):
 
 
 def whiten_X_full(X, mu_ds, L_inv):
-    """z (N, D) from X (N, D) using the full (ND, ND) factor."""
-    return (L_inv @ (X - mu_ds[None, :]).reshape(-1)).reshape(X.shape)
+    """z (..., N, D) from X (..., N, D) using the full (ND, ND) factor."""
+    xc = (X - mu_ds).reshape(X.shape[:-2] + (-1,))
+    return (xc @ L_inv.T).reshape(X.shape)
 
 
 def unwhiten_Z_full(Z, mu_ds, L):
@@ -267,9 +273,9 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
 
 
 def whiten_X_banded(X, mu_ds, U_blocks):
-    """z (N, D) from X (N, D): z = U (X - mu).ravel(), one banded matvec
-    (U_blocks in ``banded_to_blocks_upper`` layout)."""
-    xc = (X - mu_ds[None, :]).reshape(-1)
+    """z (..., N, D) from X (..., N, D): z = U (X - mu) flattened, one
+    banded matvec (U_blocks in ``banded_to_blocks_upper`` layout)."""
+    xc = (X - mu_ds).reshape(X.shape[:-2] + (-1,))
     return block_banded_matvec_upper(U_blocks, xc).reshape(X.shape)
 
 
@@ -363,6 +369,39 @@ class IdentityWhitening:
     to = _to
 
 
+class GPWhitening:
+    """The GP-prior whitening of ``reparam="whitened"``: delta_d = L_d dz_d
+    for each component, one GEMM batched over D with the chains as the
+    free dimension, where dz (C, D, N) is component-major (``whitened``:
+    the target's difference z - z0 writes it so, and K1's whitened fwd
+    reads it there). The adjoint adds L_d' g_delta_d onto the t1 seed
+    -(beta_T/beta) z that K1 wrote to gcat[..., :N], and writes the sum to
+    the gradient's leading N*D (interleaved) columns."""
+
+    whitened = True
+
+    def __init__(self, L, N: int, D: int):
+        self.N, self.D = N, D
+        self.Lt = L.transpose(1, 2).contiguous()   # delta_d = dz_d Lt_d
+        self.L = L.contiguous()                    # L_d' g = g_d L_d
+
+    def bind(self, b):
+        dz_t, delta_t = b["dz"].transpose(0, 1), b["delta"].transpose(0, 1)
+        C = b["dz"].shape[0]
+        N, D = self.N, self.D
+        seed, g_delta = b["gcat"][..., :N], b["g_delta"]
+
+        def backward(grad, stream):
+            seed.baddbmm_(g_delta, self.L)
+            grad[:, :N * D].view(C, N, D).copy_(seed.permute(1, 2, 0))
+
+        return SimpleNamespace(
+            forward=lambda stream: torch.bmm(dz_t, self.Lt, out=delta_t),
+            backward=backward)
+
+    to = _to
+
+
 class BandedWhitening:
     """delta = U^{-1} (z - z0) by K4; its adjoint U^{-T} by K4's adjoint.
     U is banded in the interleaved order n*D + d; the permutation to and
@@ -395,29 +434,41 @@ class BandedWhitening:
 class DenseOperators:
     """[R; m] delta, S dr and their adjoints as batched GEMMs over the D
     components, with [R; m] and [R' | -m'] stacked so that each direction
-    takes one GEMM."""
+    takes one GEMM. With R None (the whitened target, whose t1 is ||z||^2)
+    the first and last products are m delta and -m' g_dr alone, half the
+    size, and RmD's and gcat's first halves are left to K1."""
 
     def __init__(self, R, m, S):
-        self.W_fwd = torch.cat([R.transpose(1, 2), m.transpose(1, 2)],
-                               dim=2).contiguous()           # (D, N, 2N)
-        self.W_bwd = torch.cat([R, -m], dim=1).contiguous()  # (D, 2N, N)
+        if R is None:
+            self.W_fwd = m.transpose(1, 2).contiguous()          # (D, N, N)
+            self.W_bwd = (-m).contiguous()                       # (D, N, N)
+        else:
+            self.W_fwd = torch.cat([R.transpose(1, 2), m.transpose(1, 2)],
+                                   dim=2).contiguous()           # (D, N, 2N)
+            self.W_bwd = torch.cat([R, -m], dim=1).contiguous()  # (D, 2N, N)
+        self.m_only = R is None
         self.S = S.contiguous()
         self.St = S.transpose(1, 2).contiguous()
 
     def bind(self, b):
         """RmD = [R delta | m delta], Ds = S dr, gdr = S' gDs, and
-        g_delta = gpart + R' g_Rd - m' g_dr with gcat = [g_Rd | g_dr]."""
+        g_delta = gpart + R' g_Rd - m' g_dr with gcat = [g_Rd | g_dr] (m
+        only: RmD[..., N:] = m delta, g_delta = gpart - m' g_dr)."""
         delta_t = b["delta"].transpose(0, 1)
+        N = b["delta"].shape[-1]
+        rm_out, g_in = b["RmD"], b["gcat"]
+        if self.m_only:
+            rm_out, g_in = rm_out[..., N:], g_in[..., N:]
         # chain-major, so that the dense whitening's adjoint reads it as a
         # (C, D*N) matrix without a copy
         g_delta = b["g_delta"] = torch.empty_like(b["delta"]).transpose(0, 1)
         return SimpleNamespace(
-            rm=lambda stream: torch.bmm(delta_t, self.W_fwd, out=b["RmD"]),
+            rm=lambda stream: torch.bmm(delta_t, self.W_fwd, out=rm_out),
             s=lambda stream: torch.bmm(b["dr"], self.St, out=b["Ds"]),
             s_adjoint=lambda stream: torch.bmm(b["gDs"], self.S,
                                                out=b["gdr"]),
             rm_adjoint=lambda stream: torch.baddbmm(
-                b["gpart"], b["gcat"], self.W_bwd, out=g_delta))
+                b["gpart"], g_in, self.W_bwd, out=g_delta))
 
     to = _to
 
@@ -467,6 +518,9 @@ class GNTarget:
         grad_z = W' g_delta                     whitening stage
 
     Layouts follow ops/manifold.py: per-component blocks are (D, C, N).
+    dz = z - z0 is (C, N*D) in the sampler's interleaved order, or (C, D,
+    N) for a whitening stage that reads it component-major (``whitened``:
+    ``GPWhitening``, whose K1 plan then takes its whitened form).
 
     Every intermediate lives in a workspace made when the target first
     sees a chain count (``_bind``): the buffers, the two stages and the K1
@@ -506,7 +560,9 @@ class GNTarget:
         dt, dev = self.z0.dtype, self.z0.device
         dim = N * D + D + self.P
         new = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
-        b = dict(dz=new(C, N * D), delta=new(C, D, N), t14=new(C, 2),
+        whitened = getattr(self.whitening, "whitened", False)
+        b = dict(dz=new(C, D, N) if whitened else new(C, N * D),
+                 delta=new(C, D, N), t14=new(C, 2),
                  grad0=new(C, dim),
                  **{k: new(D, C, 2 * N) for k in ("RmD", "gcat")},
                  **{k: new(D, C, N)
@@ -515,10 +571,20 @@ class GNTarget:
                                                 "mask", "y", "sigma_lb",
                                                 "n_ds")}
         operators = self.operators.bind(b)
+        if whitened:
+            # the one elementwise pass that forms dz writes it
+            # component-major, the layout of the whitening's GEMM
+            z0T = self.z0.view(N, D).T
+            diff = lambda q: torch.sub(
+                q[:, :N * D].view(C, N, D).transpose(1, 2), z0T,
+                out=b["dz"])
+        else:
+            diff = lambda q: torch.sub(q[:, :N * D], self.z0, out=b["dz"])
         return SimpleNamespace(
-            bufs=b, q_shape=(C, dim), operators=operators,
+            bufs=b, q_shape=(C, dim), operators=operators, diff=diff,
             whitening=self.whitening.bind(b),
-            k1=ManifoldPlan(self.f_vec, self.I, consts, self.beta, dim, b))
+            k1=ManifoldPlan(self.f_vec, self.I, consts, self.beta, dim, b,
+                            whitened=whitened))
 
     def _workspace(self, C: int):
         ws = self._workspaces.get(C)
@@ -535,10 +601,9 @@ class GNTarget:
 
     def _evaluate(self, ws, q, beta_temp, lp, grad) -> None:
         """One evaluation at q into lp and grad, through the workspace."""
-        z0 = self.z0
-        stream = launch_stream(z0.device)
-        b, wh, op, k1 = ws.bufs, ws.whitening, ws.operators, ws.k1
-        torch.sub(q[:, :z0.shape[0]], z0, out=b["dz"])
+        stream = launch_stream(self.z0.device)
+        wh, op, k1 = ws.whitening, ws.operators, ws.k1
+        ws.diff(q)
         wh.forward(stream)
         op.rm(stream)
         k1.fwd(q, beta_temp, stream)
@@ -627,6 +692,50 @@ def make_tempered_logp_grad_centered(data, f_vec, N_I: int, D: int,
     return GNTarget(
         data, f_vec, IdentityWhitening(N_I, D),
         DenseOperators(data.C_inv_sqrts, data.m_ds, data.K_inv_sqrts),
+        ref, z0, N_I, D, D_thetas,
+    )
+
+
+def make_tempered_logp_grad_whitened(data, f_vec, L, N_I: int, D: int,
+                                     D_thetas: int, ref, z0):
+    """The GP-prior whitened target (``reparam="whitened"``, dense
+    storage): X = mu + L z with ``L`` (D, N, N) the GP square roots
+    (``magi_state.gp_sqrt_factors``), t1 = ||z||^2. Relative to ``ref``,
+    whose x0 must be mu + L z0 for the flattened start ``z0`` (N*D,
+    interleaved, in the sampling dtype): delta = L (z - z0) and t1 - ||z0||^2
+    = sum dz (dz + 2 z0), which K1's whitened fwd computes, reading z0 where
+    the GN form reads a0. Its log-posterior differs from the JAX package's
+    by the constant energy of the reference point."""
+    _relative_only(ref, z0)
+    if data.K_inv_sqrts is None:
+        raise ValueError("the relative target needs K_inv_sqrts")
+    ref = ref._replace(a0=z0.view(N_I, D).T.contiguous())
+    return GNTarget(
+        data, f_vec, GPWhitening(L, N_I, D),
+        DenseOperators(None, data.m_ds, data.K_inv_sqrts),
+        ref, z0, N_I, D, D_thetas,
+    )
+
+
+def make_tempered_logp_grad_centered_banded(data, f_vec, N_I: int, D: int,
+                                            D_thetas: int, ref, z0):
+    """Centered coordinates in banded storage: delta = x - x0 (the identity
+    whitening) and every operator through K3 on the band-truncated square
+    roots (``data`` a BandedPosteriorData with C_sqrt_blocks and
+    K_sqrt_blocks), the counterpart of the JAX package's centered
+    ``log_posterior`` on banded data. ``ref`` must be built from the same
+    band-truncated float64 operators, ``z0`` the flattened x0."""
+    _relative_only(ref, z0)
+    if data.C_sqrt_blocks is None or data.K_sqrt_blocks is None:
+        raise ValueError(
+            "the centered banded target needs the banded sqrt factors; "
+            "build the data via to_banded_data(..., C_inv_sqrts_f64=..., "
+            "K_inv_sqrts_f64=...)"
+        )
+    return GNTarget(
+        data, f_vec, IdentityWhitening(N_I, D),
+        BandedOperators(data.C_sqrt_blocks, data.m_blocks,
+                        data.K_sqrt_blocks),
         ref, z0, N_I, D, D_thetas,
     )
 

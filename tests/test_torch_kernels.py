@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels (K1, K2, K3, K4, the NUTS leaf) against
+"""The hand-written CUDA kernels (K1 and its whitened form, K2, K3, K4, the
+NUTS leaf) against
 their plain PyTorch versions, on the card. These tests need a CUDA device
 and skip without one; run them on the card with
 
@@ -139,6 +140,18 @@ def test_kernels_at_sizes_that_fill_no_tile(device, model, C, N):
     runs of each launch agree bit for bit (checked inside)."""
     results = chip_smoke.check_kernels(device, model=model, N=N, C=C)
     assert len(results) == 3
+
+
+@pytest.mark.parametrize("model,C,N", [("seir", 256, 161), ("seir", 37, 333),
+                                       ("fhn", 16, 81)])
+def test_whitened_fwd_kernel_matches_plain_version(device, model, C, N):
+    """K1's whitened fwd (t1 = ||z||^2; functor and given kernels) against
+    its plain version, float32 and float64, each launch twice bit for bit,
+    counted under its own name."""
+    mf.reset_launch_counts()
+    chip_smoke.check_whitened_kernels(device, model=model, C=C, N=N, reps=5)
+    name = "manifold_fwd_whitened_" + ("given" if model == "fhn" else model)
+    assert mf.functor_launch_counts()[name] > 0
 
 
 def test_plan_leaves_its_tickets_at_zero(device):

@@ -103,11 +103,12 @@ def test_unwhiten_draws_matches_jax(fitted):
 
 @pytest.mark.parametrize("override,exc", [
     ({"algorithm": "slice"}, ValueError),
-    ({"reparam": "whitened"}, NotImplementedError),
-    ({"reparam": "centered", "storage": "banded"}, NotImplementedError),
-    ({"reparam": "centered", "storage": "hybrid"}, NotImplementedError),
+    # the storage x reparam combinations the JAX package refuses
+    ({"reparam": "whitened", "storage": "banded"}, ValueError),
+    ({"reparam": "whitened", "storage": "hybrid"}, ValueError),
+    ({"reparam": "centered", "storage": "hybrid"}, ValueError),
     ({"precond_refresh_steps": 10}, NotImplementedError),
-    ({"init_states": {"thetas": np.ones(3)}}, NotImplementedError),
+    ({"init_states": {"theta": np.ones(3)}}, ValueError),
     ({"pt_betas": (1.0, 0.5)}, NotImplementedError),
     ({"checkpoint_path": "ckpt"}, NotImplementedError),
     ({"matmul_precision": "high"}, ValueError),
