@@ -38,7 +38,19 @@ only when all of them passed):
    its one-shot wrapper, at the SEIR shapes, at 37 chains and N_I = 333,
    and in the given kernels (FitzHugh-Nagumo, 16 chains, N_I = 81), each
    launch twice bit for bit, float32 within 5e-7 and float64 within 1e-14
-   of each output's scale. Float32 and float64, timed with CUDA events.
+   of each output's scale. K1 with a temperature per chain (parallel
+   tempering: the launches of stride 1), drawn in (0.1, 1]: fwd, its
+   whitened form, energy and bwd, through the plan and the one-shot
+   wrappers, at SEIR's 256 chains and N_I = 161, the Hes1 PT path's 80
+   chains and N_I = 129, and 37 chains at N_I = 333 with a functor and
+   with the given kernels, each launch twice bit for bit, every chain at
+   one temperature giving the stride-0 launch's bits, within the same 5e-7
+   and 1e-14; timed beside the stride-0 launch. K6, the swap kernel,
+   against its plain version at 5 rungs x 16 replicas x 397 (the Hes1 PT
+   path), 4 x 64 x 489 and 3 x 7 x 3081 (rows that share no 16-byte
+   alignment), both parities, one lp NaN, uniforms held away from ties:
+   q, lp and the counters equal. Float32 and float64, timed with CUDA
+   events.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -54,7 +66,10 @@ only when all of them passed):
    the stages around them), and torch.profiler's device time by kernel
    and device busy share over one replayed and one eager transition; then
    20 transitions by graph and by eager from the same state and noise,
-   compared.
+   compared. Then 20 parallel-tempering HMC transitions (4 rungs x 64
+   replicas, each chain at its rung's beta and step, a swap round after
+   each) by the bound transition and the swap graph and by their eager
+   forms, bit for bit.
 6b. SEIR NUTS path: the same fit, ``predict`` with the default algorithm
    (NUTS, trees up to depth 10) and otherwise the bench recipe, 256
    chains, 500 + 500 transitions, float32. Fails on non-finite draws, a
@@ -83,7 +98,11 @@ only when all of them passed):
    versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
    and N_I = 333, then its composed target and HMC and NUTS predicts on
    the card (16 chains, 100 + 100 steps; 200 + 200 before the Hes1 path
-   joined the smoke), which must launch K1, held against the CPU's.
+   joined the smoke), which must launch K1, held against the CPU's. Then
+   tests/test_pt.py's bimodal harness on the card (weight 0.8, 4 rungs x
+   8 replicas, HMC, 600 + 3000): the beta = 1 rung's right-mode share must
+   lie in (0.6, 0.95), every pair's swap acceptance exceed 0.05, and K6
+   launch once a sampling transition.
 6c. Hes1 path (partially observed: H never observed): the data of
    examples/hes1.py, ``initial_fit(2)`` at the config's full iteration
    counts (N_I = 129, gradient matching for H and theta), beta = 1, and a
@@ -115,6 +134,20 @@ only when all of them passed):
    iterations and convergence (not gated: the JAX package's own
    map_estimate does not meet its criterion on this fit), H's band
    coverage beside the heuristic starts', rhat and ESS.
+6e. Hes1 with parallel tempering, on the same fit (scripts/hes1_pt.py's
+   recipe): ``predict(pt_betas=(1, 0.6, 0.36, 0.22, 0.13))``, 16
+   replicas a rung (80 chains), centered, no annealing, sigma pinned,
+   heuristic starts, NUTS, 500 + 500 (cut from 3000 + 8000), float32.
+   Fails on non-finite draws, K1 not launched with a temperature per chain
+   through the Hes1-log functor, any launch of K1's given kernels, K6 not
+   launched, the swap graph not replayed once a sampling transition, or a
+   returned chain axis other than 16; prints, not gated, the swap
+   acceptance per pair, the beta = 1 rung's draws by mode (g > 8), the
+   chains that changed mode, theta by mode, H's band coverage beside 6c's
+   and 6d's, rhat, ESS, depth and leaves. Then its composed float64
+   target with a temperature per state card vs CPU, 20 PT NUTS transitions
+   with swaps by graph and by eager (bit for bit), and the device time of
+   a transition with its swap round and of a swap round alone.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
    with theta started from the same data's discretization-1 fit through
@@ -165,7 +198,8 @@ The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it; K2's NUTS form
 and the leaf kernel from the SEIR NUTS and the Hes1 paths, K1's given
 kernels from the FitzHugh-Nagumo predicts, K1's Hes1-log functor from the
-Hes1 path, K1's whitened fwd from the whitened SEIR path), error, times,
+Hes1 path, K1's whitened fwd from the whitened SEIR path, K1 with a
+temperature per chain and K6 from the Hes1 PT path), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
 time (null where no one PyTorch call computes the same function), and
@@ -222,12 +256,17 @@ REPLACES = {
     "banded_matvec_adjoint_pair": "magi_v2_tpu/ops/banded.py:212",
     "banded_solve": "magi_v2_tpu/ops/banded.py:315",
     "banded_solve_adjoint": "magi_v2_tpu/ops/banded.py:315",
+    # the sampling phase's per-chain temperature (step_chains_pt's vmapped
+    # tempered_logp_grad), and the swap round
+    "k1_per_chain": "magi_v2_tpu/sampler/run.py:584",
+    "pt_swap": "magi_v2_tpu/sampler/run.py:612",
 }
 SOURCES = {
     "manifold": "magi_v2_tpu_torch/csrc/manifold.cu",
     "banded": "magi_v2_tpu_torch/csrc/banded.cu",
     "leapfrog": "magi_v2_tpu_torch/csrc/leapfrog.cu",
     "nuts": "magi_v2_tpu_torch/csrc/nuts.cu",
+    "pt": "magi_v2_tpu_torch/csrc/pt.cu",
 }
 
 
@@ -255,12 +294,13 @@ def bound(nbytes, flops, dtype=torch.float32):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(kname, C, N, D, P, dtype, given=False):
+def k1_bound(kname, C, N, D, P, dtype, given=False, per_chain=False):
     """The bound of one K1 kernel at C chains, N grid points, D
     components and P parameters: what it reads and writes per
     csrc/manifold.cu (the (C, D, N) blocks, the (D, N) reference rows, the
     sigma/theta entries of q and grad, t14 and lp; for the given kernels
-    also the field's values or its VJPs)."""
+    also the field's values or its VJPs; with a temperature per chain its
+    C temperatures)."""
     # the whitened fwd reads dz and z0 in place of R delta and a0: the
     # same bytes and operations as the GN form's
     kname = kname.replace("_whitened", "")
@@ -271,16 +311,18 @@ def k1_bound(kname, C, N, D, P, dtype, given=False):
     if given:
         elems += {"manifold_fwd": pts, "manifold_energy": 0,
                   "manifold_bwd": pts + C * P}[kname]
+    if per_chain:
+        elems += C
     size = torch.finfo(dtype).bits // 8
     flops = (K1_GIVEN_FLOPS if given else K1_FLOPS)[kname]
     return bound(elems * size, flops * pts, dtype)
 
 
 def _counters():
-    from magi_v2_tpu_torch.ops import banded, manifold, nuts
+    from magi_v2_tpu_torch.ops import banded, manifold, nuts, pt
     from magi_v2_tpu_torch.sampler import hmc
 
-    return (manifold, banded, hmc, nuts)
+    return (manifold, banded, hmc, nuts, pt)
 
 
 def reset_launch_counts():
@@ -697,6 +739,255 @@ def check_whitened_kernels(device, model="seir", N=161, C=256, tag="",
                WHITENED_TOL[dtype], results,
                extra=f" at {C} chains, N {N}, bound "
                      f"{more['bound_ms']:.4f} ms", more=more)
+    return results
+
+
+# K1 with a temperature per chain (parallel tempering's rungs, stride 1):
+# relative to each output's scale, the tolerances the K1 rows measured
+# (PERF.md: float32 <= 4.9e-7, float64 <= 1.1e-15), as for the whitened
+# form
+PT_TOL = WHITENED_TOL
+# (model, N_I, chains): SEIR's, the Hes1 PT path's 80 chains (5 rungs x 16
+# replicas), a chain count and grid that fill no tile, and the given
+# kernels there
+HES1_PT_CHAINS = 80
+K1_PT_CASES = (("seir", 161, 256), ("hes1_log", 129, HES1_PT_CHAINS),
+               ("seir", 333, 37), ("fhn", 333, 37))
+
+
+def check_k1_per_chain(device, model="seir", N=161, C=256, reps=200):
+    """Each K1 kernel (fwd, its whitened form, energy, bwd) with one
+    temperature per chain, drawn in (0.1, 1]: as the sampler's plan
+    launches it (a (C,) beta_temp: the launch of stride 1) and through its
+    one-shot wrapper (the same bits), against its plain version (which
+    broadcasts beta_temp over the chains) on the same inputs, float64 and
+    float32; each launch twice bit for bit, and the launch of stride 1
+    with every chain at one beta gives the bits of the launch of stride 0
+    at that beta. ``model`` as in ``check_kernels`` ("fhn": the given
+    kernels). Returns {name: {...}} for float32, each kernel's time beside
+    its stride-0 launch's ("stride0_ms"); names end in "_pt" and the
+    model's name as in ``check_kernels``."""
+    from magi_v2_tpu_torch.models import MODEL_REGISTRY
+    from magi_v2_tpu_torch.ops import manifold as mf
+
+    given = model == "fhn"
+    f = fitzhugh_nagumo_f_vec if given else MODEL_REGISTRY[model].f_vec
+    suffix = "_pt" + ("" if model == "seir" else f"_{model}")
+    results = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for dtype in (torch.float64, torch.float32):
+        x = kernel_inputs(dtype, device, C=C, N=N, model=model)
+        D, N = x["x0T"].shape
+        P = x["q"].shape[1] - N * D - D
+        on = lambda t: t.to(device=device, dtype=dtype).contiguous()
+        g = torch.Generator(device="cpu").manual_seed(11)
+        bc = on(1.0 - 0.9 * _rand(g, (C,)))
+        bt = x["beta_temp"]
+        one_b = torch.full((C,), float(bt), dtype=dtype, device=device)
+        q = x["q"]
+        plan, b, I = make_plan(f, x, device, dtype)
+        # the whitened form, as check_whitened_kernels makes it
+        dz, z0 = on(0.3 * _randn(g, (C, D, N))), on(3.0 * _randn(g, (D, N)))
+        RmDw = x["RmD"].clone()
+        RmDw[..., :N] = float("nan")
+        new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+        bw = dict(delta=x["delta"], RmD=RmDw, Ds=x["Ds"], gdr=x["gdr"], dz=dz,
+                  gcat=new(D, C, 2 * N), t14=new(C, 2),
+                  **{k: new(D, C, N) for k in ("dr", "gDs", "gpart")})
+        wplan = mf.ManifoldPlan(f, I, dict({k: x[k] for k in K1_CONSTS},
+                                           a0=z0), x["beta"], q.shape[1], bw,
+                                whitened=True)
+        lp = torch.empty((C,), dtype=dtype, device=device)
+        grad = torch.zeros_like(q)
+        fwd_args = lambda RmD, a0: (f, I, x["delta"], RmD, q, x["x0T"], a0,
+                                    x["f0"], x["mask"], x["y"], x["sigma_lb"])
+        en_args = lambda: (f, x["Ds"], x["s0"], b["t14"].clone(), q,
+                           x["sigma_lb"], x["n_ds"])
+        bwd_args = (f, I, x["gdr"], x["delta"], q, x["x0T"], x["mask"],
+                    x["y"], x["sigma_lb"], x["n_ds"])
+
+        def bwd_plain(beta):
+            gc, gr = b["gcat"].clone(), torch.zeros_like(q)
+            gp = mf.manifold_bwd_plain(*bwd_args, beta, gc, gr)
+            return gp, gc[..., N:], gr[:, N * D:]
+
+        def bwd_once(beta):
+            gc, gr = b["gcat"].clone(), torch.zeros_like(q)
+            gp = mf.manifold_bwd(*bwd_args, beta, gc, gr)
+            return gp, gc[..., N:], gr[:, N * D:]
+
+        # (name, the plan's launch at beta, what it writes, the plain
+        # version's values of those, the one-shot wrapper's, output names)
+        cases = (
+            ("manifold_fwd", lambda beta: plan.fwd(q, beta, stream),
+             lambda: (b["dr"], b["t14"], b["gcat"][..., :N]),
+             lambda beta: _fwd_parts(mf.manifold_fwd_plain(
+                 *fwd_args(x["RmD"], x["a0"]), beta, x["beta"]), N),
+             lambda beta: _fwd_parts(mf.manifold_fwd(
+                 *fwd_args(x["RmD"], x["a0"]), beta, x["beta"]), N),
+             ("dr", "t14", "g_Rd")),
+            ("manifold_fwd_whitened", lambda beta: wplan.fwd(q, beta, stream),
+             lambda: (bw["dr"], bw["t14"], bw["gcat"][..., :N]),
+             lambda beta: _fwd_parts(mf.manifold_fwd_plain(
+                 *fwd_args(RmDw, z0), beta, x["beta"], dz=dz), N),
+             lambda beta: _fwd_parts(mf.manifold_fwd(
+                 *fwd_args(RmDw, z0), beta, x["beta"], dz=dz), N),
+             ("dr", "t14", "g_z")),
+            ("manifold_energy",
+             lambda beta: plan.energy(q, beta, lp, stream),
+             lambda: (lp, b["gDs"]),
+             lambda beta: mf.manifold_energy_plain(*en_args(), beta,
+                                                   x["beta"]),
+             lambda beta: mf.manifold_energy(*en_args(), beta, x["beta"]),
+             ("lp", "gDs")),
+            ("manifold_bwd", lambda beta: plan.bwd(q, beta, grad, stream),
+             lambda: (b["gpart"], b["gcat"][..., N:], grad[:, N * D:]),
+             bwd_plain, bwd_once, ("gpart", "g_dr", "grad_tail")),
+        )
+        for kname, run, outputs, plain, once, names in cases:
+            if kname == "manifold_energy":
+                # energy reads t14: the plain fwd's at these temperatures
+                b["t14"].copy_(_fwd_parts(mf.manifold_fwd_plain(
+                    *fwd_args(x["RmD"], x["a0"]), bc, x["beta"]), N)[1])
+            name = kname + suffix
+            same_twice(lambda: run(bc), outputs, name)
+            got = [t.clone() for t in outputs()]
+            shot = once(bc)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(shot, got)):
+                raise AssertionError(f"{name}: the one-shot wrapper and the "
+                                     "plan launch one kernel and must agree "
+                                     "bit for bit")
+            run(one_b)
+            strided = [t.clone() for t in outputs()]
+            run(bt)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(strided, outputs())):
+                raise AssertionError(f"{name}: a temperature per chain, all "
+                                     "equal, does not give the bits of one "
+                                     "temperature for all chains")
+            errs = part_errors(zip(names, plain(bc), got), N, D)
+            more = dict(k1_bound(kname, C, N, D, P, dtype, given,
+                                 per_chain=True), library_ms=None,
+                        stride0_ms=_time_ms(lambda: run(bt), reps))
+            report(name, dtype, errs, _time_ms(lambda: run(bc), reps),
+                   _time_ms(lambda: plain(bc), reps), PT_TOL[dtype], results,
+                   extra=f" at {C} chains, N {N}, a temperature per chain; "
+                         f"stride 0 {more['stride0_ms']:.4f} ms, bound "
+                         f"{more['bound_ms']:.4f} ms", more=more)
+    return results
+
+
+def _fwd_parts(out, N):
+    """(dr, t14, the t1 seed gcat[..., :N]) of a fwd's (dr, gcat, t14)."""
+    dr, gcat, t14 = out
+    return dr, t14, gcat[..., :N]
+
+
+# K6, the swap kernel: (rungs, replicas, width) at the Hes1 PT path's
+# shape (5 x 16, the 397-wide state), at the SEIR state's 489 (4 x 64) and
+# at the Lorenz width with rows that share no 16-byte alignment (3 x 7 x
+# 3081: the element-by-element path)
+PT_SWAP_CASES = ((5, 16, 397), (4, 64, 489), (3, 7, 3081))
+# a log u this close to log alpha is moved away (device logf and torch's
+# log may differ by an ulp)
+PT_SWAP_TIE = 0.05
+
+
+def pt_swap_case(R, M, dim, dtype, device, seed=0):
+    """One swap round's inputs: the ladder (1, 0.6, 0.36, ...), q (C, dim),
+    lp (C,) spread so that both outcomes occur, one lp NaN (its pair is
+    refused), and u (R - 1, M) with log u at least PT_SWAP_TIE from log
+    alpha (computed as the plain version computes it)."""
+    from magi_v2_tpu_torch.ops.pt import ladder_gaps
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    C = R * M
+    betas = tuple(0.6 ** r for r in range(R))
+    q = torch.randn((C, dim), generator=g, dtype=torch.float64).to(dtype)
+    lp = (-250.0 + 4.0 * torch.randn((C,), generator=g,
+                                     dtype=torch.float64)).to(dtype)
+    lp[M + 1] = float("nan")
+    u = torch.rand((R - 1, M), generator=g, dtype=torch.float64).to(dtype)
+    lpr = lp.view(R, M)
+    la = ladder_gaps(betas, dtype, "cpu")[:, None] * (lpr[1:] - lpr[:-1])
+    near = (torch.log(u) - la).abs() < PT_SWAP_TIE
+    u = torch.where(near, 0.5 * u, u)
+    return betas, q.to(device), lp.to(device), u.to(device)
+
+
+def pt_swap_bound(R, M, dim, dtype, accepted):
+    """K6's bound for one round with ``accepted`` swaps: the round's lp
+    pairs and uniforms read, and each swap's two lp and two rows read and
+    written once, over the memory rate (operations: a few a replica)."""
+    size = torch.finfo(dtype).bits // 8
+    pairs = len(range(0, R - 1, 2))
+    elems = pairs * M * 3 + accepted * (2 + 4 * dim)
+    return bound(elems * size + 8 * (R - 1), 4 * pairs * M, dtype)
+
+
+def check_pt_swap(device, reps=200):
+    """K6 against its plain version at PT_SWAP_CASES, float64 and float32,
+    both parities: q, lp (NaN where NaN) and the counters must be equal.
+    Each case must both accept and refuse. Timed at parity 0 (q and lp
+    restored before each launch, in one CUDA graph); returns {"pt_swap":
+    {...}} at the Hes1 shape, float32."""
+    from magi_v2_tpu_torch.ops.pt import bind_pt_swap, pt_swap_plain
+
+    results = {}
+    for R, M, dim in PT_SWAP_CASES:
+        for dtype in (torch.float64, torch.float32):
+            betas, q, lp, u = pt_swap_case(R, M, dim, dtype, device)
+            taken, offered = 0, 0
+            for parity in (0, 1):
+                qp, lpp, dp, dap = pt_swap_plain(q, lp, betas, u, parity)
+                qk, lpk = q.clone(), lp.clone()
+                prop = torch.zeros((R - 1,), dtype=torch.int32, device=device)
+                accs = torch.zeros_like(prop)
+                par = torch.tensor([parity], dtype=torch.int32, device=device)
+                bind_pt_swap(qk, lpk, betas, u, par, prop, accs)(
+                    torch.cuda.current_stream(device).cuda_stream)
+                torch.cuda.synchronize()
+                nan = torch.isnan(lpp)
+                same = (torch.equal(qk, qp) and torch.equal(prop, dp)
+                        and torch.equal(accs, dap)
+                        and torch.equal(torch.isnan(lpk), nan)
+                        and torch.equal(lpk[~nan], lpp[~nan]))
+                if not same:
+                    raise AssertionError(
+                        f"pt_swap {R} x {M} x {dim} {dtype} parity {parity}"
+                        ": the kernel's round differs from the plain one")
+                taken += int(dap.sum())
+                offered += int(dp.sum())
+            if not 0 < taken < offered:
+                raise AssertionError(f"pt_swap {R} x {M} x {dim}: the case "
+                                     f"accepts {taken} of {offered}")
+            # the timed round: parity 0 from the same state every time
+            qk, lpk = q.clone(), lp.clone()
+            prop = torch.zeros((R - 1,), dtype=torch.int32, device=device)
+            accs = torch.zeros_like(prop)
+            par = torch.zeros((1,), dtype=torch.int32, device=device)
+            launch = bind_pt_swap(qk, lpk, betas, u, par, prop, accs)
+            stream = lambda: torch.cuda.current_stream(device).cuda_stream
+
+            def rearm():
+                qk.copy_(q)
+                lpk.copy_(lp)
+
+            ms = _graph_ms(lambda: launch(stream()), rearm)
+            plain_ms = _time_ms(lambda: pt_swap_plain(q, lp, betas, u, 0),
+                                reps)
+            n0 = int(pt_swap_plain(q, lp, betas, u, 0)[3].sum())
+            more = dict(pt_swap_bound(R, M, dim, dtype, n0), library_ms=None)
+            name = str(dtype).replace("torch.", "")
+            print(f"pt_swap {name} at {R} rungs x {M} replicas x {dim}: "
+                  f"equal to its plain version at both parities ({taken} of "
+                  f"{offered} swaps accepted); kernel {ms:.4f} ms (parity 0,"
+                  f" {n0} swaps, restored in a graph), plain {plain_ms:.4f} "
+                  f"ms, bound {more['bound_ms']:.5f} ms")
+            if dtype == torch.float32 and (R, M, dim) == PT_SWAP_CASES[0]:
+                results["pt_swap"] = dict(max_abs_err=0.0, ms=ms,
+                                          plain_ms=plain_ms, **more)
     return results
 
 
@@ -2048,7 +2339,113 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
         raise AssertionError(f"Hes1 Laplace starts: theta means {theta_mean} "
                              "are more than 3 posterior sd from the JAX "
                              f"package's Laplace-start run: {z}")
-    return counts
+    return counts, coverage
+
+
+# The Hes1 PT recipe (scripts/hes1_pt.py): the ladder, 16 replicas a rung
+# (80 chains), centered, no annealing, sigma pinned, heuristic starts,
+# default NUTS, float32; 500 + 500 transitions (the JAX script's 3000 +
+# 8000 cut; N_I and the chains not)
+HES1_PT_LADDER = (1.0, 0.6, 0.36, 0.22, 0.13)
+HES1_PT_STEPS = 500
+
+
+def hes1_pt(model, device, logH_true, coverages, num_steps=HES1_PT_STEPS):
+    """The Hes1 PT predict on the card. Fails on non-finite draws, K1 not
+    launched with a temperature per chain through the Hes1-log functor
+    ("manifold_*_hes1_log_pt"), any launch of K1's given kernels, K6 not
+    launched, the swap graph not replayed exactly once a sampling
+    transition, or a returned chain axis other than 16. Prints, without
+    gating (the decoupled-H mode is part of this posterior, and the ladder
+    is expected to swap rarely at this dimension): the swap acceptance per
+    pair, the beta = 1 rung's draws by mode (g = theta[5] > 8), the chains
+    that changed mode, theta in each mode, H's band coverage beside the
+    heuristic and Laplace starts' (``coverages``), rhat, ESS, depth,
+    leaves and wall. Returns the launch counts, the kernel results and the
+    last draws of the 16 chains."""
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    M = HES1_PT_CHAINS // len(HES1_PT_LADDER)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_chains=HES1_PT_CHAINS, num_results=num_steps,
+                        num_burnin_steps=num_steps, init_jitter=0.02, seed=0,
+                        reparam="centered", use_annealing=False,
+                        sigma_sqs_fixed=HES1_SIGMA, pt_betas=HES1_PT_LADDER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs = launch_counts(), graph_counts()
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    acc = kr["pt_swap_accept"]
+    in_basin = thetas[..., 5] > HES1_BASIN_G               # (T, 16)
+    hopped = np.flatnonzero(in_basin.any(axis=0) & ~in_basin.all(axis=0))
+    by_mode = {name: np.round(thetas[sel].mean(axis=0), 4).tolist()
+               for name, sel in (("truth basin", in_basin),
+                                 ("decoupled", ~in_basin)) if sel.any()}
+    summ = summarize_chains(thetas, wall)
+    depths, leaves = kr["depths"], kr["num_leapfrogs"]
+    coverage = h_coverage(res, logH_true)
+    print(f"Hes1 PT predict wall: {wall:.2f} s ({num_steps}+{num_steps} "
+          f"transitions, {len(HES1_PT_LADDER)} rungs x {M} replicas, ladder "
+          f"{list(HES1_PT_LADDER)}, centered); {predict_phases(model, wall)}")
+    print(f"Hes1 PT: swap acceptance per adjacent pair "
+          f"{np.round(acc, 4).tolist()}; beta = 1 rung: "
+          f"{in_basin.mean():.4f} of its draws in the truth basin (g > 8), "
+          f"chains that changed mode {hopped.tolist()}, theta by mode "
+          f"{by_mode}; ESS_min {summ['ess_min']:.1f}, rhat_max "
+          f"{summ['rhat_max']:.4f}; mean depth {depths.mean():.3f} (max "
+          f"{depths.max()}), mean leaves a chain {leaves.mean():.2f}, "
+          f"{graphs.get('nuts_leaf', 0)} leaves replayed, step size "
+          f"{float(kr['step_size']):.5f}")
+    print(f"Hes1: H's 95% band covers the true H at {coverage:.3f} of the "
+          f"grid with PT, {coverages[0]:.3f} from the heuristic starts, "
+          f"{coverages[1]:.3f} from the Laplace starts")
+    print(f"Hes1 PT launch counts: "
+          f"{ {k: n for k, n in counts.items() if n} }; CUDA graphs {graphs}")
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("Hes1 PT: non-finite draws")
+    check_launched(counts, [f"{k}_hes1_log_pt" for k in mf.KERNELS]
+                   + ["leapfrog_update", "nuts_leaf", "pt_swap"], "Hes1 PT")
+    given = {k: counts[k] for k in counts if "_given" in k and counts[k]}
+    if given:
+        raise AssertionError(f"Hes1 PT: K1 launched its given kernels {given}")
+    if graphs.get("pt_swap", 0) != num_steps:
+        raise AssertionError(f"Hes1 PT: the swap graph replayed "
+                             f"{graphs.get('pt_swap', 0)} times in "
+                             f"{num_steps} sampling transitions")
+    if thetas.shape[1] != M:
+        raise AssertionError(f"Hes1 PT: predict returned {thetas.shape[1]} "
+                             f"chains, not the beta = 1 rung's {M}")
+    return counts, kr, res["sample_results"][-1]
+
+
+def hes1_pt_after(model, device, kr, last):
+    """After the Hes1 PT predict: its composed float64 centered target with
+    a temperature per chain, card against CPU; 20 PT NUTS transitions with
+    swaps by replayed graphs and by eager (bit for bit), from the beta = 1
+    rung's last states on every rung; the device time of one transition
+    with its swap round, by kernel, and the swap round's graph replayed
+    back to back (CUDA events)."""
+    pre_fix = model._sigma_bounds(None, HES1_SIGMA)[2]
+    tail = tuple(pre_fix.tolist()
+                 + np.log(np.expm1(model.thetas_init)).tolist())
+    check_composed(model, device, tail=tail, reparam="centered",
+                   betas=np.linspace(1.0, 0.13, 8))
+    R = len(HES1_PT_LADDER)
+    target, qs, mass, eps, _ = _nuts_setup(
+        model, device, kr, num_chains=HES1_PT_CHAINS, reparam="centered",
+        tail=tail, sigma_sqs_fixed=HES1_SIGMA, start=np.tile(last, (R, 1)))
+    bound, swap, q, noise, u, beta, eps_c = pt_graph_vs_eager(
+        target, qs, mass, eps, HES1_PT_LADDER, "Hes1 NUTS",
+        max_depth=model.config.max_tree_depth)
+    device_profile(lambda: swap(bound(q, eps_c, mass, beta, noise)[0], u, 0),
+                   "Hes1 PT transition and swap round")
+    swap_ms = _time_ms(swap.graph.replay)
+    print(f"Hes1 PT: a swap round's graph (the value-only evaluation at beta "
+          f"1 and K6) replayed back to back: {swap_ms * 1e3:.2f} us a round")
 
 
 def hes1_after(model, device, kr, last):
@@ -2101,11 +2498,12 @@ def check_launched(counts, kernels, path):
 
 
 def check_composed(model, device, storage="dense", tail=SEIR_TAIL,
-                   reparam="precond"):
+                   reparam="precond", betas=None):
     """The float64 target of ``reparam`` and ``storage`` on the card
     against the same target, moved to the CPU (plain versions), at 8
     states near the fit (``tail`` the sigma_pre and theta_pre of the
-    states), at the model's beta."""
+    states), at the temperature 0.37 or, with ``betas`` (8,), one per
+    state."""
     from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
 
     arrays = {f: getattr(model, f) for f in FIT_FIELDS}
@@ -2122,13 +2520,15 @@ def check_composed(model, device, storage="dense", tail=SEIR_TAIL,
     rng = np.random.default_rng(1)
     q0 = np.concatenate([mode.X0.cpu().numpy().ravel(), tail])
     q = q0 + 0.1 * rng.standard_normal((8, q0.size))
-    bt = torch.tensor(0.37, dtype=torch.float64)
+    bt = torch.tensor(0.37 if betas is None else betas, dtype=torch.float64)
     lp_c, g_c = cpu_target(torch.as_tensor(q), bt)
     lp_d, g_d = target(torch.as_tensor(q, device=device), bt.to(device))
     torch.cuda.synchronize()
     e_lp = _relerr(lp_c, lp_d.cpu())[1]
     e_g = _relerr(g_c, g_d.cpu())[1]
-    print(f"composed float64 {reparam} {storage} target, card vs CPU: lp rel "
+    print(f"composed float64 {reparam} {storage} target"
+          + ("" if betas is None else ", a temperature per chain")
+          + ", card vs CPU: lp rel "
           f"{e_lp:.3e}, grad rel {e_g:.3e} (tol {COMPOSED_TOL:.0e})")
     if not (e_lp <= COMPOSED_TOL and e_g <= COMPOSED_TOL):
         raise AssertionError(f"composed {storage} target disagrees between "
@@ -2164,7 +2564,7 @@ def plain_kernels():
 OWN_KERNELS = ("manifold_fwd_kernel", "manifold_energy_kernel",
                "manifold_bwd_kernel", "leapfrog_kernel",
                "banded_matvec_kernel", "banded_solve_kernel",
-               "nuts_leaf_kernel")
+               "nuts_leaf_kernel", "pt_swap_kernel")
 
 
 def device_profile(run, label):
@@ -2414,6 +2814,188 @@ def graph_vs_eager(model, device, storage, num_chains, max_leapfrogs, tail,
         raise AssertionError(f"{storage}: the replayed transition differs "
                              "from the eager one beyond K2's tolerance")
     return same, gap
+
+
+# Parallel tempering on the SEIR fit's HMC: 4 rungs x 64 replicas
+SEIR_PT_LADDER = (1.0, 0.6, 0.36, 0.22)
+
+
+def pt_graph_vs_eager(target, qs, mass, eps, ladder, label, transitions=20,
+                      algorithm="nuts", max_depth=10, max_leapfrogs=64,
+                      seed=5):
+    """PT transitions (each chain at its rung's beta and step eps
+    beta^(-1/2)) each followed by a swap round, ``transitions`` times from
+    ``qs``: by the bound transition and swap (captured CUDA graphs,
+    replayed) and by their eager forms (the target wrapped in a lambda, so
+    that nothing binds), with the same noise, uniforms and parities. The
+    states, every info field and the swap counters must agree bit for bit.
+    Returns the bound transition and swap, the last state and noise, and
+    the per-chain betas and steps, for a profile."""
+    from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
+    from magi_v2_tpu_torch.sampler.nuts import BoundNuts, NutsConfig, \
+        draw_noise
+    from magi_v2_tpu_torch.sampler.pt import BoundSwap, rung_temperatures
+
+    C, dim = qs.shape
+    R, device = len(ladder), qs.device
+    beta, scale = rung_temperatures(ladder, C, qs.dtype, device)
+    eps_c = eps * scale
+    eager = lambda q, b: target(q, b)
+    g = torch.Generator(device=device).manual_seed(seed)
+    host = np.random.default_rng(seed)
+    if algorithm == "nuts":
+        cfg = NutsConfig(max_depth)
+        bound = BoundNuts(target, qs, mass, cfg, per_chain=True)
+        slow = BoundNuts(eager, qs, mass, cfg, per_chain=True)
+    else:
+        bound = BoundTransition(target, qs, mass, per_chain=True)
+    swap, swap_e = BoundSwap(target, qs, ladder), BoundSwap(eager, qs, ladder)
+    qe = qb = qs
+    same = 0
+    for t in range(transitions):
+        if algorithm == "nuts":
+            noise = draw_noise(g, C, dim, max_depth, qs.dtype, device)
+            qe2, ie = slow(qe, eps_c, mass, beta, noise)
+            qb2, ib = bound(qb, eps_c, mass, beta, noise)
+        else:
+            L = max(1, int(np.ceil(host.random() * max_leapfrogs)))
+            noise = (L, torch.randn((C, dim), generator=g, device=device),
+                     torch.rand((C,), generator=g, device=device))
+            qe2, ie = hmc_step(lambda q: target(q, beta), qe, eps_c, mass,
+                               *noise)
+            qb2, ib = bound(qb, eps_c, mass, beta, *noise)
+        u = torch.rand((R - 1, C // R), generator=g, device=device)
+        qe2, qb2 = swap_e(qe2, u, t % 2), swap(qb2, u, t % 2)
+        fields = [(a, c) for a, c in zip(ie, ib)
+                  if isinstance(a, torch.Tensor)]
+        if torch.equal(qe2, qb2) and all(torch.equal(a, c)
+                                         for a, c in fields):
+            same += 1
+        qe, qb = qe2, qb2
+    torch.cuda.synchronize()
+    counters = (torch.equal(swap.prop, swap_e.prop)
+                and torch.equal(swap.accs, swap_e.accs))
+    print(f"{label}: PT graph against eager, {transitions} transitions of "
+          f"{C} chains ({R} rungs, {algorithm}, step {float(eps):.4g} at "
+          f"beta 1), each with a swap round: {same} of {transitions} bit for "
+          f"bit; swaps accepted {swap.accs.tolist()} of "
+          f"{swap.prop.tolist()} proposed, counters equal {counters}")
+    if same < transitions or not counters:
+        raise AssertionError(f"{label}: the replayed PT transitions and "
+                             "swaps differ from the eager ones")
+    return bound, swap, qb, noise, u, beta, eps_c
+
+
+def seir_pt_graph_vs_eager(model, device):
+    """20 PT HMC transitions with swaps on the SEIR fit's float32 target
+    (precond, dense), 4 rungs x 64 replicas, from states near the fit, a
+    dense random metric, the step halved from 0.05 until the beta = 1
+    chains accept 30% of their proposals: BoundTransition's (C,) path and
+    the swap graph against their eager forms, bit for bit."""
+    from magi_v2_tpu_torch.sampler.hmc import hmc_step
+    from magi_v2_tpu_torch.sampler.mass import mass_from_moments
+
+    mode, _, _ = model._build_sampling_setup("precond", "dense",
+                                             torch.float32)
+    target = mode.logp_grad
+    dim = model.mag_I * model.D + model.D + model.D_thetas
+    g = torch.Generator(device=device).manual_seed(1)
+    q0 = torch.cat([mode.X0.reshape(-1).float(),
+                    torch.tensor(SEIR_TAIL, dtype=torch.float32,
+                                 device=device)])
+    qs = q0 + 0.01 * torch.randn((NUM_CHAINS, dim), generator=g,
+                                 device=device)
+    var = 1.0 + 0.2 * torch.rand((dim,), generator=g, device=device)
+    a = torch.randn((dim, dim), generator=g, device=device)
+    mass = mass_from_moments(var, torch.diag(var) + 0.05 * a @ a.T / dim)
+    one = torch.ones((), device=device)
+    eps = torch.tensor(0.05, device=device)
+    for _ in range(10):
+        _, info = hmc_step(lambda q: target(q, one), qs, eps, mass, 16,
+                           torch.randn((NUM_CHAINS, dim), generator=g,
+                                       device=device),
+                           torch.rand((NUM_CHAINS,), generator=g,
+                                      device=device))
+        if float(info.accept_prob.mean()) >= 0.3:
+            break
+        eps = 0.5 * eps
+    reset_launch_counts()
+    pt_graph_vs_eager(target, qs, mass, eps, SEIR_PT_LADDER, "SEIR HMC",
+                      algorithm="hmc")
+    counts = launch_counts()
+    print(f"SEIR PT HMC: launch counts "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    check_launched(counts, [f"{k}_seir_pt" for k in
+                            ("manifold_fwd", "manifold_energy",
+                             "manifold_bwd")] + ["pt_swap",
+                                                 "leapfrog_update"],
+                   "SEIR PT HMC")
+
+
+# the bimodal target of tests/test_pt.py: modes at +-3 with sd 0.35 in
+# coordinate 0 (a ~37-nat barrier at beta = 1), N(0, 1) in coordinate 1
+BIMODAL_MODE, BIMODAL_SD = 3.0, 0.35
+BIMODAL_LADDER = (1.0, 0.3, 0.1, 0.03)
+
+
+def bimodal_target(weight_right=0.5):
+    """(q (C, 2), beta 0-dim or (C,)) -> (lp (C,), grad (C, 2)) of the
+    mixture weight_right N(3, 0.35^2) + (1 - weight_right) N(-3, 0.35^2)
+    in coordinate 0 and N(0, 1) in coordinate 1, tempered by beta."""
+    mode, sd = BIMODAL_MODE, BIMODAL_SD
+    la0, lb0 = float(np.log1p(-weight_right)), float(np.log(weight_right))
+
+    def lp(q, beta_temp):
+        z = q[:, 0]
+        la = la0 - 0.5 * ((z + mode) / sd) ** 2
+        lb = lb0 - 0.5 * ((z - mode) / sd) ** 2
+        m = torch.logaddexp(la, lb)
+        g0 = (torch.exp(la - m) * (-(z + mode) / sd ** 2)
+              + torch.exp(lb - m) * (-(z - mode) / sd ** 2))
+        grad = torch.stack([g0, -q[:, 1]], dim=1)
+        b = beta_temp
+        return (b * (m - 0.5 * q[:, 1] ** 2),
+                (b[:, None] if b.dim() else b) * grad)
+
+    return lp
+
+
+def bimodal_pt(device, steps=3000, burnin=600, seed=3):
+    """tests/test_pt.py's harness on the card: the bimodal target at
+    weight 0.8, 4 rungs x 8 replicas on BIMODAL_LADDER, every chain started
+    in the left mode, HMC (L <= 24, no mass adaptation, no annealing), 600
+    + 3000 transitions, float32: the beta = 1 rung's right-mode share must
+    lie in (0.6, 0.95) and every pair's swap acceptance exceed 0.05 (the
+    gate that the kernel accepts correctly); K6 must launch once a
+    sampling transition."""
+    from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_chains
+
+    R, M = len(BIMODAL_LADDER), 8
+    cfg = SamplerConfig(num_results=steps, num_burnin_steps=burnin,
+                        use_annealing=False, algorithm="hmc",
+                        hmc_num_leapfrogs=24, adapt_mass_matrix=False,
+                        pt_betas=BIMODAL_LADDER)
+    q0 = torch.zeros((R * M, 2), device=device)
+    q0[:, 0] = -BIMODAL_MODE
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, stats = run_chains(bimodal_target(0.8), q0, seed, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    share = float((samples[:, :M, 0] > 0).float().mean())
+    acc = stats.pt_swap_accept.cpu().numpy()
+    print(f"bimodal PT on the card (weight 0.8, {R} x {M} chains, "
+          f"{burnin}+{steps} HMC transitions, {wall:.2f} s): beta = 1 "
+          f"rung's right-mode share {share:.4f} (gate (0.6, 0.95)), swap "
+          f"acceptance per pair {np.round(acc, 4).tolist()} (gate > 0.05), "
+          f"K6 launches {counts['pt_swap']}, K2 launches "
+          f"{counts['leapfrog_update']}")
+    if not (0.6 < share < 0.95 and np.all(acc > 0.05)
+            and counts["pt_swap"] == steps):
+        raise AssertionError("bimodal PT: the beta = 1 rung's weights or the "
+                             "swap acceptance are wrong, or K6 did not run "
+                             "once a transition")
 
 
 def check_replays(counts, transitions, path):
@@ -3044,6 +3626,13 @@ def main():
     timing.update(check_nuts_leaf(
         device, chains=(HES1_CHAINS,), cases=HES1_NUTS_CASES,
         record=("diag397", HES1_CHAINS, "nuts_leaf_hes1")))
+    # K1 with a temperature per chain, and K6, the swap kernel
+    for model, N, C in K1_PT_CASES:
+        recorded = check_k1_per_chain(device, model, N, C,
+                                      reps=200 if C == NUM_CHAINS else 20)
+        if model != "fhn" and C != 37:
+            timing.update(recorded)
+    timing.update(check_pt_swap(device))
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     model, counts_seir = main_path(device)
     print(f"SEIR HMC path done at {time.perf_counter() - t_start:.1f} s")
@@ -3052,6 +3641,7 @@ def main():
     graph_vs_eager(model, device, "dense", NUM_CHAINS, NUM_LEAPFROGS,
                    (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6), step_size=0.05,
                    beta_temp=0.5, dense_mass=True)
+    seir_pt_graph_vs_eager(model, device)
     counts_nuts, kr_nuts = nuts_path(model, device)
     nuts_graph_vs_eager(model, device, kr_nuts)
     profile_nuts(model, device, kr_nuts)
@@ -3070,6 +3660,7 @@ def main():
                                 C=FHN_CHAINS))
     check_kernels(device, model="fhn", N=333, C=RAGGED_CHAINS)
     counts_fhn = unregistered_field(device)
+    bimodal_pt(device)
     print(f"SEIR phases done at {time.perf_counter() - t_start:.1f} s")
 
     hmodel, logH_true = hes1_fit(device)
@@ -3077,8 +3668,12 @@ def main():
                                                      logH_true)
     hes1_after(hmodel, device, kr_hes1, last)
     print(f"Hes1 phases done at {time.perf_counter() - t_start:.1f} s")
-    hes1_laplace(hmodel, device, logH_true, coverage)
+    _, coverage_laplace = hes1_laplace(hmodel, device, logH_true, coverage)
     print(f"Hes1 Laplace phase done at {time.perf_counter() - t_start:.1f} s")
+    counts_pt, kr_pt, last_pt = hes1_pt(hmodel, device, logH_true,
+                                        (coverage, coverage_laplace))
+    hes1_pt_after(hmodel, device, kr_pt, last_pt)
+    print(f"Hes1 PT phase done at {time.perf_counter() - t_start:.1f} s")
 
     lmodel = lorenz_fit(device)
     timing.update(check_kernels(device, model="lorenz", N=lmodel.mag_I))
@@ -3166,6 +3761,13 @@ def main():
         **timing["leapfrog_update_nuts_hes1"]))
     kernels.append(entry("nuts_leaf_hes1", "nuts_leaf", "nuts",
                          "hes1_centered", counts_hes1))
+    kernels += [dict(name=f"{k}_pt_hes1_log", route="cuda",
+                     source=SOURCES["manifold"],
+                     replaces=REPLACES["k1_per_chain"], path="hes1_pt",
+                     launches=counts_pt[f"{k}_hes1_log_pt"],
+                     **timing[f"{k}_pt_hes1_log"])
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels.append(entry("pt_swap", "pt_swap", "pt", "hes1_pt", counts_pt))
     kernels += [entry(k, k, "banded", "lorenz_hybrid", counts_h)
                 for k in ("banded_solve", "banded_solve_adjoint")]
     kernels += [entry(k, k, "banded", "lorenz_banded", counts_b)

@@ -14,7 +14,8 @@ Ported so far: ``initial_fit`` for fully and partially observed systems
 every storage mode (``"dense"``, ``"hybrid"``, ``"banded"``),
 ``reparam="centered"`` in dense and banded storage and
 ``reparam="whitened"`` in dense storage, ``sigma_sqs_fixed``,
-``gn_anchor``, ``init_states`` and ``map_warmstart_iters``; and
+``gn_anchor``, ``init_states``, ``map_warmstart_iters`` and parallel
+tempering (``pt_betas``, ``pt_swap_every``); and
 ``map_estimate`` (the exact posterior's MAP with Laplace draws, the
 starts ``init_states`` takes). Every other argument value raises
 NotImplementedError naming its ROADMAP.md item.
@@ -535,18 +536,26 @@ class MAGI_v2:
         start, before the jitter) and ``init_states`` (natural-coordinate
         starts, applied after the jitter: ``sampler/modes.py:
         apply_init_states``; e.g. ``map_estimate(laplace_draws=num_chains)
-        ``'s X_draws and theta_draws). Refresh, PT, checkpoints and
-        profiling raise NotImplementedError naming their ROADMAP.md item.
-        With num_chains > 1 the ``*_samps`` arrays carry a chain axis at
-        position 1. Host wall seconds per phase land in
-        ``predict_timings`` (the device is waited for at the end of each):
+        ``'s X_draws and theta_draws). ``pt_betas`` (a decreasing ladder
+        from 1.0, R rungs, num_chains a multiple of R) tempers the
+        sampling phase: chains are rung-major, chain r M + m at beta_r
+        with the step eps beta_r^(-1/2), and every ``pt_swap_every``
+        transitions adjacent rungs propose even-odd swaps
+        (``sampler/pt.py``); only the beta = 1 rung's M = num_chains / R
+        chains are returned, with per-chain statistics sliced alike, and
+        ``kernel_results["pt_swap_accept"]`` holds each adjacent pair's
+        swap acceptance (R - 1,). Refresh, checkpoints and profiling raise
+        NotImplementedError naming their ROADMAP.md item. With num_chains
+        > 1 the ``*_samps`` arrays carry a chain axis at position 1. Host
+        wall seconds per phase land in ``predict_timings`` (the device is waited for at the end of each):
         the parts of the sampling setup ("setup_*", with "setup_rest" the
         remainder), "map_warmstart" if asked for, "sampling" and
         "unwhiten"."""
         if precond_refresh_steps:
             raise _not_ported("precond_refresh_steps", "10")
-        if pt_betas:
-            raise _not_ported("pt_betas", "12")
+        # a NumPy ladder too (its truth value is ambiguous)
+        pt_betas = (tuple(float(b) for b in pt_betas)
+                    if pt_betas is not None else None)
         if checkpoint_path or profile_timings:
             raise _not_ported("checkpoint_path / profile_timings", "14")
         if dispatch_block_steps or stage_above_bytes is not None:
@@ -643,6 +652,8 @@ class MAGI_v2:
                 "mass_window2_begin": float(mass_window2[0]),
                 "mass_window2_end": float(mass_window2[1])}),
             mass_window1_diag=mass_window1_diag,
+            pt_betas=pt_betas or (),
+            pt_swap_every=pt_swap_every,
         )
         start = time.time()
         with timer("sampling"):
@@ -652,6 +663,20 @@ class MAGI_v2:
                 seed,
                 sampler_config,
             )
+        if pt_betas and len(pt_betas) > 1:
+            # only the beta = 1 rung (rung-major: the first M chains) draws
+            # from the posterior; the per-chain stats are sliced to match
+            num_chains = num_chains // len(pt_betas)
+            samples = samples[:, :num_chains].contiguous()
+            stats = stats._replace(
+                accept_probs=stats.accept_probs[:, :num_chains],
+                num_leapfrogs=stats.num_leapfrogs[:, :num_chains],
+                divergences=stats.divergences[:, :num_chains],
+                depths=stats.depths[:, :num_chains],
+            )
+            if verbose:
+                print("[pt] swap acceptance per adjacent pair: "
+                      f"{np.round(stats.pt_swap_accept.cpu().numpy(), 3)}")
         with timer("unwhiten"):
             Z, sigma_pre, theta_pre = unflatten_samples(
                 samples, self.mag_I, self.D, self.D_thetas
@@ -694,6 +719,8 @@ class MAGI_v2:
                 "num_leapfrogs": stats.num_leapfrogs,
                 "divergences": stats.divergences.cpu().numpy(),
                 "depths": stats.depths,
+                **({} if stats.pt_swap_accept is None else {
+                    "pt_swap_accept": stats.pt_swap_accept.cpu().numpy()}),
             },
             "sample_results": (samples_np if samples_np.nbytes <= 1 << 30
                                else None),

@@ -51,6 +51,13 @@
 // at 64 chains); SEIR 3.2 + 3.6 + 4.4 us. The launch itself is prepared
 // once (ops/manifold.py: ManifoldPlan), 5-11 us of host time a call.
 //
+// The temperature beta_T is read at beta_temp[c * beta_stride]: one for all
+// chains (stride 0: annealing, or a fixed beta) or one per chain (stride 1:
+// parallel tempering, where chain c samples at its rung's beta, replacing
+// the per-chain beta of magi_v2_tpu/sampler/run.py's vmapped
+// step_chains_pt). Each CTA serves one chain, so the read is one uniform
+// load either way and costs nothing the kernels notice.
+//
 // Layouts (row-major, contiguous): delta (C, D, N); RmD and gcat (D, C, 2N);
 // dr, Ds, g_Ds, g_dr, gpart (D, C, N); q and grad (C, dim) with
 // dim = N*D + D + P; x0T, a0, f0, s0, mask, y (D, N).
@@ -477,6 +484,7 @@ manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
                     const T* __restrict__ a0, const T* __restrict__ f0,
                     const T* __restrict__ mask, const T* __restrict__ y,
                     const T* __restrict__ lb, const T* __restrict__ beta_temp,
+                    int beta_stride,
                     T beta, int C, int N, int G, int dim, T* __restrict__ dr,
                     T* __restrict__ gcat, T* __restrict__ t14,
                     T* __restrict__ part, int* __restrict__ ticket) {
@@ -484,7 +492,7 @@ manifold_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
   __shared__ T par[P + D];
   const int c = blockIdx.x / G, g = blockIdx.x % G;
   const T* qc = q + (size_t)c * dim;
-  const T scale = beta_temp[0] / beta;
+  const T scale = beta_temp[(size_t)c * beta_stride] / beta;
   stage_parameters<D, P>(qc, lb, N * D, par);
 
   T acc[2] = {T(0), T(0)};
@@ -539,7 +547,8 @@ __global__ void __launch_bounds__(kThreads)
 manifold_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
                        const T* __restrict__ t14, const T* __restrict__ q,
                        const T* __restrict__ lb, const T* __restrict__ n_ds,
-                       const T* __restrict__ beta_temp, T beta, int C, int N,
+                       const T* __restrict__ beta_temp,
+                    int beta_stride, T beta, int C, int N,
                        int G, int dim, T* __restrict__ lp,
                        T* __restrict__ gDs, T* __restrict__ part,
                        int* __restrict__ ticket) {
@@ -548,7 +557,7 @@ manifold_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
   // others load: t3's terms in [0, D), the log-Jacobians in [D, 2D + P)
   __shared__ T term[2 * D + P];
   const int c = blockIdx.x / G, g = blockIdx.x % G;
-  const T bt = beta_temp[0];
+  const T bt = beta_temp[(size_t)c * beta_stride];
   const T scale = bt / beta;
   if (threadIdx.x < D + P) {
     const int i = threadIdx.x;
@@ -589,7 +598,8 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
                     const T* __restrict__ q, const T* __restrict__ x0T,
                     const T* __restrict__ mask, const T* __restrict__ y,
                     const T* __restrict__ lb, const T* __restrict__ n_ds,
-                    const T* __restrict__ beta_temp, int C, int N, int G,
+                    const T* __restrict__ beta_temp,
+                    int beta_stride, int C, int N, int G,
                     int dim, T* __restrict__ gcat, T* __restrict__ gpart,
                     T* __restrict__ grad, T* __restrict__ part,
                     int* __restrict__ ticket) {
@@ -602,7 +612,7 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
   const int c = blockIdx.x / G, g = blockIdx.x % G;
   const int ND = N * D;
   const T* qc = q + (size_t)c * dim;
-  const T bt = beta_temp[0];
+  const T bt = beta_temp[(size_t)c * beta_stride];
   stage_parameters<D, P>(qc, lb, ND, par);
   if (threadIdx.x < P) {
     const T tp = qc[ND + D + threadIdx.x];
@@ -664,6 +674,10 @@ manifold_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
   }
 }
 
+// A temperature is read at beta_temp[c * beta_stride]: one for all chains
+// (stride 0) or one per chain (stride 1, parallel tempering's rungs).
+inline bool bad_stride(int s) { return s != 0 && s != 1; }
+
 // The CTAs of one chain. A chain of at most two points a thread stays in
 // one CTA, where the second point costs less than the pass of the sums
 // through global memory. Otherwise one CTA per kThreads points, a point a
@@ -707,6 +721,7 @@ given_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
                  const T* __restrict__ a0, const T* __restrict__ f0,
                  const T* __restrict__ mask, const T* __restrict__ y,
                  const T* __restrict__ lb, const T* __restrict__ beta_temp,
+                    int beta_stride,
                  const T* __restrict__ fv, T beta, int C, int N, int G,
                  int D, int dim, T* __restrict__ dr, T* __restrict__ gcat,
                  T* __restrict__ t14, T* __restrict__ part,
@@ -714,7 +729,7 @@ given_fwd_kernel(const T* __restrict__ delta, const T* __restrict__ RmD,
   __shared__ T inv[kMaxD];
   const int c = blockIdx.x / G, g = blockIdx.x % G;
   const T* qc = q + (size_t)c * dim;
-  const T scale = beta_temp[0] / beta;
+  const T scale = beta_temp[(size_t)c * beta_stride] / beta;
   if (threadIdx.x < D)
     inv[threadIdx.x] =
         T(1) / (softplus(qc[N * D + threadIdx.x]) + lb[threadIdx.x]);
@@ -749,7 +764,8 @@ __global__ void __launch_bounds__(kThreads)
 given_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
                     const T* __restrict__ t14, const T* __restrict__ q,
                     const T* __restrict__ lb, const T* __restrict__ n_ds,
-                    const T* __restrict__ beta_temp, T beta, int C, int N,
+                    const T* __restrict__ beta_temp,
+                    int beta_stride, T beta, int C, int N,
                     int G, int D, int dim, T* __restrict__ lp,
                     T* __restrict__ gDs, T* __restrict__ part,
                     int* __restrict__ ticket) {
@@ -757,7 +773,7 @@ given_energy_kernel(const T* __restrict__ Ds, const T* __restrict__ s0,
   __shared__ T term[2 * kMaxD];
   const int c = blockIdx.x / G, g = blockIdx.x % G;
   const T* qc = q + (size_t)c * dim;
-  const T bt = beta_temp[0];
+  const T bt = beta_temp[(size_t)c * beta_stride];
   const T scale = bt / beta;
   if (threadIdx.x < D) {
     const int d = threadIdx.x;
@@ -793,7 +809,8 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
                  const T* __restrict__ q, const T* __restrict__ x0T,
                  const T* __restrict__ mask, const T* __restrict__ y,
                  const T* __restrict__ lb, const T* __restrict__ n_ds,
-                 const T* __restrict__ beta_temp, const T* __restrict__ gx,
+                 const T* __restrict__ beta_temp,
+                    int beta_stride, const T* __restrict__ gx,
                  const T* __restrict__ gth, int C, int N, int G, int D,
                  int dim, T* __restrict__ gcat, T* __restrict__ gpart,
                  T* __restrict__ grad, T* __restrict__ part,
@@ -804,7 +821,7 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
   const int c = blockIdx.x / G, g = blockIdx.x % G;
   const int ND = N * D;
   const T* qc = q + (size_t)c * dim;
-  const T bt = beta_temp[0];
+  const T bt = beta_temp[(size_t)c * beta_stride];
   if (threadIdx.x < D) {
     const int d = threadIdx.x;
     const T sp = qc[ND + d];
@@ -856,52 +873,59 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
 // when the target is made), so the GN form compiles as before. What bounds
 // it does not change: one read of dz in place of R delta.
 
-#define MAGI_MANIFOLD_ENTRY_POINTS(MODEL, NAME, T, SUF)                        \
-  extern "C" int magi_manifold_fwd_##NAME##_##SUF(                             \
+#define MAGI_MANIFOLD_ENTRY_POINTS(MODEL, NAME, T, SUF)                       \
+  extern "C" int magi_manifold_fwd_##NAME##_##SUF(                            \
       const T* delta, const T* RmD, const T* q, const T* x0T, const T* a0,    \
       const T* f0, const T* mask, const T* y, const T* lb,                    \
-      const T* beta_temp, double beta, int C, int N, int dim, T* dr,          \
-      T* gcat, T* t14, T* part, int* ticket, void* stream) {                  \
-    const int G = chunks_of(N, C);                                               \
+      const T* beta_temp, int beta_stride, double beta, int C, int N,         \
+      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
+    if (bad_stride(beta_stride)) return (int)cudaErrorInvalidValue;           \
+    const int G = chunks_of(N, C);                                            \
     manifold_fwd_kernel<MODEL, T, false>                                      \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
             delta, RmD, nullptr, q, x0T, a0, f0, mask, y, lb, beta_temp,      \
-            (T)beta, C, N, G, dim, dr, gcat, t14, part, ticket);              \
+            beta_stride, (T)beta, C, N, G, dim, dr, gcat, t14, part,          \
+            ticket);                                                          \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
-  extern "C" int magi_manifold_fwd_whitened_##NAME##_##SUF(                    \
+  extern "C" int magi_manifold_fwd_whitened_##NAME##_##SUF(                   \
       const T* delta, const T* RmD, const T* dz, const T* q, const T* x0T,    \
       const T* z0, const T* f0, const T* mask, const T* y, const T* lb,       \
-      const T* beta_temp, double beta, int C, int N, int dim, T* dr,          \
-      T* gcat, T* t14, T* part, int* ticket, void* stream) {                  \
+      const T* beta_temp, int beta_stride, double beta, int C, int N,         \
+      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
+    if (bad_stride(beta_stride)) return (int)cudaErrorInvalidValue;           \
     const int G = chunks_of(N, C);                                            \
     manifold_fwd_kernel<MODEL, T, true>                                       \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp, (T)beta,  \
-            C, N, G, dim, dr, gcat, t14, part, ticket);                       \
+            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp,           \
+            beta_stride, (T)beta, C, N, G, dim, dr, gcat, t14, part,          \
+            ticket);                                                          \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
-  extern "C" int magi_manifold_energy_##NAME##_##SUF(                          \
+  extern "C" int magi_manifold_energy_##NAME##_##SUF(                         \
       const T* Ds, const T* s0, const T* t14, const T* q, const T* lb,        \
-      const T* n_ds, const T* beta_temp, double beta, int C, int N, int dim,  \
-      T* lp, T* gDs, T* part, int* ticket, void* stream) {                    \
-    const int G = chunks_of(N, C);                                               \
+      const T* n_ds, const T* beta_temp, int beta_stride, double beta,        \
+      int C, int N, int dim, T* lp, T* gDs, T* part, int* ticket,             \
+      void* stream) {                                                         \
+    if (bad_stride(beta_stride)) return (int)cudaErrorInvalidValue;           \
+    const int G = chunks_of(N, C);                                            \
     manifold_energy_kernel<MODEL, T>                                          \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            Ds, s0, t14, q, lb, n_ds, beta_temp, (T)beta, C, N, G, dim, lp,   \
-            gDs, part, ticket);                                               \
+            Ds, s0, t14, q, lb, n_ds, beta_temp, beta_stride, (T)beta, C,     \
+            N, G, dim, lp, gDs, part, ticket);                                \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
-  extern "C" int magi_manifold_bwd_##NAME##_##SUF(                             \
+  extern "C" int magi_manifold_bwd_##NAME##_##SUF(                            \
       const T* gdr, const T* delta, const T* q, const T* x0T,                 \
       const T* mask, const T* y, const T* lb, const T* n_ds,                  \
-      const T* beta_temp, int C, int N, int dim, T* gcat, T* gpart,           \
-      T* grad, T* part, int* ticket, void* stream) {                          \
-    const int G = chunks_of(N, C);                                               \
+      const T* beta_temp, int beta_stride, int C, int N, int dim, T* gcat,    \
+      T* gpart, T* grad, T* part, int* ticket, void* stream) {                \
+    if (bad_stride(beta_stride)) return (int)cudaErrorInvalidValue;           \
+    const int G = chunks_of(N, C);                                            \
     manifold_bwd_kernel<MODEL, T>                                             \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, C, N, G, dim,   \
-            gcat, gpart, grad, part, ticket);                                 \
+            gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, beta_stride,    \
+            C, N, G, dim, gcat, gpart, grad, part, ticket);                   \
     return (int)cudaGetLastError();                                           \
   }
 
@@ -909,51 +933,60 @@ given_bwd_kernel(const T* __restrict__ gdr, const T* __restrict__ delta,
   extern "C" int magi_manifold_fwd_given_##SUF(                               \
       const T* delta, const T* RmD, const T* q, const T* x0T, const T* a0,    \
       const T* f0, const T* mask, const T* y, const T* lb,                    \
-      const T* beta_temp, const T* fv, double beta, int C, int N, int D,      \
-      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
-    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+      const T* beta_temp, int beta_stride, const T* fv, double beta, int C,   \
+      int N, int D, int dim, T* dr, T* gcat, T* t14, T* part, int* ticket,    \
+      void* stream) {                                                         \
+    if (D < 1 || D > kMaxD || bad_stride(beta_stride))                        \
+      return (int)cudaErrorInvalidValue;                                      \
     const int G = chunks_of(N, C);                                            \
     given_fwd_kernel<T, false>                                                \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            delta, RmD, nullptr, q, x0T, a0, f0, mask, y, lb, beta_temp, fv,  \
-            (T)beta, C, N, G, D, dim, dr, gcat, t14, part, ticket);           \
+            delta, RmD, nullptr, q, x0T, a0, f0, mask, y, lb, beta_temp,      \
+            beta_stride, fv, (T)beta, C, N, G, D, dim, dr, gcat, t14, part,   \
+            ticket);                                                          \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_fwd_whitened_given_##SUF(                      \
       const T* delta, const T* RmD, const T* dz, const T* q, const T* x0T,    \
       const T* z0, const T* f0, const T* mask, const T* y, const T* lb,       \
-      const T* beta_temp, const T* fv, double beta, int C, int N, int D,      \
-      int dim, T* dr, T* gcat, T* t14, T* part, int* ticket, void* stream) {  \
-    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+      const T* beta_temp, int beta_stride, const T* fv, double beta, int C,   \
+      int N, int D, int dim, T* dr, T* gcat, T* t14, T* part, int* ticket,    \
+      void* stream) {                                                         \
+    if (D < 1 || D > kMaxD || bad_stride(beta_stride))                        \
+      return (int)cudaErrorInvalidValue;                                      \
     const int G = chunks_of(N, C);                                            \
     given_fwd_kernel<T, true>                                                 \
         <<<C * G, kThreads, 0, (cudaStream_t)stream>>>(                       \
-            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp, fv,       \
-            (T)beta, C, N, G, D, dim, dr, gcat, t14, part, ticket);           \
+            delta, RmD, dz, q, x0T, z0, f0, mask, y, lb, beta_temp,           \
+            beta_stride, fv, (T)beta, C, N, G, D, dim, dr, gcat, t14, part,   \
+            ticket);                                                          \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_energy_given_##SUF(                            \
       const T* Ds, const T* s0, const T* t14, const T* q, const T* lb,        \
-      const T* n_ds, const T* beta_temp, double beta, int C, int N, int D,    \
-      int dim, T* lp, T* gDs, T* part, int* ticket, void* stream) {           \
-    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+      const T* n_ds, const T* beta_temp, int beta_stride, double beta,        \
+      int C, int N, int D, int dim, T* lp, T* gDs, T* part, int* ticket,      \
+      void* stream) {                                                         \
+    if (D < 1 || D > kMaxD || bad_stride(beta_stride))                        \
+      return (int)cudaErrorInvalidValue;                                      \
     const int G = chunks_of(N, C);                                            \
     given_energy_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(     \
-        Ds, s0, t14, q, lb, n_ds, beta_temp, (T)beta, C, N, G, D, dim, lp,    \
-        gDs, part, ticket);                                                   \
+        Ds, s0, t14, q, lb, n_ds, beta_temp, beta_stride, (T)beta, C, N, G,   \
+        D, dim, lp, gDs, part, ticket);                                       \
     return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" int magi_manifold_bwd_given_##SUF(                               \
       const T* gdr, const T* delta, const T* q, const T* x0T,                 \
       const T* mask, const T* y, const T* lb, const T* n_ds,                  \
-      const T* beta_temp, const T* gx, const T* gth, int C, int N, int D,     \
-      int dim, T* gcat, T* gpart, T* grad, T* part, int* ticket,              \
-      void* stream) {                                                         \
-    if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;                \
+      const T* beta_temp, int beta_stride, const T* gx, const T* gth, int C,  \
+      int N, int D, int dim, T* gcat, T* gpart, T* grad, T* part,             \
+      int* ticket, void* stream) {                                            \
+    if (D < 1 || D > kMaxD || bad_stride(beta_stride))                        \
+      return (int)cudaErrorInvalidValue;                                      \
     const int G = chunks_of(N, C);                                            \
     given_bwd_kernel<T><<<C * G, kThreads, 0, (cudaStream_t)stream>>>(        \
-        gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, gx, gth, C, N, G,   \
-        D, dim, gcat, gpart, grad, part, ticket);                             \
+        gdr, delta, q, x0T, mask, y, lb, n_ds, beta_temp, beta_stride, gx,    \
+        gth, C, N, G, D, dim, gcat, gpart, grad, part, ticket);               \
     return (int)cudaGetLastError();                                           \
   }
 

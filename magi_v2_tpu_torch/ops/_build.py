@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("manifold.cu", "banded.cu", "leapfrog.cu", "nuts.cu")
+SOURCES = ("manifold.cu", "banded.cu", "leapfrog.cu", "nuts.cu", "pt.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,19 +34,25 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C signatures of the entry points, by family (pointers and stream are
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
-    "manifold_fwd": [_P] * 10 + [_D, _I, _I, _I] + [_P] * 5 + [_P],
-    "manifold_energy": [_P] * 7 + [_D, _I, _I, _I] + [_P] * 4 + [_P],
-    "manifold_bwd": [_P] * 9 + [_I, _I, _I] + [_P] * 5 + [_P],
-    "manifold_fwd_given": [_P] * 11 + [_D] + [_I] * 4 + [_P] * 5 + [_P],
+    # beta_temp and its stride (0: one for all chains, 1: one per chain)
+    "manifold_fwd": [_P] * 10 + [_I] + [_D, _I, _I, _I] + [_P] * 5 + [_P],
+    "manifold_energy": [_P] * 7 + [_I] + [_D, _I, _I, _I] + [_P] * 4 + [_P],
+    "manifold_bwd": [_P] * 9 + [_I] + [_I, _I, _I] + [_P] * 5 + [_P],
+    "manifold_fwd_given": [_P] * 10 + [_I] + [_P] + [_D] + [_I] * 4
+    + [_P] * 5 + [_P],
     # the whitened form: dz after RmD
-    "manifold_fwd_whitened": [_P] * 11 + [_D, _I, _I, _I] + [_P] * 5 + [_P],
-    "manifold_fwd_whitened_given": [_P] * 12 + [_D] + [_I] * 4 + [_P] * 5
+    "manifold_fwd_whitened": [_P] * 11 + [_I] + [_D, _I, _I, _I] + [_P] * 5
     + [_P],
-    "manifold_energy_given": [_P] * 7 + [_D] + [_I] * 4 + [_P] * 4 + [_P],
-    "manifold_bwd_given": [_P] * 11 + [_I] * 4 + [_P] * 5 + [_P],
+    "manifold_fwd_whitened_given": [_P] * 11 + [_I] + [_P] + [_D] + [_I] * 4
+    + [_P] * 5 + [_P],
+    "manifold_energy_given": [_P] * 7 + [_I] + [_D] + [_I] * 4 + [_P] * 4
+    + [_P],
+    "manifold_bwd_given": [_P] * 9 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 5
+    + [_P],
     "banded_matvec": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_D, _D, _I] + [_P],
     "banded_solve": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
     "leapfrog_update": [_P] * 6 + [_I] * 7 + [_P] * 4 + [_I, _P] + [_P],
+    "pt_swap": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
     "nuts_leaf": [_P] * 9 + [_I] + [_P] * 14 + [_I] + [_P] * 2 + [_D]
     + [_I] * 5 + [_P],
 }

@@ -33,7 +33,14 @@ takes is fixed by the field; a launch that fails raises either way.
 ``LAUNCH_COUNTS`` counts kernel launches only, under the three names
 whichever kernels they are (``launch_counts``), and again under the name
 and the functor (``functor_launch_counts``: "manifold_fwd_hes1_log", ...;
-"manifold_fwd_given" for the given kernels).
+"manifold_fwd_given" for the given kernels), and a launch with a
+temperature per chain a third time, with "_pt" after the functor
+("manifold_fwd_hes1_log_pt").
+
+The temperature beta_temp is a 0-dim tensor (one for all chains) or one
+per chain, (C,) (parallel tempering: chain c at its rung's beta). The
+kernels read it at beta_temp[c * stride], the stride 0 or 1 by its shape;
+the plain versions broadcast it over the chain axis.
 
 What is checked when, and which buffers are reused. The three wrapper
 functions check every argument on every call and allocate their outputs
@@ -56,7 +63,7 @@ is left zero.
 
 Layouts: delta (C, D, N); RmD, gcat (D, C, 2N); dr, Ds, gDs, gdr, gpart
 (D, C, N); q, grad (C, dim), dim = N*D + D + P; x0T, a0, f0, s0, mask, y
-(D, N); sigma_lb, n_ds (D,); beta_temp a 0-dim tensor; beta a float.
+(D, N); sigma_lb, n_ds (D,); beta_temp 0-dim or (C,); beta a float.
 """
 
 from __future__ import annotations
@@ -71,8 +78,9 @@ KERNELS = ("manifold_fwd", "manifold_energy", "manifold_bwd")
 FUNCTORS = tuple(m.cuda_model for m in MODEL_REGISTRY.values()
                  if m.cuda_model) + ("given",)
 LAUNCH_COUNTS = {k: 0 for k in KERNELS
-                 + tuple(f"{k}_{m}" for k in KERNELS + ("manifold_fwd_whitened",)
-                         for m in FUNCTORS)}
+                 + tuple(f"{k}_{m}{pt}"
+                         for k in KERNELS + ("manifold_fwd_whitened",)
+                         for m in FUNCTORS for pt in ("", "_pt"))}
 
 
 def reset_launch_counts() -> None:
@@ -87,7 +95,8 @@ def launch_counts() -> dict:
 
 def functor_launch_counts() -> dict:
     """Launches by kernel and functor ("manifold_fwd_hes1_log", ...; the
-    whitened form's as "manifold_fwd_whitened_seir", ...)."""
+    whitened form's as "manifold_fwd_whitened_seir", ...), and those with a
+    temperature per chain again with "_pt" after the functor."""
     return {k: n for k, n in LAUNCH_COUNTS.items() if k not in KERNELS}
 
 
@@ -101,6 +110,17 @@ def _softplus(x):
     jax.nn.softplus compute it (F.softplus returns x itself above 20,
     which is e^-20 off: 1e-10 of theta = 20, Hes1's f)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _chains(beta_temp, ndim: int, axis: int):
+    """beta_temp shaped to broadcast over a tensor of ``ndim`` dimensions
+    whose chain axis is ``axis``: as it is when 0-dim, else (C,) viewed
+    with ones around the chain axis."""
+    if beta_temp.dim() == 0:
+        return beta_temp
+    shape = [1] * ndim
+    shape[axis] = -1
+    return beta_temp.view(shape)
 
 
 def _split_q(q, N, D):
@@ -139,7 +159,7 @@ def manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y,
     Rd = RmD[..., :N] if dz is None else dz.transpose(0, 1)
     md = RmD[..., N:]
     dr = (f - f0[:, None, :]) - md
-    scale = beta_temp / beta
+    scale = _chains(beta_temp / beta, 3, 1)
     gcat = torch.empty_like(RmD)
     gcat[..., :N] = -scale * (Rd + a0[:, None, :])
     t1 = torch.sum(Rd * (Rd + 2.0 * a0[:, None, :]), dim=(0, 2))
@@ -159,7 +179,7 @@ def manifold_energy_plain(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
     lj = (torch.sum(F.logsigmoid(sp), dim=-1)
           + torch.sum(F.logsigmoid(tp), dim=-1))
     lp = beta_temp * (-0.5 * ((t14[:, 0] + t2) / beta + t3 + t14[:, 1]) + lj)
-    gDs = -(beta_temp / beta) * (Ds + s0[:, None, :])
+    gDs = -_chains(beta_temp / beta, 3, 1) * (Ds + s0[:, None, :])
     return lp, gDs
 
 
@@ -173,12 +193,13 @@ def manifold_bwd_plain(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
     sig2 = _softplus(sp) + sigma_lb                          # (C, D)
     r = x0T[None] + delta - y[None]                           # (C, D, N)
     ssr = torch.sum(mask * r * r, dim=-1)
+    bt3, bt2 = _chains(beta_temp, 3, 0), _chains(beta_temp, 2, 0)
     gpart = (gX.transpose(1, 2)
-             - beta_temp * mask * r / sig2[..., None]).transpose(0, 1)
-    g_s2 = -0.5 * beta_temp * (n_ds / sig2 - ssr / (sig2 * sig2))
+             - bt3 * mask * r / sig2[..., None]).transpose(0, 1)
+    g_s2 = -0.5 * bt2 * (n_ds / sig2 - ssr / (sig2 * sig2))
     grad[:, ND: ND + D] = (g_s2 * torch.sigmoid(sp)
-                           + beta_temp * torch.sigmoid(-sp))
-    grad[:, ND + D:] = gth * torch.sigmoid(tp) + beta_temp * torch.sigmoid(-tp)
+                           + bt2 * torch.sigmoid(-sp))
+    grad[:, ND + D:] = gth * torch.sigmoid(tp) + bt2 * torch.sigmoid(-tp)
     return gpart.contiguous()
 
 
@@ -299,54 +320,73 @@ def _given_vjp(f_vec, I, gdr, delta, q, x0T):
     return gx, gth
 
 
-# The kernels' argument lists. A given field's kernels take the field's
-# values (fwd) or VJPs (bwd) after beta_temp and D after N; ``_AT`` holds
-# where each per-call argument stands.
+# The kernels' argument lists. beta_temp's stride follows it (0: one
+# temperature for all chains, 1: one per chain). A given field's kernels
+# take the field's values (fwd) or VJPs (bwd) after the stride and D after
+# N; ``_AT`` holds where each per-call argument stands.
 def _fwd_args(given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
               beta_temp, fv, beta, C, N, D, dim, dr, gcat, t14, scratch,
-              dz=None):
+              dz=None, beta_stride=0):
     return ([delta, RmD] + ([] if dz is None else [dz])
-            + [q, x0T, a0, f0, mask, y, sigma_lb, beta_temp]
+            + [q, x0T, a0, f0, mask, y, sigma_lb, beta_temp, beta_stride]
             + ([fv] if given else []) + [float(beta), C, N]
             + ([D] if given else []) + [dim, dr, gcat, t14, *scratch])
 
 
 def _energy_args(given, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, beta, C,
-                 N, D, dim, lp, gDs, scratch):
-    return ([Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, float(beta), C, N]
+                 N, D, dim, lp, gDs, scratch, beta_stride=0):
+    return ([Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, beta_stride,
+             float(beta), C, N]
             + ([D] if given else []) + [dim, lp, gDs, *scratch])
 
 
 def _bwd_args(given, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp,
-              vjp, C, N, D, dim, gcat, gpart, grad, scratch):
-    return ([gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp]
+              vjp, C, N, D, dim, gcat, gpart, grad, scratch, beta_stride=0):
+    return ([gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp,
+             beta_stride]
             + (list(vjp) if given else []) + [C, N]
             + ([D] if given else []) + [dim, gcat, gpart, grad, *scratch])
 
 
 _AT = {False: dict(fwd=dict(q=2, beta_temp=9),
                    fwd_whitened=dict(q=3, beta_temp=10),
-                   energy=dict(q=3, beta_temp=6, lp=11),
-                   bwd=dict(q=2, beta_temp=8, grad=14)),
-       True: dict(fwd=dict(q=2, beta_temp=9, fv=10),
-                  fwd_whitened=dict(q=3, beta_temp=10, fv=11),
-                  energy=dict(q=3, beta_temp=6, lp=12),
-                  bwd=dict(q=2, beta_temp=8, gx=9, gth=10, grad=17))}
+                   energy=dict(q=3, beta_temp=6, lp=12),
+                   bwd=dict(q=2, beta_temp=8, grad=15)),
+       True: dict(fwd=dict(q=2, beta_temp=9, fv=11),
+                  fwd_whitened=dict(q=3, beta_temp=10, fv=12),
+                  energy=dict(q=3, beta_temp=6, lp=13),
+                  bwd=dict(q=2, beta_temp=8, gx=10, gth=11, grad=18))}
 
 
-def _prepare(kernel, f_vec, dtype, args):
+def _stride(beta_temp) -> int:
+    """beta_temp's stride over the chains: 0 for one temperature, 1 for
+    one per chain."""
+    return int(beta_temp.dim() == 1)
+
+
+def _beta_shape(beta_temp, C: int) -> tuple:
+    """The shape beta_temp is checked against: (C,) for a 1-d tensor, else
+    0-dim."""
+    per_chain = isinstance(beta_temp, torch.Tensor) and beta_temp.dim() == 1
+    return (C,) if per_chain else ()
+
+
+def _prepare(kernel, f_vec, dtype, args, per_chain: bool = False):
     """The launch of ``kernel`` ("fwd", "fwd_whitened", "energy", "bwd"),
-    counted under its kernel's name and under its own name and functor."""
+    counted under its kernel's name and under its own name and functor,
+    and, with a temperature per chain (``per_chain``), again with "_pt"
+    after the functor."""
     from magi_v2_tpu_torch.ops._build import Launch
 
     name = f"manifold_{kernel}"
+    own = f"{name}_{cuda_model_of(f_vec) or 'given'}"
     return Launch(_entry(kernel, f_vec, dtype), args, LAUNCH_COUNTS,
-                  (name.replace("_whitened", ""),
-                   f"{name}_{cuda_model_of(f_vec) or 'given'}"))
+                  (name.replace("_whitened", ""), own)
+                  + ((own + "_pt",) if per_chain else ()))
 
 
-def _launch(kernel, f_vec, dtype, args):
-    _prepare(kernel, f_vec, dtype, args)(
+def _launch(kernel, f_vec, dtype, args, per_chain: bool):
+    _prepare(kernel, f_vec, dtype, args, per_chain)(
         torch.cuda.current_stream(args[0].device).cuda_stream)
 
 
@@ -367,7 +407,8 @@ def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
         ("delta", delta, (C, D, N)), ("RmD", RmD, (D, C, 2 * N)),
         ("q", q, (C, dim)), ("x0T", x0T, (D, N)), ("a0", a0, (D, N)),
         ("f0", f0, (D, N)), ("mask", mask, (D, N)), ("y", y, (D, N)),
-        ("sigma_lb", sigma_lb, (D,)), ("beta_temp", beta_temp, ()),
+        ("sigma_lb", sigma_lb, (D,)),
+        ("beta_temp", beta_temp, _beta_shape(beta_temp, C)),
     ) + (() if dz is None else (("dz", dz, (C, D, N)),)), dt, dev)
     if _takes_plain(dev):
         return manifold_fwd_plain(f_vec, I, delta, RmD, q, x0T, a0, f0, mask,
@@ -378,9 +419,11 @@ def manifold_fwd(f_vec, I, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb,
     dr = torch.empty((D, C, N), dtype=dt, device=dev)
     gcat = torch.empty((D, C, 2 * N), dtype=dt, device=dev)
     t14 = torch.empty((C, 2), dtype=dt, device=dev)
+    per_chain = _stride(beta_temp)
     _launch("fwd" if dz is None else "fwd_whitened", f_vec, dt, _fwd_args(
         given, delta, RmD, q, x0T, a0, f0, mask, y, sigma_lb, beta_temp, fv,
-        beta, C, N, D, dim, dr, gcat, t14, make_scratch(C, N, dt, dev), dz))
+        beta, C, N, D, dim, dr, gcat, t14, make_scratch(C, N, dt, dev), dz,
+        per_chain), per_chain)
     return dr, gcat, t14
 
 
@@ -393,7 +436,8 @@ def manifold_energy(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
     _check_all((
         ("Ds", Ds, (D, C, N)), ("s0", s0, (D, N)), ("t14", t14, (C, 2)),
         ("q", q, (C, dim)), ("sigma_lb", sigma_lb, (D,)),
-        ("n_ds", n_ds, (D,)), ("beta_temp", beta_temp, ()),
+        ("n_ds", n_ds, (D,)),
+        ("beta_temp", beta_temp, _beta_shape(beta_temp, C)),
     ), dt, dev)
     if _takes_plain(dev):
         return manifold_energy_plain(f_vec, Ds, s0, t14, q, sigma_lb, n_ds,
@@ -401,9 +445,10 @@ def manifold_energy(f_vec, Ds, s0, t14, q, sigma_lb, n_ds, beta_temp,
     _on_card("manifold_energy", dev, f_vec, D, dim, N)
     lp = torch.empty((C,), dtype=dt, device=dev)
     gDs = torch.empty((D, C, N), dtype=dt, device=dev)
+    per_chain = _stride(beta_temp)
     _launch("energy", f_vec, dt, _energy_args(
         _given(f_vec), Ds, s0, t14, q, sigma_lb, n_ds, beta_temp, beta, C, N,
-        D, dim, lp, gDs, make_scratch(C, N, dt, dev)))
+        D, dim, lp, gDs, make_scratch(C, N, dt, dev), per_chain), per_chain)
     return lp, gDs
 
 
@@ -417,7 +462,8 @@ def manifold_bwd(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
         ("gdr", gdr, (D, C, N)), ("delta", delta, (C, D, N)),
         ("q", q, (C, dim)), ("x0T", x0T, (D, N)), ("mask", mask, (D, N)),
         ("y", y, (D, N)), ("sigma_lb", sigma_lb, (D,)), ("n_ds", n_ds, (D,)),
-        ("beta_temp", beta_temp, ()), ("gcat", gcat, (D, C, 2 * N)),
+        ("beta_temp", beta_temp, _beta_shape(beta_temp, C)),
+        ("gcat", gcat, (D, C, 2 * N)),
         ("grad", grad, (C, dim)),
     ), dt, dev)
     if _takes_plain(dev):
@@ -427,9 +473,11 @@ def manifold_bwd(f_vec, I, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds,
     given = _given(f_vec)
     vjp = _given_vjp(f_vec, I, gdr, delta, q, x0T) if given else None
     gpart = torch.empty((D, C, N), dtype=dt, device=dev)
+    per_chain = _stride(beta_temp)
     _launch("bwd", f_vec, dt, _bwd_args(
         given, gdr, delta, q, x0T, mask, y, sigma_lb, n_ds, beta_temp, vjp,
-        C, N, D, dim, gcat, gpart, grad, make_scratch(C, N, dt, dev)))
+        C, N, D, dim, gcat, gpart, grad, make_scratch(C, N, dt, dev),
+        per_chain), per_chain)
     return gpart
 
 
@@ -444,9 +492,11 @@ class ManifoldPlan:
     takes its whitened form, reading ``bufs["dz"]`` (C, D, N) and z0 as
     ``consts["a0"]``, and RmD's second half only. Everything is
     checked here, once. ``fwd``, ``energy`` and ``bwd`` then take the
-    state q (C, dim), the 0-dim beta_temp, the output that belongs to the
-    caller (lp (C,), grad (C, dim)) and the stream, trust them (the
-    caller checks q once per evaluation), and overwrite the buffers. For a
+    state q (C, dim), beta_temp (0-dim, or (C,): one temperature per
+    chain, which picks the launches of stride 1), the output that belongs
+    to the caller (lp (C,), grad (C, dim)) and the stream, trust them (the
+    caller checks q and beta_temp once per evaluation), and overwrite the
+    buffers. For a
     field with no functor, fwd and bwd first evaluate the field or its
     VJPs with PyTorch on the card and point the launch at the result."""
 
@@ -482,21 +532,25 @@ class ManifoldPlan:
         c, b = self.consts, self.bufs
         self.scratch = make_scratch(C, N, dt, dev)
         # q and beta_temp (and lp, grad, the field's values and VJPs) are
-        # bound at each call: the pointers given here stand in for them
+        # bound at each call: the pointers given here stand in for them.
+        # Each kernel has a launch of stride 0 and one of stride 1 (a
+        # temperature per chain), indexed by the stride.
         q0 = bt0 = out0 = delta
-        self._fwd = _prepare(self.fwd_kernel, f_vec, dt, _fwd_args(
-            self.given, delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"],
-            c["mask"], c["y"], c["sigma_lb"], bt0, out0, self.beta, C, N, D,
-            dim, b["dr"], b["gcat"], b["t14"], self.scratch,
-            b["dz"] if whitened else None))
-        self._energy = _prepare("energy", f_vec, dt, _energy_args(
-            self.given, b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"],
-            c["n_ds"], bt0, self.beta, C, N, D, dim, out0, b["gDs"],
-            self.scratch))
-        self._bwd = _prepare("bwd", f_vec, dt, _bwd_args(
-            self.given, b["gdr"], delta, q0, c["x0T"], c["mask"], c["y"],
-            c["sigma_lb"], c["n_ds"], bt0, (out0, out0), C, N, D, dim,
-            b["gcat"], b["gpart"], out0, self.scratch))
+        self._fwd, self._energy, self._bwd = [], [], []
+        for st in (0, 1):
+            self._fwd.append(_prepare(self.fwd_kernel, f_vec, dt, _fwd_args(
+                self.given, delta, b["RmD"], q0, c["x0T"], c["a0"], c["f0"],
+                c["mask"], c["y"], c["sigma_lb"], bt0, out0, self.beta, C, N,
+                D, dim, b["dr"], b["gcat"], b["t14"], self.scratch,
+                b["dz"] if whitened else None, st), st))
+            self._energy.append(_prepare("energy", f_vec, dt, _energy_args(
+                self.given, b["Ds"], c["s0"], b["t14"], q0, c["sigma_lb"],
+                c["n_ds"], bt0, self.beta, C, N, D, dim, out0, b["gDs"],
+                self.scratch, st), st))
+            self._bwd.append(_prepare("bwd", f_vec, dt, _bwd_args(
+                self.given, b["gdr"], delta, q0, c["x0T"], c["mask"],
+                c["y"], c["sigma_lb"], c["n_ds"], bt0, (out0, out0), C, N, D,
+                dim, b["gcat"], b["gpart"], out0, self.scratch, st), st))
 
     def _run(self, launch, at, stream, **now) -> None:
         for name, t in now.items():
@@ -523,7 +577,8 @@ class ManifoldPlan:
             # orders its reuse on this stream
             now["fv"] = _given_values(self.f_vec, self.I, b["delta"], q,
                                       c["x0T"])
-        self._run(self._fwd, self.at[self.fwd_kernel], stream, **now)
+        self._run(self._fwd[_stride(beta_temp)], self.at[self.fwd_kernel],
+                  stream, **now)
 
     def energy(self, q, beta_temp, lp, stream) -> None:
         """lp (the caller's) and gDs from Ds and t14."""
@@ -535,8 +590,8 @@ class ManifoldPlan:
             lp.copy_(lp_)
             b["gDs"].copy_(gDs)
             return
-        self._run(self._energy, self.at["energy"], stream, q=q,
-                  beta_temp=beta_temp, lp=lp)
+        self._run(self._energy[_stride(beta_temp)], self.at["energy"], stream,
+                  q=q, beta_temp=beta_temp, lp=lp)
 
     def bwd(self, q, beta_temp, grad, stream) -> None:
         """gpart, gcat[..., N:] and grad[:, N*D:] (the caller's) from gdr
@@ -552,4 +607,5 @@ class ManifoldPlan:
         if self.given:
             now["gx"], now["gth"] = _given_vjp(self.f_vec, self.I, b["gdr"],
                                                b["delta"], q, c["x0T"])
-        self._run(self._bwd, self.at["bwd"], stream, **now)
+        self._run(self._bwd[_stride(beta_temp)], self.at["bwd"], stream,
+                  **now)

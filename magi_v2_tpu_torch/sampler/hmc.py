@@ -31,7 +31,11 @@ Two forms of one transition, which give the same bits:
   replays them: L + 1 replays per transition, the two kinetic-energy K2
   launches and the accept test eager around them. The step size,
   temperature, state and mass of each transition are copied into the
-  buffers, never recaptured. On the CPU it runs the same steps eagerly.
+  buffers, never recaptured. The step size and the temperature are one per
+  chain, (C,): a 0-dim value is copied into every chain's entry, so that
+  one set of graphs serves annealed, fixed-temperature and tempered
+  (parallel tempering: a rung's beta and step per chain) sampling. On the
+  CPU it runs the same steps eagerly.
   A capture or replay that fails raises; there is no other path on the
   card.
 """
@@ -303,9 +307,10 @@ def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
     """One Metropolis-corrected HMC transition of every chain.
 
     ``logp_grad(q (C, dim)) -> (logp (C,), grad (C, dim))``;
-    ``step_size`` a 0-dim tensor; ``normals`` (C, dim) standard normals for
-    the momenta and ``uniforms`` (C,) for the accept test — drawn by the
-    caller, so a test can feed the numbers another sampler drew.
+    ``step_size`` a 0-dim tensor or one per chain (C,); ``normals`` (C,
+    dim) standard normals for the momenta and ``uniforms`` (C,) for the
+    accept test — drawn by the caller, so a test can feed the numbers
+    another sampler drew.
 
     The closing half-kick of one leapfrog and the opening half-kick of the
     next are one K2 launch (rounded in that order, as two kicks).
@@ -327,10 +332,10 @@ def hmc_step(logp_grad: Callable, q, step_size, inv_mass, num_leapfrogs: int,
 
 
 def _launch_counters():
-    from magi_v2_tpu_torch.ops import banded, manifold, nuts
+    from magi_v2_tpu_torch.ops import banded, manifold, nuts, pt
 
     return (manifold.LAUNCH_COUNTS, banded.LAUNCH_COUNTS, LAUNCH_COUNTS,
-            nuts.LAUNCH_COUNTS)
+            nuts.LAUNCH_COUNTS, pt.LAUNCH_COUNTS)
 
 
 class CapturedStep:
@@ -382,14 +387,25 @@ def capture_steps(steps: dict, device) -> dict:
     return graphs
 
 
+def check_per_chain(name: str, t, per_chain: bool) -> None:
+    """A bound transition made without ``per_chain`` reads one temperature
+    for all chains: a (C,) ``t`` would be read at chain 0 alone."""
+    if not per_chain and t.dim():
+        raise ValueError(f"{name} has one value per chain; bind the "
+                         "transition with per_chain=True")
+
+
 class BoundTransition:
     """``hmc_step`` for a target with a bound evaluation, on fixed buffers
     of C chains (see the module's docstring): q (the proposal), p, g, lp,
-    lp0, kin0, kin1, a 0-dim step_size and beta_temp, and the mass parts
-    diag (dim,) and tail_inv (k, k, in K2's padded layout). ``q0`` (C, dim) gives the shapes and
-    the first state; ``inv_mass`` the mass form, fixed for the object."""
+    lp0, kin0, kin1, step_size and beta_temp (C,), and the mass parts diag
+    (dim,) and tail_inv (k, k, in K2's padded layout). ``q0`` (C, dim)
+    gives the shapes and the first state; ``inv_mass`` the mass form, fixed
+    for the object. With ``per_chain`` the target is bound to the (C,)
+    temperatures (K1's launches of stride 1), else to the first, which a
+    0-dim temperature fills like every other."""
 
-    def __init__(self, target, q0, inv_mass):
+    def __init__(self, target, q0, inv_mass, per_chain: bool = False):
         C, dim = q0.shape
         dt, dev = q0.dtype, q0.device
         self.device = dev
@@ -399,8 +415,9 @@ class BoundTransition:
         self.lp, self.lp0, self.kin0, self.kin1 = (new(C) for _ in range(4))
         # step size 0 until the first transition: the warm-up before the
         # captures then leaves q where it is
-        self.step_size = torch.zeros((), dtype=dt, device=dev)
-        self.beta_temp = torch.ones((), dtype=dt, device=dev)
+        self.step_size = torch.zeros((C,), dtype=dt, device=dev)
+        self.beta_temp = torch.ones((C,), dtype=dt, device=dev)
+        self.per_chain = per_chain
         diag, tail_inv, self.k = _mass_parts(inv_mass)
         self.diag = diag.clone()
         # in K2's padded layout, so that its launches read this buffer
@@ -408,7 +425,9 @@ class BoundTransition:
         self.mass = (TailDenseMass(self.diag, self.tail_inv, None) if self.k
                      else self.diag)
         self._mass_src = inv_mass
-        evaluate = target.bind(self.q, self.beta_temp, self.lp, self.g)
+        evaluate = target.bind(
+            self.q, self.beta_temp if per_chain else self.beta_temp[0],
+            self.lp, self.g)
 
         def k2(nkick, drift, kinetic=None):
             return bind_leapfrog(self.q, self.p, self.g, self.step_size,
@@ -450,10 +469,12 @@ class BoundTransition:
     def __call__(self, q, step_size, inv_mass, beta_temp, num_leapfrogs: int,
                  normals, uniforms, max_energy_diff: float = 1000.0):
         """One transition from q, as ``hmc_step(lambda r: target(r,
-        beta_temp), q, ...)``: the same arguments, the same result. A mass
-        is copied in when ``inv_mass`` is another object than the last
-        one."""
+        beta_temp), q, ...)``: the same arguments, the same result; the
+        step size 0-dim or (C,), the temperature 0-dim, or (C,) for an
+        object made ``per_chain``. A mass is copied in when ``inv_mass`` is
+        another object than the last one."""
         L = int(num_leapfrogs)
+        check_per_chain("beta_temp", beta_temp, self.per_chain)
         self.step_size.copy_(step_size)
         self.beta_temp.copy_(beta_temp)
         if inv_mass is not self._mass_src:

@@ -82,6 +82,21 @@ class PinnedSigma:
 
         return run
 
+    def bind_value(self, q, beta_temp, lp):
+        """The pinned log-posterior alone on fixed tensors (see
+        ``GNTarget.bind_value``), through a fixed copy of the states."""
+        qf = torch.empty_like(q)
+        evaluate = self.logp_grad.bind_value(qf, beta_temp, lp)
+        lo, hi = self.N_I * self.D, (self.N_I + 1) * self.D
+        fix = self.sig_pre_fix.expand(q.shape[0], hi - lo)
+
+        def run():
+            qf.copy_(q)
+            qf[:, lo:hi].copy_(fix)
+            evaluate()
+
+        return run
+
     def to(self, device) -> "PinnedSigma":
         return PinnedSigma(self.logp_grad.to(device),
                            self.sig_pre_fix.to(device), self.N_I, self.D)

@@ -52,6 +52,7 @@ from magi_v2_tpu_torch.sampler.hmc import (
     _mass_parts,
     bind_leapfrog,
     capture_steps,
+    check_per_chain,
     padded_tail,
 )
 from magi_v2_tpu_torch.sampler.mass import TailDenseMass, momentum_from_normal
@@ -99,9 +100,13 @@ class BoundNuts:
     ``q0`` (C, dim) gives the shapes; ``inv_mass`` the mass form (a
     diagonal, or a dense block of fixed width), fixed for the object. The
     steps are captured as CUDA graphs where the target binds and the state
-    lies on the card."""
+    lies on the card. The step size and the temperature are (C,) buffers,
+    filled from a 0-dim value or one per chain; with ``per_chain`` the
+    target gets the (C,) temperatures, else the first (a 0-dim view), as
+    ``BoundTransition``."""
 
-    def __init__(self, target, q0, inv_mass, cfg: NutsConfig = NutsConfig()):
+    def __init__(self, target, q0, inv_mass, cfg: NutsConfig = NutsConfig(),
+                 per_chain: bool = False):
         C, dim = q0.shape
         D = int(cfg.max_tree_depth)
         if D < 1:
@@ -112,8 +117,10 @@ class BoundNuts:
         self.q = q0.clone(memory_format=torch.contiguous_format)
         self.p, self.g, self.v = new(C, dim), new(C, dim), new(C, dim)
         self.lp, self.kin, self.H0, self.eps = (new(C) for _ in range(4))
-        self.step_size, self.beta_temp = new(), torch.ones((), dtype=dt,
-                                                           device=dev)
+        self.step_size = new(C)
+        self.beta_temp = torch.ones((C,), dtype=dt, device=dev)
+        self.per_chain = per_chain
+        beta = self.beta_temp if per_chain else self.beta_temp[0]
         # the trajectory: its two ends (q, p, g, lp, v), proposal, weight
         self.ends = {side: {k: new(C, dim) if k != "lp" else new(C)
                             for k in ("q", "p", "g", "lp", "v")}
@@ -143,10 +150,10 @@ class BoundNuts:
         self._mass_src = inv_mass
 
         if hasattr(target, "bind"):
-            evaluate = target.bind(self.q, self.beta_temp, self.lp, self.g)
+            evaluate = target.bind(self.q, beta, self.lp, self.g)
         else:
             def evaluate():
-                lp, g = target(self.q, self.beta_temp)
+                lp, g = target(self.q, beta)
                 self.lp.copy_(lp)
                 self.g.copy_(g)
         stream = lambda: launch_stream(dev)
@@ -255,12 +262,14 @@ class BoundNuts:
 
     def __call__(self, q, step_size, inv_mass, beta_temp, noise: NutsNoise,
                  on_doubling=None):
-        """One transition from q (C, dim) at the 0-dim ``step_size`` and
-        ``beta_temp``, with ``noise``: -> (the new states (C, dim),
+        """One transition from q (C, dim) at ``step_size`` (0-dim or one per
+        chain) and ``beta_temp`` (0-dim, or (C,) for an object made
+        ``per_chain``), with ``noise``: -> (the new states (C, dim),
         NutsInfo). A mass is copied in when ``inv_mass`` is another object
         than the last one. ``on_doubling(d)``, where given, is called after
         doubling d's leaves, before its epilogue (to read the subtree's
         state)."""
+        check_per_chain("beta_temp", beta_temp, self.per_chain)
         self.step_size.copy_(step_size)
         self.beta_temp.copy_(beta_temp)
         if inv_mass is not self._mass_src:
@@ -294,8 +303,8 @@ def nuts_step(logp_grad, q, step_size, inv_mass, noise: NutsNoise,
               cfg: NutsConfig = NutsConfig()):
     """One NUTS transition of every chain from q (C, dim), eagerly:
     ``logp_grad(q) -> (logp (C,), grad (C, dim))``, ``step_size`` a 0-dim
-    tensor, ``noise`` as ``draw_noise`` gives it. Returns (q_new,
-    NutsInfo)."""
+    tensor or one per chain (C,), ``noise`` as ``draw_noise`` gives it.
+    Returns (q_new, NutsInfo)."""
     one = torch.ones((), dtype=q.dtype, device=q.device)
     step = BoundNuts(lambda r, _: logp_grad(r), q, inv_mass, cfg)
     return step(q, step_size, inv_mass, one, noise)

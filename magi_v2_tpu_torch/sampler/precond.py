@@ -529,7 +529,9 @@ class GNTarget:
     a new lp and a new grad: the eager sampler holds those of the current
     state while it evaluates the proposal, so they are never reused.
     ``bind`` gives the same evaluation on fixed q, beta_temp, lp and grad,
-    which the bound sampler replays as a CUDA graph."""
+    which the bound sampler replays as a CUDA graph; ``bind_value`` the
+    log-posterior alone (parallel tempering's swap). beta_temp is 0-dim,
+    or (C,) for one temperature per chain (parallel tempering's rungs)."""
 
     def __init__(self, data, f_vec, whitening, operators, ref, z0, N_I: int,
                  D: int, D_thetas: int):
@@ -599,32 +601,45 @@ class GNTarget:
             raise TypeError(f"{name} must be a {tuple(shape)} {dt} tensor "
                             f"on {dev}")
 
+    def _evaluate_value(self, ws, q, beta_temp, lp, stream) -> None:
+        """The forward half of an evaluation: lp at q, through the
+        workspace (the whitening and operator stages' forward products and
+        K1's fwd and energy kernels)."""
+        ws.diff(q)
+        ws.whitening.forward(stream)
+        ws.operators.rm(stream)
+        ws.k1.fwd(q, beta_temp, stream)
+        ws.operators.s(stream)
+        ws.k1.energy(q, beta_temp, lp, stream)
+
     def _evaluate(self, ws, q, beta_temp, lp, grad) -> None:
         """One evaluation at q into lp and grad, through the workspace."""
         stream = launch_stream(self.z0.device)
         wh, op, k1 = ws.whitening, ws.operators, ws.k1
-        ws.diff(q)
-        wh.forward(stream)
-        op.rm(stream)
-        k1.fwd(q, beta_temp, stream)
-        op.s(stream)
-        k1.energy(q, beta_temp, lp, stream)
+        self._evaluate_value(ws, q, beta_temp, lp, stream)
         op.s_adjoint(stream)
         k1.bwd(q, beta_temp, grad, stream)
         op.rm_adjoint(stream)
         wh.backward(grad, stream)
 
+    def _check_beta(self, beta_temp, C: int) -> None:
+        dt, dev = self.z0.dtype, self.z0.device
+        if not (isinstance(beta_temp, torch.Tensor)
+                and beta_temp.shape in ((), (C,)) and beta_temp.dtype == dt
+                and beta_temp.device == dev and beta_temp.is_contiguous()):
+            raise TypeError(f"beta_temp must be a 0-dim or ({C},) {dt} "
+                            f"tensor on {dev}")
+
     def __call__(self, q, beta_temp):
-        """q (C, dim) -> (logp (C,), grad (C, dim)); beta_temp 0-dim."""
+        """q (C, dim) -> (logp (C,), grad (C, dim)); beta_temp 0-dim or
+        (C,)."""
         z0 = self.z0
         dt, dev = z0.dtype, z0.device
         if not (isinstance(q, torch.Tensor) and q.dim() == 2
                 and q.dtype == dt and q.device == dev):
             raise TypeError(f"q must be a (C, dim) {dt} tensor on {dev}")
-        if not (isinstance(beta_temp, torch.Tensor) and beta_temp.dim() == 0
-                and beta_temp.dtype == dt and beta_temp.device == dev):
-            raise TypeError(f"beta_temp must be a 0-dim {dt} tensor on {dev}")
         C = q.shape[0]
+        self._check_beta(beta_temp, C)
         ws = self._workspace(C)
         if q.shape != ws.q_shape:
             raise ValueError(f"q has shape {tuple(q.shape)}, expected "
@@ -635,24 +650,40 @@ class GNTarget:
         self._evaluate(ws, q, beta_temp, lp, grad)
         return lp, grad
 
-    def bind(self, q, beta_temp, lp, grad):
-        """The evaluation bound to fixed tensors, checked here once: a
-        callable of no arguments that evaluates the target at what q (C,
-        dim) holds, at the temperature beta_temp (0-dim) holds, into lp (C,)
-        and grad (C, dim), and allocates nothing. It shares the workspace
-        of C chains with ``__call__``. The sampler's ``BoundTransition``
-        captures it into a CUDA graph."""
+    def _bound_workspace(self, q, beta_temp, lp, grad=None):
+        """The workspace of q's chain count, with q, beta_temp, lp and (when
+        given) grad checked."""
         if not (isinstance(q, torch.Tensor) and q.dim() == 2):
             raise TypeError("q must be a (C, dim) tensor")
         ws = self._workspace(q.shape[0])
-        for name, t, shape in (("q", q, ws.q_shape), ("grad", grad, ws.q_shape),
-                               ("lp", lp, (q.shape[0],)),
-                               ("beta_temp", beta_temp, ())):
+        outs = (("lp", lp, ws.q_shape[:1]),) + (
+            () if grad is None else (("grad", grad, ws.q_shape),))
+        for name, t, shape in (("q", q, ws.q_shape),) + outs:
             self._check(name, t, shape)
-        if not (q.is_contiguous() and grad.is_contiguous()
-                and lp.is_contiguous()):
+        self._check_beta(beta_temp, q.shape[0])
+        if not all(t.is_contiguous() for _, t, _ in (("q", q, 0),) + outs):
             raise ValueError("q, lp and grad must be contiguous")
+        return ws
+
+    def bind(self, q, beta_temp, lp, grad):
+        """The evaluation bound to fixed tensors, checked here once: a
+        callable of no arguments that evaluates the target at what q (C,
+        dim) holds, at the temperature beta_temp (0-dim, or one per chain,
+        (C,)) holds, into lp (C,) and grad (C, dim), and allocates nothing.
+        It shares the workspace of C chains with ``__call__``. The
+        sampler's ``BoundTransition`` captures it into a CUDA graph."""
+        ws = self._bound_workspace(q, beta_temp, lp, grad)
         return lambda: self._evaluate(ws, q, beta_temp, lp, grad)
+
+    def bind_value(self, q, beta_temp, lp):
+        """``bind``'s log-posterior alone: a callable of no arguments that
+        writes into lp (C,) what ``bind``'s evaluation writes there, the
+        same bits, running only the forward half (no adjoint products and
+        no K1 bwd). Parallel tempering's swap (sampler/pt.py) captures it
+        beside the swap kernel."""
+        ws = self._bound_workspace(q, beta_temp, lp)
+        return lambda: self._evaluate_value(ws, q, beta_temp, lp,
+                                            launch_stream(self.z0.device))
 
 
 def _relative_only(ref, z0):

@@ -12,8 +12,12 @@ doubling (whether any chain's tree goes on, sampler/nuts.py). Counters
 that are host-known (the dual-averaging and Welford counts) are Python
 floats.
 
-Not ported here (see ROADMAP.md queue 1): parallel tempering,
-checkpoint/resume and dispatch blocking.
+Parallel tempering (``pt_betas``: sampler/pt.py) tempers the sampling
+phase per chain and swaps adjacent rungs every ``pt_swap_every``
+transitions; warmup is shared by all chains, as in the JAX package.
+
+Not ported here (see ROADMAP.md queue 1): checkpoint/resume and dispatch
+blocking.
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ import torch
 
 from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
 from magi_v2_tpu_torch.sampler.nuts import BoundNuts, NutsConfig, draw_noise
+from magi_v2_tpu_torch.sampler.pt import (
+    BoundSwap,
+    check_ladder,
+    rung_temperatures,
+)
 from magi_v2_tpu_torch.sampler.mass import (
     identity_mass,
     mass_diag,
@@ -88,6 +97,12 @@ class SamplerConfig(NamedTuple):
     # HMC's trajectory length: uniform on {1, ..., hmc_num_leapfrogs}, one
     # draw per transition shared by all chains
     hmc_num_leapfrogs: int = 64
+    # parallel tempering of the sampling phase (two rungs or more): chains
+    # are rung-major, chains [r*M, (r+1)*M) at beta = pt_betas[r] (M =
+    # C/R), and every pt_swap_every transitions adjacent rungs propose
+    # even-odd exchanges (sampler/pt.py)
+    pt_betas: tuple = ()
+    pt_swap_every: int = 1
 
 
 class DAState(NamedTuple):
@@ -190,6 +205,8 @@ class ChainStats(NamedTuple):
     depths: np.ndarray             # (num_results, C) tree depth (HMC:
                                    # ceil(log2 L), as the JAX package)
     tail_inv_mass: torch.Tensor | None = None
+    # (R-1,) swap acceptance of each adjacent rung pair (PT runs only)
+    pt_swap_accept: torch.Tensor | None = None
 
 
 def find_reasonable_step_size(logp_grad, q0_row, generator, inv_mass,
@@ -239,10 +256,19 @@ def run_chains(
     both, with CUDA graphs where the target binds. Either way the two
     forms give the same draws.
 
+    With two rungs or more in ``config.pt_betas``, chain c samples at its
+    rung's beta and step eps * beta^(-1/2) after warmup, and a swap round
+    (``pt.BoundSwap``: the value-only evaluation and the swap kernel, one
+    CUDA graph on the card) follows every ``pt_swap_every``-th sampling
+    transition; samples and stats keep every rung (``predict`` returns the
+    beta = 1 rung), and ``stats.pt_swap_accept`` holds each pair's
+    acceptance.
+
     Returns (samples (num_results, C, dim) on q0's device, ChainStats).
     The momenta and uniforms come from a ``torch.Generator`` on the device
-    seeded with ``seed``; HMC's trajectory lengths from a NumPy generator
-    on the host with the same seed.
+    seeded with ``seed``, a swap round's uniforms after its transition's;
+    HMC's trajectory lengths from a NumPy generator on the host with the
+    same seed.
     """
     if config.algorithm not in ("nuts", "hmc"):
         raise ValueError(f"unknown algorithm {config.algorithm!r}; expected "
@@ -251,6 +277,8 @@ def run_chains(
     pin_full_float32_matmuls()
     C, dim = q0.shape
     dtype, dev = q0.dtype, q0.device
+    betas = check_ladder(config, C)
+    pt = betas is not None
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     host_rng = np.random.default_rng(int(seed))
@@ -306,8 +334,9 @@ def run_chains(
 
     nuts_cfg = NutsConfig(config.max_tree_depth, config.max_energy_diff)
 
-    def transition(qs, eps, inv_mass, step):
-        beta_temp = temps[step]
+    def transition(qs, eps, inv_mass, step, beta_temp=None):
+        if beta_temp is None:
+            beta_temp = temps[step]
         if nuts:
             return bound(qs, eps, inv_mass, beta_temp,
                          draw_noise(gen, C, dim, nuts_cfg.max_tree_depth,
@@ -344,9 +373,11 @@ def run_chains(
     wf = welford_init(dim, dtype, dev)
     wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
     if nuts:
-        bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg)
+        bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg,
+                          per_chain=pt)
     elif hasattr(tempered_logp_grad, "bind"):
-        bound = BoundTransition(tempered_logp_grad, q0, inv_mass)
+        bound = BoundTransition(tempered_logp_grad, q0, inv_mass,
+                                per_chain=pt)
 
     qs = q0
     for step in range(B):
@@ -381,6 +412,13 @@ def run_chains(
             wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
 
     eps_final = torch.exp(da.log_step_avg)
+    beta_s = eps_s = swap = None
+    if pt:
+        # sampling at each chain's rung: its beta and a step scaled by
+        # beta^(-1/2), both in the sampling dtype
+        beta_s, scale = rung_temperatures(betas, C, dtype, dev)
+        eps_s = eps_final * scale
+        swap = BoundSwap(tempered_logp_grad, q0, betas)
     T = config.num_results
     samples = torch.empty((T, C, dim), dtype=dtype, device=dev)
     accept = torch.empty((T, C), dtype=dtype, device=dev)
@@ -391,7 +429,15 @@ def run_chains(
     for i in range(T):
         for t in range(config.thin):
             step = B + i * config.thin + t
-            qs, info = transition(qs, eps_final, inv_mass, step)
+            if not pt:
+                qs, info = transition(qs, eps_final, inv_mass, step)
+            else:
+                qs, info = transition(qs, eps_s, inv_mass, step, beta_s)
+                rel = step - B
+                if (rel + 1) % config.pt_swap_every == 0:
+                    u = torch.rand((len(betas) - 1, C // len(betas)),
+                                   generator=gen, dtype=dtype, device=dev)
+                    qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
             progress("sample", step, eps_final, info)
         samples[i] = qs
         accept[i] = info.accept_prob
@@ -414,5 +460,6 @@ def run_chains(
         divergences=diverging,
         depths=depths,
         tail_inv_mass=mass_tail_inv(inv_mass),
+        pt_swap_accept=swap.acceptance(dtype) if pt else None,
     )
     return samples, stats

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (K1 and its whitened form, K2, K3, K4, the
-NUTS leaf) against
-their plain PyTorch versions, on the card. These tests need a CUDA device
+"""The hand-written CUDA kernels (K1 and its whitened form, with one
+temperature or one per chain, K2, K3, K4, the NUTS leaf, the PT swap)
+against their plain PyTorch versions, on the card. These tests need a CUDA device
 and skip without one; run them on the card with
 
     python -m pytest tests/test_torch_kernels.py -m cuda
@@ -152,6 +152,54 @@ def test_whitened_fwd_kernel_matches_plain_version(device, model, C, N):
     chip_smoke.check_whitened_kernels(device, model=model, C=C, N=N, reps=5)
     name = "manifold_fwd_whitened_" + ("given" if model == "fhn" else model)
     assert mf.functor_launch_counts()[name] > 0
+
+
+@pytest.mark.parametrize("model,N,C", chip_smoke.K1_PT_CASES)
+def test_k1_per_chain_matches_plain_version(device, model, N, C):
+    """K1 with a temperature per chain (stride 1: fwd, its whitened form,
+    energy, bwd; functor and given kernels) against its plain version,
+    float32 and float64; each launch twice bit for bit, equal temperatures
+    giving the stride-0 launch's bits (checked inside); counted with
+    "_pt"."""
+    mf.reset_launch_counts()
+    results = chip_smoke.check_k1_per_chain(device, model, N, C, reps=3)
+    assert len(results) == 4
+    functor = "given" if model == "fhn" else model
+    assert all(mf.functor_launch_counts()[f"{k}_{functor}_pt"] > 0
+               for k in mf.KERNELS + ("manifold_fwd_whitened",))
+
+
+def test_pt_swap_kernel_matches_plain_version(device):
+    """K6, the swap kernel, against its plain version at the Hes1, SEIR and
+    unaligned Lorenz shapes, both parities: equal q, lp and counters
+    (checked inside)."""
+    from magi_v2_tpu_torch.ops import pt
+
+    pt.reset_launch_counts()
+    assert set(chip_smoke.check_pt_swap(device, reps=3)) == {"pt_swap"}
+    assert pt.launch_counts()["pt_swap"] > 0
+
+
+def test_pt_graph_replay_matches_eager(device):
+    """PT HMC transitions with swap rounds by replayed CUDA graphs against
+    the eager forms on a small SEIR fit, 4 rungs x 8 replicas, bit for bit
+    (checked inside)."""
+    from magi_v2_tpu_torch.sampler import hmc
+
+    model = _small_seir(device)
+    mode, _, _ = model._build_sampling_setup("precond", "dense",
+                                             torch.float32)
+    dim = model.mag_I * 3 + 6
+    q0 = torch.cat([mode.X0.reshape(-1).float(),
+                    torch.tensor(chip_smoke.SEIR_TAIL, device=device)])
+    g = torch.Generator(device=device).manual_seed(0)
+    qs = q0 + 0.01 * torch.randn((32, dim), generator=g, device=device)
+    hmc.reset_graph_counts()
+    chip_smoke.pt_graph_vs_eager(
+        mode.logp_grad, qs, torch.ones(dim, device=device),
+        torch.tensor(0.01, device=device), chip_smoke.SEIR_PT_LADDER,
+        "small SEIR", transitions=6, algorithm="hmc", max_leapfrogs=8)
+    assert hmc.graph_counts()["pt_swap"] == 6
 
 
 def test_plan_leaves_its_tickets_at_zero(device):

@@ -109,7 +109,8 @@ def test_unwhiten_draws_matches_jax(fitted):
     ({"reparam": "centered", "storage": "hybrid"}, ValueError),
     ({"precond_refresh_steps": 10}, NotImplementedError),
     ({"init_states": {"theta": np.ones(3)}}, ValueError),
-    ({"pt_betas": (1.0, 0.5)}, NotImplementedError),
+    # parallel tempering is ported; the refusal left is the JAX package's
+    ({"pt_betas": (1.0, 0.5), "anneal_mode": "reference"}, ValueError),
     ({"checkpoint_path": "ckpt"}, NotImplementedError),
     ({"matmul_precision": "high"}, ValueError),
 ])
