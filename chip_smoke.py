@@ -92,7 +92,26 @@ only when all of them passed):
    graph and by eager (bit for bit) and the leaf's profile. Then
    ``map_warmstart_iters`` on the SEIR fit (precond, dense): 200 Adam
    steps whose log-posterior must rise, and a short predict that takes
-   them. And an ODE
+   them. Then the SEIR L-BFGS and forecast block: ``initial_fit(1)`` with
+   ``MagiConfig(hparam_optimizer="lbfgs")`` on the same data (its
+   hparam_mle wall printed beside the Adam fit's, with L-BFGS's
+   iterations, both objectives and the fitted phi and sigma^2; fails
+   unless its objective is at most Adam's + 1e-3 and theta_init is
+   finite); the NUTS recipe on it, 256 chains, 150 + 150;
+   ``extend_for_forecast(5.0, results=...)`` (N_I = 161 -> 201, a dense
+   metric 609 wide), K1 at N_I = 201 and K2's NUTS form and the leaf
+   kernel at dense 609 against their plain versions (each launch twice
+   bit for bit), and the recipe on the extended grid, 256 chains, 500 +
+   500: fails on non-finite draws, K1 or the leaf kernel not launched,
+   rhat_max > 1.05 or a theta mean more than 15% from truth; prints the
+   forecast's posterior-mean RMSE and 95% band coverage of the true
+   trajectory on (4, 5]. Then checkpoint/resume on the extended model (64
+   chains, 100 + 100, blocks of 25 transitions): an uninterrupted run with
+   ``profile_timings`` (its timings printed), a run crashed after two
+   sampling blocks and one crashed after two warmup blocks, each resumed,
+   which must equal the uninterrupted run bit for bit; and a 5 + 5
+   predict inside ``utils.profiling.device_trace``, whose trace must name
+   K1's three kernels. And an ODE
    field with no CUDA functor (FitzHugh-Nagumo, defined here): K1's given
    kernels (PyTorch evaluates the field and its VJPs) against their plain
    versions at its path's shapes (16 chains, N_I = 81) and at 257 chains
@@ -106,8 +125,9 @@ only when all of them passed):
 6c. Hes1 path (partially observed: H never observed): the data of
    examples/hes1.py, ``initial_fit(2)`` at the config's full iteration
    counts (N_I = 129, gradient matching for H and theta), beta = 1, and a
-   64-chain centered NUTS predict (500 + 500 transitions since the
-   Laplace-start phase joined the smoke, 1000 + 1000 before; no annealing,
+   64-chain centered NUTS predict (300 + 300 transitions since the SEIR
+   forecast block joined the smoke, 500 + 500 and 1000 + 1000 before; no
+   annealing,
    sigma pinned at 0.15^2, diagonal mass) in float32. Fails on non-finite
    draws, K1 not launched through the Hes1-log functor or launched
    through its given kernels, K2 or the leaf kernel not launched, a
@@ -124,11 +144,11 @@ only when all of them passed):
    solve_triangular, K4 at one chain), float64; then
    ``map_estimate(sigma_sqs_fixed=0.15^2, laplace_draws=64)`` and a
    64-chain centered NUTS predict from its joint draws
-   (``init_states``), 500 + 500 transitions, the Hes1 recipe otherwise
+   (``init_states``), 300 + 300 transitions, the Hes1 recipe otherwise
    (scripts/hes1_long.py --init laplace, cut from 16 x 3000 + 8000).
    Fails on a Laplace Hessian not SPD beyond float64 roundoff (an
    eigenvalue below -1e-12 of its largest), a MAP outside the truth basin,
-   non-finite draws, a chain whose mean g is at most 8, or a pooled theta
+   non-finite draws, a chain whose mean f is at most 8, or a pooled theta
    more than 3 posterior sd from the JAX package's Laplace-start run
    (results/hes1_laplace_r4.json); prints the MAP's wall, L-BFGS-B
    iterations and convergence (not gated: the JAX package's own
@@ -137,12 +157,12 @@ only when all of them passed):
 6e. Hes1 with parallel tempering, on the same fit (scripts/hes1_pt.py's
    recipe): ``predict(pt_betas=(1, 0.6, 0.36, 0.22, 0.13))``, 16
    replicas a rung (80 chains), centered, no annealing, sigma pinned,
-   heuristic starts, NUTS, 500 + 500 (cut from 3000 + 8000), float32.
+   heuristic starts, NUTS, 300 + 300 (cut from 3000 + 8000), float32.
    Fails on non-finite draws, K1 not launched with a temperature per chain
    through the Hes1-log functor, any launch of K1's given kernels, K6 not
    launched, the swap graph not replayed once a sampling transition, or a
    returned chain axis other than 16; prints, not gated, the swap
-   acceptance per pair, the beta = 1 rung's draws by mode (g > 8), the
+   acceptance per pair, the beta = 1 rung's draws by mode (f > 8), the
    chains that changed mode, theta by mode, H's band coverage beside 6c's
    and 6d's, rhat, ESS, depth and leaves. Then its composed float64
    target with a temperature per state card vs CPU, 20 PT NUTS transitions
@@ -199,7 +219,8 @@ each kernel's launch count (from the path named beside it; K2's NUTS form
 and the leaf kernel from the SEIR NUTS and the Hes1 paths, K1's given
 kernels from the FitzHugh-Nagumo predicts, K1's Hes1-log functor from the
 Hes1 path, K1's whitened fwd from the whitened SEIR path, K1 with a
-temperature per chain and K6 from the Hes1 PT path), error, times,
+temperature per chain and K6 from the Hes1 PT path, the
+``*_seir_forecast`` entries from the forecast's predict), error, times,
 the bound (the least time the card could take for the same work, from
 this run's inputs and the published H100 SXM peaks) and the yardstick's
 time (null where no one PyTorch call computes the same function), and
@@ -208,6 +229,7 @@ time (null where no one PyTorch call computes the same function), and
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1742,6 +1764,315 @@ def warmstart_check(model, device, iters=200):
           + ", ".join(f"{k} {v:.2f}" for k, v in model.predict_timings.items()))
 
 
+# The SEIR L-BFGS and forecast block: the SEIR data's fit with
+# hparam_optimizer="lbfgs", the NUTS recipe's predict from it, then the grid
+# extended to t = 5 at its spacing (N_I = 161 -> 201, a flat state and a
+# dense metric 609 wide) and the recipe again there; then checkpoint/resume
+# and a device trace on the extended model.
+FORECAST_T_MAX = 5.0
+FORECAST_GRID = 201
+# the starting predict cut from 300 + 300 to keep the smoke's wall inside
+# its limit (it only starts the forecast)
+FORECAST_START_STEPS, FORECAST_STEPS = 150, 500
+# K2's NUTS form and the leaf kernel at the forecast's dense metric
+FORECAST_CASES = (("dense609", 609, 609),)
+# an L-BFGS fit may end at most this far above Adam-1000's objective (the
+# JAX package's own bound, tests/test_lbfgs.py)
+LBFGS_SLACK = 1e-3
+# the resume check: chains, transitions a phase, transitions a block
+RESUME_CHAINS, RESUME_STEPS, RESUME_BLOCK = 64, 100, 25
+
+
+def lbfgs_fit(device, adam_model):
+    """``initial_fit(1)`` with ``MagiConfig(hparam_optimizer="lbfgs")`` on
+    the SEIR path's data on the card (the fit in float64, sampling in
+    float32). Prints its ``hparam_mle`` wall beside the Adam fit's
+    (``adam_model``, the SEIR path's), L-BFGS's iterations (from a second,
+    timed call of the fit), both final objectives and the fitted phi and
+    sigma^2. Fails unless L-BFGS's objective is at most Adam's +
+    LBFGS_SLACK and theta_init is finite."""
+    from magi_v2_tpu_torch import MAGI_v2, MagiConfig, hparams, preprocess
+    from magi_v2_tpu_torch.models import seir_f_vec
+    from magi_v2_tpu_torch.posterior import softplus_inverse
+
+    ts, X_obs, _ = seir_data()
+    cfg = MagiConfig(dtype=torch.float32, device=str(device),
+                     hparam_optimizer="lbfgs")
+    model = MAGI_v2(D_thetas=3, ts_obs=ts, X_obs=X_obs, bandsize=80,
+                    f_vec=seir_f_vec, config=cfg)
+    t0 = time.perf_counter()
+    model.initial_fit(discretization=1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # the objective both fits minimize (hparam_fit_points="obs")
+    I_fit, X_fit = ts.reshape(-1, 1), preprocess.linear_interpolate(X_obs)
+    prior = hparams.fourier_prior(X_fit, t_range=float(ts[-1] - ts[0]))
+    neg_map, _ = hparams.make_hparam_objective(
+        I_fit, X_fit, prior, cfg.matern_nu, jitter=cfg.cholesky_jitter,
+        device=device)
+
+    def objective(m):
+        pre = lambda a: softplus_inverse(torch.as_tensor(
+            a, dtype=torch.float64, device=device))
+        return float(neg_map({"phi1_pre": pre(m.phi1s),
+                              "phi2_pre": pre(m.phi2s),
+                              "sigma_sq_pre": pre(m.sigma_sqs_init)}))
+
+    f_lbfgs, f_adam = objective(model), objective(adam_model)
+    t0 = time.perf_counter()
+    hp = hparams.fit_kernel_hparams(
+        I_fit, X_fit, nu=cfg.matern_nu, num_iters=cfg.hparam_num_iters,
+        cholesky_jitter=cfg.cholesky_jitter, optimizer="lbfgs",
+        device=device)
+    again_s = time.perf_counter() - t0
+    # the trace repeats the final loss after the last iteration (Armijo
+    # lowers it at every iteration before)
+    losses = hp["losses"]
+    iters = int(np.argmax(losses == losses[-1])) + 1
+    sci = lambda a: ", ".join(np.format_float_scientific(v, 4) for v in a)
+    rnd = lambda a: np.round(a, 6).tolist()
+    print(f"SEIR L-BFGS fit: initial_fit {setup_s:.2f} s "
+          f"{model.fit_timings}; hparam_mle "
+          f"{model.fit_timings['hparam_mle']:.2f} s (Adam-"
+          f"{adam_model.config.hparam_num_iters} "
+          f"{adam_model.fit_timings['hparam_mle']:.2f} s in this smoke); "
+          f"{iters} L-BFGS iterations ({again_s:.2f} s a second time); "
+          f"objective {f_lbfgs:.6f} (Adam {f_adam:.6f}, difference "
+          f"{f_lbfgs - f_adam:.3e}); phi1 {rnd(model.phi1s)} (Adam "
+          f"{rnd(adam_model.phi1s)}), phi2 {rnd(model.phi2s)} (Adam "
+          f"{rnd(adam_model.phi2s)}), sigma^2 {sci(model.sigma_sqs_init)} "
+          f"(Adam {sci(adam_model.sigma_sqs_init)}); thetas_init "
+          f"{np.round(model.thetas_init, 4).tolist()}")
+    if not f_lbfgs <= f_adam + LBFGS_SLACK:
+        raise AssertionError(f"L-BFGS fit: objective {f_lbfgs} above Adam's "
+                             f"{f_adam} + {LBFGS_SLACK}")
+    if not np.all(np.isfinite(model.thetas_init)):
+        raise AssertionError("L-BFGS fit: theta_init not finite")
+    return model
+
+
+def seir_nuts_predict(model, num_steps, num_chains=NUM_CHAINS, seed=0,
+                      **kw):
+    """The SEIR NUTS recipe's predict on ``model``: (results, wall,
+    launch counts, graph counts), the counts from this predict alone."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.predict(num_results=num_steps, num_burnin_steps=num_steps,
+                        num_chains=num_chains, seed=seed, init_jitter=0.01,
+                        **NUTS_RECIPE, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, launch_counts(), graph_counts()
+
+
+def forecast_start(model, num_steps=FORECAST_START_STEPS):
+    """The NUTS recipe on the L-BFGS fit, 256 chains: the draws the
+    forecast starts from. Fails on non-finite draws."""
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    res, wall, _, _ = seir_nuts_predict(model, num_steps)
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    print(f"SEIR L-BFGS fit, NUTS predict wall: {wall:.2f} s ({num_steps}+"
+          f"{num_steps} transitions, {NUM_CHAINS} chains); "
+          f"{predict_phases(model, wall)}; theta pooled means "
+          f"{np.round(thetas.reshape(-1, 3).mean(axis=0), 4).tolist()}, "
+          f"rhat_max {summ['rhat_max']:.4f}, ESS_min {summ['ess_min']:.1f}")
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("SEIR L-BFGS predict: non-finite draws")
+    return res
+
+
+def forecast_kernels(device):
+    """K1 at the forecast's N_I = 201 (256 chains), K2's NUTS form and the
+    leaf kernel at its dense 609 metric (256 chains), against their plain
+    versions, each launch twice bit for bit; the float32 numbers under
+    ``*_seir_forecast`` names."""
+    timing = check_kernels(device, N=FORECAST_GRID, tag="_seir_forecast")
+    record = lambda name: (FORECAST_CASES[0][0], NUM_CHAINS, name)
+    timing.update(check_leapfrog_nuts(
+        device, chains=(NUM_CHAINS,), cases=FORECAST_CASES,
+        record=record("leapfrog_update_nuts_seir_forecast")))
+    timing.update(check_nuts_leaf(
+        device, chains=(NUM_CHAINS,), cases=FORECAST_CASES,
+        record=record("nuts_leaf_seir_forecast")))
+    return timing
+
+
+def forecast_path(model, start, num_steps=FORECAST_STEPS):
+    """``extend_for_forecast(5.0, results=start)`` and the NUTS recipe on
+    the extended grid, 256 chains. Prints the forecast's posterior-mean
+    RMSE and the 95% band's coverage of the true trajectory (simulated to
+    t = 5) on (4, 5]. Fails on non-finite draws, K1 or the leaf kernel not
+    launched, rhat_max > 1.05 or a theta mean more than 15% from truth.
+    Returns the launch counts."""
+    from magi_v2_tpu_torch.models import seir_f_vec
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.utils.data import simulate_ode
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    n_old = model.mag_I
+    t0 = time.perf_counter()
+    model.extend_for_forecast(FORECAST_T_MAX, results=start)
+    extend_s = time.perf_counter() - t0
+    if model.mag_I != FORECAST_GRID:
+        raise AssertionError(f"forecast grid N_I {model.mag_I}, expected "
+                             f"{FORECAST_GRID}")
+    res, wall, counts, graphs = seir_nuts_predict(model, num_steps)
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    _, _, X_true = simulate_ode(seir_f_vec, x0=np.array([0.1, 0.05, 0.0]),
+                                thetas=TRUE_THETAS, t_max=FORECAST_T_MAX,
+                                n_obs=FORECAST_GRID, noise_sd=0.0)
+    future = model.I[:, 0] > 4.0 + 1e-9
+    X = res["X_samps"][:, :, future].reshape(-1, future.sum(), 3)
+    mean = X.mean(axis=0)
+    lo, hi = np.quantile(X, [0.025, 0.975], axis=0)
+    truth = X_true[future]
+    rmse = np.sqrt(((mean - truth) ** 2).mean(axis=0))
+    covered = ((truth >= lo) & (truth <= hi)).mean(axis=0)
+    print(f"SEIR forecast: extend_for_forecast({FORECAST_T_MAX}) N_I "
+          f"{n_old} -> {model.mag_I} in {extend_s:.2f} s; predict wall "
+          f"{wall:.2f} s ({num_steps}+{num_steps} transitions, {NUM_CHAINS} "
+          f"chains, dense metric {3 * model.mag_I + 6} wide); "
+          f"{predict_phases(model, wall)}")
+    print(f"SEIR forecast: mean depth {kr['depths'].mean():.3f}, mean leaves "
+          f"a chain {kr['num_leapfrogs'].mean():.2f}, step size "
+          f"{float(kr['step_size']):.5f}, mean acceptance "
+          f"{kr['accept_probs'].mean():.4f}, divergence rate "
+          f"{kr['divergences'].mean():.5f}; theta pooled means "
+          f"{np.round(theta_mean, 4).tolist()} (truth "
+          f"{TRUE_THETAS.tolist()}), rhat_max {summ['rhat_max']:.4f}, ESS_min "
+          f"{summ['ess_min']:.1f}, ESS/s {summ['ess_per_sec_min']:.2f}")
+    print(f"SEIR forecast on (4, 5] ({int(future.sum())} grid points): "
+          f"posterior-mean RMSE by component "
+          + ", ".join(np.format_float_scientific(v, 3) for v in rmse)
+          + "; 95% band covers the "
+          f"true trajectory at {np.round(covered, 3).tolist()} "
+          f"(all {covered.mean():.3f})")
+    print(f"SEIR forecast launch counts: {counts}; CUDA graphs {graphs}")
+    if not (np.all(np.isfinite(res["X_samps"]))
+            and np.all(np.isfinite(thetas))):
+        raise AssertionError("SEIR forecast: non-finite draws")
+    check_launched(counts, mf.KERNELS + ("nuts_leaf",), "SEIR forecast")
+    if not summ["rhat_max"] <= 1.05:
+        raise AssertionError(f"SEIR forecast: rhat_max {summ['rhat_max']:.4f}"
+                             " > 1.05")
+    rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
+    if not np.all(rel <= 0.15):
+        raise AssertionError(f"SEIR forecast: theta means {theta_mean} off "
+                             f"truth by {rel}")
+    return counts
+
+
+def _same_results(a, b, what):
+    keys = ("X_samps", "thetas_samps", "sigma_sqs_samps")
+    same = all(np.array_equal(a[k], b[k]) for k in keys) and all(
+        (v is None and b["kernel_results"][k] is None)
+        or np.array_equal(v, b["kernel_results"][k])
+        for k, v in a["kernel_results"].items())
+    if not same:
+        raise AssertionError(f"{what}: the resumed run's draws or stats "
+                             "differ from the uninterrupted run's")
+
+
+def resume_check(model):
+    """Checkpoint/resume on the card: the NUTS recipe on the forecast model,
+    RESUME_CHAINS chains x RESUME_STEPS + RESUME_STEPS, blocks of
+    RESUME_BLOCK transitions: once uninterrupted with profile_timings
+    (its timings printed), once crashed after the second sampling block's
+    draws and resumed, once crashed after the second warmup block and
+    resumed. Fails unless both resumed runs equal the uninterrupted one
+    bit for bit."""
+    import tempfile
+
+    import magi_v2_tpu_torch.sampler.run as run_mod
+
+    kw = dict(num_chains=RESUME_CHAINS, seed=5,
+              dispatch_block_steps=RESUME_BLOCK)
+    ref, wall, _, _ = seir_nuts_predict(model, RESUME_STEPS,
+                                        profile_timings=True, **kw)
+    t = ref["timings"]
+    print(f"resume check: uninterrupted predict {wall:.2f} s, timings "
+          + ", ".join(f"{k} {np.round(v, 4).tolist()}" for k, v in t.items()))
+    save_draws, save_state = run_mod._ckpt_save_draws, run_mod._ckpt_save_state
+    calls = {"draws": 0}
+
+    def crash_sampling(dirpath, start, s_blk, info):
+        calls["draws"] += 1
+        if calls["draws"] > 2:
+            raise RuntimeError("injected crash after two sampling blocks")
+        save_draws(dirpath, start, s_blk, info)
+
+    def crash_warmup(dirpath, phase, nxt, carry, fp):
+        save_state(dirpath, phase, nxt, carry, fp)
+        if phase == "warmup" and nxt >= 2 * RESUME_BLOCK:
+            raise RuntimeError("injected crash after two warmup blocks")
+
+    for what, name, crash in (("mid-sampling", "_ckpt_save_draws",
+                               crash_sampling),
+                              ("mid-warmup", "_ckpt_save_state",
+                               crash_warmup)):
+        with tempfile.TemporaryDirectory() as ck:
+            setattr(run_mod, name, crash)
+            try:
+                t0 = time.perf_counter()
+                try:
+                    seir_nuts_predict(model, RESUME_STEPS, checkpoint_path=ck,
+                                      **kw)
+                except RuntimeError as e:
+                    if "injected crash" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"resume check {what}: the crash "
+                                         "was not injected")
+                crashed_s = time.perf_counter() - t0
+            finally:
+                run_mod._ckpt_save_draws = save_draws
+                run_mod._ckpt_save_state = save_state
+            files = sorted(os.listdir(ck))
+            out, resumed_s, _, _ = seir_nuts_predict(
+                model, RESUME_STEPS, checkpoint_path=ck, **kw)
+        _same_results(ref, out, f"resume check {what}")
+        print(f"resume check {what}: crashed run {crashed_s:.2f} s (left "
+              f"{files}), resumed run {resumed_s:.2f} s; draws and stats "
+              "equal the uninterrupted run's bit for bit")
+
+
+def trace_check(model, device, steps=5):
+    """One short predict of the forecast model inside
+    ``utils.profiling.device_trace``: fails unless the profiler names K1's
+    three kernels and the Chrome trace file holds them."""
+    import tempfile
+
+    from magi_v2_tpu_torch.utils.profiling import device_trace
+
+    k1 = ("manifold_fwd_kernel", "manifold_energy_kernel",
+          "manifold_bwd_kernel")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with device_trace(d) as prof:
+            model.predict(num_results=steps, num_burnin_steps=steps,
+                          num_chains=RESUME_CHAINS, seed=1, **NUTS_RECIPE)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(d, "trace.json")) as fh:
+            text = fh.read()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    found = {k: sum(e.count for e in prof.key_averages()
+                    if k in e.key and e.device_type
+                    == torch.autograd.DeviceType.CUDA) for k in k1}
+    print(f"device_trace of a {steps}+{steps} predict ({wall:.2f} s with "
+          f"the profiler): {len(names)} device kernels by name, K1's "
+          f"launches {found}, trace.json {len(text) / 1e6:.1f} MB")
+    if not (all(found.values()) and all(k in text for k in k1)):
+        raise AssertionError(f"device_trace: K1's kernels are missing from "
+                             f"the trace: {found}")
+
+
 # the sigma_pre and theta_pre of the SEIR states near the fit
 SEIR_TAIL = (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6)
 
@@ -2026,10 +2357,11 @@ def unregistered_field(device, steps=100, chains=FHN_CHAINS):
 # state of 397); beta = 1, sigma pinned at 0.15^2, centered coordinates,
 # no annealing, NUTS with a diagonal metric.
 HES1_X0 = np.array([1.439, 2.037, 17.904])
-# 500 + 500 transitions since the Laplace-start phase joined the smoke
-# (1000 + 1000 before), to keep the smoke's wall inside its limit; the
-# Laplace-start run takes the same depth, so their H coverages compare
-HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 500, 129
+# 300 + 300 transitions since the SEIR L-BFGS and forecast block joined
+# the smoke (500 + 500 from the Laplace-start phase on, 1000 + 1000
+# before), to keep the smoke's wall inside its limit; the Laplace-start
+# and PT runs take the same depth, so their H coverages compare
+HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 300, 129
 HES1_SIGMA = 0.15 ** 2
 # the JAX package's converged recovery (results/hes1_long2.json: 16 chains
 # x 3000 + 8000 NUTS transitions, centered, float64 on a CPU): theta's
@@ -2038,15 +2370,15 @@ HES1_REF_MEAN = np.array([0.0151, 0.3787, 0.0343, 0.0293, 0.5841, 27.1933,
                           0.1715])
 HES1_REF_SD = np.array([0.0048, 0.0429, 0.0055, 0.0020, 0.0657, 13.1686,
                         0.0303])
-# a chain whose mean g (theta[5]) is at most 8 has left the truth basin for
+# a chain whose mean f (theta[5]) is at most 8 has left the truth basin for
 # the decoupled-H mode (scripts/hes1_long.py)
-HES1_BASIN_G = 8.0
+HES1_BASIN_F = 8.0
 # K2's NUTS form and the leaf kernel at the Hes1 path's metric: a diagonal
 # over the 397-wide state
 HES1_NUTS_CASES = (("diag397", 397, 0),)
 # the Laplace-start recipe (scripts/hes1_long.py --init laplace, its draws'
 # seed 101), cut from 16 chains x 3000 + 8000 transitions
-HES1_LAPLACE_STEPS = 500
+HES1_LAPLACE_STEPS = HES1_STEPS
 # the JAX package's run from Laplace starts (results/hes1_laplace_r4.json:
 # 16 chains x 3000 + 8000 NUTS transitions, centered, float32): theta's
 # posterior mean and sd
@@ -2140,7 +2472,7 @@ def hes1_path(model, device, logH_true, num_steps=HES1_STEPS):
     replayed = 2.0 ** depths.max(axis=1) - 1.0
     theta_mean = thetas.reshape(-1, 7).mean(axis=0)
     z = (theta_mean - HES1_REF_MEAN) / HES1_REF_SD
-    g_chain = thetas[..., 5].mean(axis=0)
+    f_chain = thetas[..., 5].mean(axis=0)
     print(f"Hes1 predict wall: {wall:.2f} s ({num_steps}+{num_steps} "
           f"transitions, {HES1_CHAINS} chains, centered, max tree depth "
           f"{model.config.max_tree_depth}); {predict_phases(model, wall)}")
@@ -2157,8 +2489,8 @@ def hes1_path(model, device, logH_true, num_steps=HES1_STEPS):
           f"transition), {graphs.get('nuts_prologue', 0)} doublings")
     print(f"Hes1: theta pooled means {np.round(theta_mean, 4).tolist()} "
           f"(JAX recovery {HES1_REF_MEAN.tolist()}, in its sd "
-          f"{np.round(z, 2).tolist()}); per-chain mean g from "
-          f"{g_chain.min():.2f} to {g_chain.max():.2f}; ESS_min "
+          f"{np.round(z, 2).tolist()}); per-chain mean f from "
+          f"{f_chain.min():.2f} to {f_chain.max():.2f}; ESS_min "
           f"{summ['ess_min']:.1f}, rhat_max {summ['rhat_max']:.4f}, ESS/s "
           f"{summ['ess_per_sec_min']:.2f}")
     print(f"Hes1 launch counts: {counts}; CUDA graphs {graphs}")
@@ -2178,9 +2510,9 @@ def hes1_path(model, device, logH_true, num_steps=HES1_STEPS):
             and graphs.get("nuts_leaf", 0) >= transitions):
         raise AssertionError(f"Hes1: not every one of {transitions} "
                              f"transitions replayed its leaves: {graphs}")
-    if not np.all(g_chain > HES1_BASIN_G):
-        raise AssertionError(f"Hes1: chains {np.flatnonzero(g_chain <= 8)} "
-                             "left the truth basin (mean g <= 8)")
+    if not np.all(f_chain > HES1_BASIN_F):
+        raise AssertionError(f"Hes1: chains {np.flatnonzero(f_chain <= 8)} "
+                             "left the truth basin (mean f <= 8)")
     if not np.all(np.abs(z) <= 3.0):
         raise AssertionError(f"Hes1: theta means {theta_mean} are more than"
                              f" 3 posterior sd from the JAX recovery: {z}")
@@ -2250,8 +2582,8 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
     ``num_steps`` + ``num_steps`` transitions, no annealing, sigma pinned,
     diagonal mass, init_jitter 0.02, float32. Fails on a Laplace Hessian
     with an eigenvalue below -1e-12 of its largest (not SPD beyond
-    roundoff), a MAP outside the truth basin (g <= 8), non-finite
-    draws, a chain whose mean g is at most 8, or a pooled theta more than 3
+    roundoff), a MAP outside the truth basin (f <= 8), non-finite
+    draws, a chain whose mean f is at most 8, or a pooled theta more than 3
     posterior sd from the JAX package's Laplace-start run; prints the MAP's
     wall, L-BFGS iterations and whether it met its convergence criterion
     (not gated: the JAX package's does not on this fit), H's band coverage
@@ -2271,7 +2603,7 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
           f"{np.round(r['theta_map'], 4).tolist()}, theta_sd "
           f"{np.round(r['theta_sd'], 4).tolist()}, Hessian SPD "
           f"{r['hessian_spd']} (min/max eigenvalue "
-          f"{r['hessian_min_eig_rel']:.3e}); draws' g from "
+          f"{r['hessian_min_eig_rel']:.3e}); draws' f from "
           f"{r['theta_draws'][:, 5].min():.2f} to "
           f"{r['theta_draws'][:, 5].max():.2f}")
     # Not gated on ``converged``: on this fit the JAX package's own
@@ -2287,7 +2619,7 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
         raise AssertionError("Hes1 map_estimate: its Laplace Hessian is not "
                              "SPD beyond roundoff or its draws are not "
                              "finite")
-    if not r["theta_map"][5] > HES1_BASIN_G:
+    if not r["theta_map"][5] > HES1_BASIN_F:
         raise AssertionError(f"Hes1 map_estimate: theta_map "
                              f"{r['theta_map']} is outside the truth basin")
 
@@ -2307,7 +2639,7 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
     summ = summarize_chains(thetas, wall)
     theta_mean = thetas.reshape(-1, 7).mean(axis=0)
     z = (theta_mean - HES1_LAPLACE_MEAN) / HES1_LAPLACE_SD
-    g_chain = thetas[..., 5].mean(axis=0)
+    f_chain = thetas[..., 5].mean(axis=0)
     coverage = h_coverage(res, logH_true)
     print(f"Hes1 Laplace-start predict wall: {wall:.2f} s ({num_steps}+"
           f"{num_steps} transitions, {HES1_CHAINS} chains, centered); "
@@ -2317,8 +2649,8 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
     print(f"Hes1 Laplace starts: theta pooled means "
           f"{np.round(theta_mean, 4).tolist()} (the JAX package's "
           f"Laplace-start run {HES1_LAPLACE_MEAN.tolist()}, in its sd "
-          f"{np.round(z, 2).tolist()}); per-chain mean g from "
-          f"{g_chain.min():.2f} to {g_chain.max():.2f}; ESS_min "
+          f"{np.round(z, 2).tolist()}); per-chain mean f from "
+          f"{f_chain.min():.2f} to {f_chain.max():.2f}; ESS_min "
           f"{summ['ess_min']:.1f}, rhat_max {summ['rhat_max']:.4f}")
     print(f"Hes1: H's 95% band covers the true H at {coverage:.3f} of the "
           f"grid from Laplace starts, {heuristic_coverage:.3f} from the "
@@ -2331,10 +2663,10 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
                                                       "manifold_energy",
                                                       "manifold_bwd")]
                    + ["leapfrog_update", "nuts_leaf"], "Hes1 Laplace")
-    if not np.all(g_chain > HES1_BASIN_G):
+    if not np.all(f_chain > HES1_BASIN_F):
         raise AssertionError(f"Hes1 Laplace starts: chains "
-                             f"{np.flatnonzero(g_chain <= HES1_BASIN_G)} left "
-                             "the truth basin (mean g <= 8)")
+                             f"{np.flatnonzero(f_chain <= HES1_BASIN_F)} left "
+                             "the truth basin (mean f <= 8)")
     if not np.all(np.abs(z) <= 3.0):
         raise AssertionError(f"Hes1 Laplace starts: theta means {theta_mean} "
                              "are more than 3 posterior sd from the JAX "
@@ -2344,10 +2676,10 @@ def hes1_laplace(model, device, logH_true, heuristic_coverage,
 
 # The Hes1 PT recipe (scripts/hes1_pt.py): the ladder, 16 replicas a rung
 # (80 chains), centered, no annealing, sigma pinned, heuristic starts,
-# default NUTS, float32; 500 + 500 transitions (the JAX script's 3000 +
+# default NUTS, float32; the Hes1 path's depth (the JAX script's 3000 +
 # 8000 cut; N_I and the chains not)
 HES1_PT_LADDER = (1.0, 0.6, 0.36, 0.22, 0.13)
-HES1_PT_STEPS = 500
+HES1_PT_STEPS = HES1_STEPS
 
 
 def hes1_pt(model, device, logH_true, coverages, num_steps=HES1_PT_STEPS):
@@ -2358,7 +2690,7 @@ def hes1_pt(model, device, logH_true, coverages, num_steps=HES1_PT_STEPS):
     transition, or a returned chain axis other than 16. Prints, without
     gating (the decoupled-H mode is part of this posterior, and the ladder
     is expected to swap rarely at this dimension): the swap acceptance per
-    pair, the beta = 1 rung's draws by mode (g = theta[5] > 8), the chains
+    pair, the beta = 1 rung's draws by mode (f = theta[5] > 8), the chains
     that changed mode, theta in each mode, H's band coverage beside the
     heuristic and Laplace starts' (``coverages``), rhat, ESS, depth,
     leaves and wall. Returns the launch counts, the kernel results and the
@@ -2379,7 +2711,7 @@ def hes1_pt(model, device, logH_true, coverages, num_steps=HES1_PT_STEPS):
     kr = res["kernel_results"]
     thetas = res["thetas_samps"]
     acc = kr["pt_swap_accept"]
-    in_basin = thetas[..., 5] > HES1_BASIN_G               # (T, 16)
+    in_basin = thetas[..., 5] > HES1_BASIN_F               # (T, 16)
     hopped = np.flatnonzero(in_basin.any(axis=0) & ~in_basin.all(axis=0))
     by_mode = {name: np.round(thetas[sel].mean(axis=0), 4).tolist()
                for name, sel in (("truth basin", in_basin),
@@ -2392,7 +2724,7 @@ def hes1_pt(model, device, logH_true, coverages, num_steps=HES1_PT_STEPS):
           f"{list(HES1_PT_LADDER)}, centered); {predict_phases(model, wall)}")
     print(f"Hes1 PT: swap acceptance per adjacent pair "
           f"{np.round(acc, 4).tolist()}; beta = 1 rung: "
-          f"{in_basin.mean():.4f} of its draws in the truth basin (g > 8), "
+          f"{in_basin.mean():.4f} of its draws in the truth basin (f > 8), "
           f"chains that changed mode {hopped.tolist()}, theta by mode "
           f"{by_mode}; ESS_min {summ['ess_min']:.1f}, rhat_max "
           f"{summ['rhat_max']:.4f}; mean depth {depths.mean():.3f} (max "
@@ -2482,8 +2814,9 @@ def predict_phases(model, wall):
     """The last predict's phases on the host's clock, the device waited
     for at each end (``predict_timings``): building the target and its
     whitening (for banded storage the Gauss-Newton precision and its
-    Cholesky on the host), the sampler's loop, unwhitening the draws and
-    copying them to the host; the rest is the conversion of the results."""
+    Cholesky on the host), the sampler's loop, unwhitening the draws; the
+    rest is the draws' copy to the host and the conversion of the
+    results."""
     t = model.predict_timings
     rest = wall - sum(t.values())
     return ("phases (s): " + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
@@ -3654,6 +3987,14 @@ def main():
                  reparam="whitened", label="SEIR whitened NUTS")
     warmstart_check(model, device)
     print(f"SEIR whitened path done at {time.perf_counter() - t_start:.1f} s")
+    fmodel = lbfgs_fit(device, model)
+    start = forecast_start(fmodel)
+    timing.update(forecast_kernels(device))
+    counts_fc = forecast_path(fmodel, start)
+    resume_check(fmodel)
+    trace_check(fmodel, device)
+    print(f"SEIR L-BFGS and forecast block done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     # K1's given kernels at the unregistered field's shapes (16 chains,
     # N_I = 81) and at a ragged count and grid of several CTAs a chain
     timing.update(check_kernels(device, model="fhn", N=FHN_GRID,
@@ -3754,6 +4095,16 @@ def main():
         **timing["leapfrog_update_nuts"]))
     kernels.append(entry("nuts_leaf", "nuts_leaf", "nuts", "seir_nuts",
                          counts_nuts))
+    kernels += [entry(f"{k}_seir_forecast", k, "manifold", "seir_forecast",
+                      counts_fc)
+                for k in ("manifold_fwd", "manifold_energy", "manifold_bwd")]
+    kernels.append(dict(
+        name="leapfrog_update_nuts_seir_forecast", route="cuda",
+        source=SOURCES["leapfrog"], replaces=REPLACES["leapfrog_update_nuts"],
+        path="seir_forecast", launches=counts_fc["leapfrog_update"],
+        **timing["leapfrog_update_nuts_seir_forecast"]))
+    kernels.append(entry("nuts_leaf_seir_forecast", "nuts_leaf", "nuts",
+                         "seir_forecast", counts_fc))
     kernels.append(dict(
         name="leapfrog_update_nuts_hes1", route="cuda",
         source=SOURCES["leapfrog"], replaces=REPLACES["leapfrog_update_nuts"],

@@ -26,7 +26,7 @@ class MagiConfig:
     # --- hyperparameter MLE ---
     hparam_learning_rate: float = 0.01
     hparam_num_iters: int = 1000
-    # only "adam" is ported; "lbfgs" raises NotImplementedError
+    # "adam" (the reference's Adam x 1000) or "lbfgs" (ops/lbfgs.py)
     hparam_optimizer: str = "adam"
     # "obs" (raw observations at observation times) or "grid"
     hparam_fit_points: str = "obs"

@@ -1,11 +1,11 @@
 """GP hyperparameter fitting (counterpart of magi_v2_tpu/hparams.py):
 Matern (phi1, phi2) + noise sigma^2 MAP with Fourier-informed priors,
-optimized by Adam in softplus pre-space.
+optimized in softplus pre-space by Adam (the default) or L-BFGS.
 
 ``torch.optim.Adam(eps=1e-7)`` performs the same update as the JAX
 package's ``optax.adam(lr, eps=1e-7)``:
-p -= lr * m_hat / (sqrt(v_hat) + eps). Only the Adam path is ported; the
-L-BFGS option is on ROADMAP.md queue 1 item 11.
+p -= lr * m_hat / (sqrt(v_hat) + eps). ``optimizer="lbfgs"`` runs
+``ops/lbfgs.py:lbfgs_minimize``, which takes the JAX minimizer's decisions.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from magi_v2_tpu_torch.ops.kernels import (
     uniform_spacing,
 )
 from magi_v2_tpu_torch.init import adam_minimize
+from magi_v2_tpu_torch.ops.lbfgs import lbfgs_minimize
 from magi_v2_tpu_torch.posterior import softplus_inverse
 
 
@@ -119,20 +120,28 @@ def fit_kernel_hparams(
     *,
     device,
 ):
-    """Fit (phi1s, phi2s, sigma_sqs) for each column of X_filled by Adam,
-    in float64 on ``device``. Returns host NumPy arrays like the JAX
-    version."""
-    if optimizer != "adam":
-        raise NotImplementedError(
-            f"hparam optimizer {optimizer!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 11); use 'adam'"
+    """Fit (phi1s, phi2s, sigma_sqs) for each column of X_filled, in
+    float64 on ``device``: Adam at ``learning_rate`` for ``num_iters``
+    steps, or with ``optimizer="lbfgs"`` L-BFGS for at most
+    min(num_iters, 200) iterations to a gradient sup-norm of 1e-5 (the
+    objective's gradient is O(n) nats; ``learning_rate`` is then unused).
+    Returns host NumPy arrays like the JAX version."""
+    if optimizer not in ("adam", "lbfgs"):
+        raise ValueError(
+            f"optimizer must be 'adam' or 'lbfgs', got {optimizer!r}"
         )
     _I = np.asarray(I).reshape(-1)
     prior = fourier_prior(X_filled, t_range=float(_I[-1] - _I[0]))
     neg_map, params = make_hparam_objective(
         I, X_filled, prior, nu, jitter=cholesky_jitter, device=device
     )
-    params, losses = adam_minimize(neg_map, params, learning_rate, num_iters)
+    if optimizer == "lbfgs":
+        res = lbfgs_minimize(neg_map, params,
+                             num_iters=min(num_iters, 200), tol=1e-5)
+        params, losses = res.params, res.losses
+    else:
+        params, losses = adam_minimize(neg_map, params, learning_rate,
+                                       num_iters)
     out = lambda p: F.softplus(p).cpu().numpy()
     return {
         "phi1s": out(params["phi1_pre"]),

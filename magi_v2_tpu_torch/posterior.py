@@ -1,12 +1,15 @@
 """The tempered MAGI log-posterior in PyTorch (counterpart of
-magi_v2_tpu/posterior.py; ``log_posterior`` itself is not ported).
+magi_v2_tpu/posterior.py).
 
     log p ∝ beta_temp * [ -1/2 ( (1/beta)(t1 + t2) + t3 + t4 )
                           + logJac(sigma^2) + logJac(theta) ]
 
 ``log_posterior_given_t1`` is the plain reference of the fused sampler
 target: the hand-written kernels of ops/manifold.py compute the same value
-and its gradient, and the tests hold them against it. Quadratic forms use
+and its gradient, and the tests hold them against it. ``log_posterior``
+(with ``make_log_posterior`` and ``make_value_and_grad``) is the
+user-facing absolute log density in natural coordinates (X, sigma_pre,
+theta_pre): setup-side, plain PyTorch, meant for float64. Quadratic forms use
 the factored ||R x||^2 forms and the ``RefPoint`` relative energies, which
 keep float32 energies accurate (see the JAX module for the measurements).
 """
@@ -97,8 +100,9 @@ def make_posterior_data(
 class BandedPosteriorData(NamedTuple):
     """PosteriorData with the operators in block-banded storage
     (D, nb, nw, 128, 128) (ops/banded.py), for the O(N_I*b) large-grid
-    target (storage="banded"). The JAX type's C_blocks serves only the
-    centered log_posterior, which is not ported."""
+    target (storage="banded"). ``C_blocks``, the tiles of C^{-1} itself,
+    serves ``log_posterior``'s raw t1 = x'C^{-1}x (the JAX type holds it
+    first; here it is last, as the port builds the type by keyword)."""
 
     I: torch.Tensor
     m_blocks: torch.Tensor     # (D, nb, nw, T, T)
@@ -114,6 +118,7 @@ class BandedPosteriorData(NamedTuple):
     # S = K^{-1/2}: t1/t2 evaluate as ||band(R) x||^2, ||band(S) r||^2
     C_sqrt_blocks: torch.Tensor = None
     K_sqrt_blocks: torch.Tensor = None
+    C_blocks: torch.Tensor = None
 
 
 def to_banded_data(data: PosteriorData, bandwidth: int, C_inv_sqrts_f64=None,
@@ -151,6 +156,7 @@ def to_banded_data(data: PosteriorData, bandwidth: int, C_inv_sqrts_f64=None,
         sigma_sqs_LB=data.sigma_sqs_LB,
         C_sqrt_blocks=factor_blocks(C_inv_sqrts_f64),
         K_sqrt_blocks=factor_blocks(K_inv_sqrts_f64),
+        C_blocks=to_blocks(data.C_invs),
     )
 
 
@@ -162,6 +168,16 @@ def softplus_inverse(y):
     """log(exp(y) - 1), stable for small and large y."""
     y = torch.as_tensor(y)
     return y + torch.log(-torch.expm1(-y))
+
+
+def _banded_matvec(tiles, x):
+    """The plain block-banded product of symmetric-window tiles
+    (D, nb, nw, T, T) with x (..., D, N): PyTorch's own ops, differentiable
+    by autograd, on any device."""
+    from magi_v2_tpu_torch.ops.banded import block_banded_matvec_plain
+
+    hw = (tiles.shape[-3] - 1) // 2
+    return block_banded_matvec_plain(tiles, x, hw, hw)
 
 
 def log_posterior_given_t1(
@@ -176,9 +192,10 @@ def log_posterior_given_t1(
     delta=None,
 ):
     """Tempered log-posterior with the GP-prior quadratic ``t1`` supplied,
-    for dense ``PosteriorData`` or ``BandedPosteriorData`` (whose matvecs
-    go through ops/banded.py). Leading batch axes are allowed: X (..., N, D),
-    sigma_sqs_pre (..., D), thetas_pre (..., D_thetas), t1 (...).
+    for dense ``PosteriorData`` or ``BandedPosteriorData`` (through the
+    plain block-banded products of ops/banded.py). Leading batch axes are
+    allowed: X (..., N, D), sigma_sqs_pre (..., D), thetas_pre
+    (..., D_thetas), t1 (...).
 
     With ``ref``, t2 is evaluated relative to the reference point and the
     caller supplies a relative t1; ``delta`` (..., N, D) is x - x0 computed
@@ -192,16 +209,14 @@ def log_posterior_given_t1(
 
     f_vals = f_vec(data.I, X, thetas).transpose(-1, -2)       # (..., D, N)
     banded = isinstance(data, BandedPosteriorData)
-    if banded:
-        from magi_v2_tpu_torch.ops.banded import block_banded_matvec
     if ref is not None:
         delta = (X - ref.x0) if delta is None else delta
         delta = delta.transpose(-1, -2)
         if banded:
             if data.K_sqrt_blocks is None:
                 raise ValueError("relative t2 needs the banded sqrt factors")
-            dr = (f_vals - ref.f0) - block_banded_matvec(data.m_blocks, delta)
-            Ds = block_banded_matvec(data.K_sqrt_blocks, dr)
+            dr = (f_vals - ref.f0) - _banded_matvec(data.m_blocks, delta)
+            Ds = _banded_matvec(data.K_sqrt_blocks, dr)
         else:
             if data.K_inv_sqrts is None:
                 raise ValueError("relative t2 needs K_inv_sqrts")
@@ -211,12 +226,12 @@ def log_posterior_given_t1(
         t2 = torch.sum(Ds * (Ds + 2.0 * ref.s0), dim=(-2, -1))
     elif banded:
         X_cent = (X - data.mu_ds).transpose(-1, -2)
-        resid = f_vals - block_banded_matvec(data.m_blocks, X_cent)
+        resid = f_vals - _banded_matvec(data.m_blocks, X_cent)
         if data.K_sqrt_blocks is not None:
-            t2 = torch.sum(block_banded_matvec(data.K_sqrt_blocks, resid) ** 2,
+            t2 = torch.sum(_banded_matvec(data.K_sqrt_blocks, resid) ** 2,
                            dim=(-2, -1))
         else:
-            t2 = torch.sum(resid * block_banded_matvec(data.K_blocks, resid),
+            t2 = torch.sum(resid * _banded_matvec(data.K_blocks, resid),
                            dim=(-2, -1))
     else:
         X_cent = (X - data.mu_ds).transpose(-1, -2)
@@ -236,3 +251,61 @@ def log_posterior_given_t1(
     return beta_temp * (
         -0.5 * ((t1 + t2) / data.beta + t3 + t4) + log_jac_sigma + log_jac_theta
     )
+
+
+def log_posterior(data, f_vec: Callable, X, sigma_sqs_pre, thetas_pre,
+                  beta_temp):
+    """The tempered log-posterior (reference magi_v2.py:308-348) at X
+    (..., N_I, D), sigma_sqs_pre (..., D), thetas_pre (..., D_thetas):
+    t1 = sum_d ||x_d - mu_d||^2 in C_d^{-1}, through the factored
+    ||R x||^2 form where ``data`` holds the square roots (dense
+    ``C_inv_sqrts`` or banded ``C_sqrt_blocks``), else the raw x'C^{-1}x;
+    t2 to t4 as ``log_posterior_given_t1``. The banded products are the
+    plain ones of ops/banded.py. ``beta_temp`` is not differentiated."""
+    X_cent = (X - data.mu_ds).transpose(-1, -2)               # (..., D, N)
+    if isinstance(data, BandedPosteriorData):
+        if data.C_sqrt_blocks is not None:
+            t1 = torch.sum(_banded_matvec(data.C_sqrt_blocks, X_cent) ** 2,
+                           dim=(-2, -1))
+        elif data.C_blocks is not None:
+            t1 = torch.sum(X_cent * _banded_matvec(data.C_blocks, X_cent),
+                           dim=(-2, -1))
+        else:
+            raise ValueError("banded log_posterior needs C_sqrt_blocks or "
+                             "C_blocks (to_banded_data fills both)")
+    elif data.C_inv_sqrts is not None:
+        t1 = torch.sum(
+            torch.einsum("dnm,...dm->...dn", data.C_inv_sqrts, X_cent) ** 2,
+            dim=(-2, -1))
+    else:
+        t1 = torch.einsum("...dn,dnm,...dm->...", X_cent, data.C_invs, X_cent)
+    return log_posterior_given_t1(data, f_vec, X, sigma_sqs_pre, thetas_pre,
+                                  beta_temp, t1)
+
+
+def make_log_posterior(data, f_vec: Callable):
+    """lp(X, sigma_sqs_pre, thetas_pre, beta_temp) over the static data."""
+
+    def lp(X, sigma_sqs_pre, thetas_pre, beta_temp):
+        return log_posterior(data, f_vec, X, sigma_sqs_pre, thetas_pre,
+                             beta_temp)
+
+    return lp
+
+
+def make_value_and_grad(data, f_vec: Callable):
+    """(X, sigma_sqs_pre, thetas_pre, beta_temp) -> (lp, (dX, dsigma_pre,
+    dtheta_pre)), as ``jax.value_and_grad(lp, argnums=(0, 1, 2))``; the
+    arguments are tensors on the data's device. With leading batch axes
+    each element's gradient is its own lp's."""
+    lp = make_log_posterior(data, f_vec)
+
+    def value_and_grad(X, sigma_sqs_pre, thetas_pre, beta_temp):
+        args = [a.detach().requires_grad_(True)
+                for a in (X, sigma_sqs_pre, thetas_pre)]
+        with torch.enable_grad():
+            value = lp(*args, beta_temp)
+            grads = torch.autograd.grad(value.sum(), args)
+        return value.detach(), grads
+
+    return value_and_grad

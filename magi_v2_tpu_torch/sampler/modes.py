@@ -39,7 +39,7 @@ from magi_v2_tpu_torch.sampler.magi_state import (
     unwhiten_Z,
     whiten_X,
 )
-from magi_v2_tpu_torch.timing import untimed
+from magi_v2_tpu_torch.utils.profiling import untimed
 
 # grid size from which float32 sampling in dense storage warns (the JAX
 # package measured its step size collapsing at N_I ~ 1k)
@@ -237,7 +237,7 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     ``anchor`` an optional natural-coordinate (X (N_I, D), thetas) point
     for the banded/hybrid GN factor and zero point (predict's
     ``gn_anchor``), instead of (Xhat_init, thetas_init); ``timer`` times
-    the parts (``timing.PhaseTimer``)."""
+    the parts (``utils.profiling.PhaseTimer``)."""
     check_reparam_storage(reparam, storage)
     if anchor is not None and (reparam != "precond" or storage == "dense"):
         raise ValueError(

@@ -61,7 +61,7 @@ from magi_v2_tpu_torch.ops.banded import (
     block_banded_matvec_upper,
 )
 from magi_v2_tpu_torch.ops.manifold import ManifoldPlan
-from magi_v2_tpu_torch.timing import untimed
+from magi_v2_tpu_torch.utils.profiling import untimed
 
 
 def pointwise_ode_jacobian(f_vec, I, Xhat, thetas):

@@ -122,7 +122,8 @@ class BoundSwap:
             GRAPH_COUNTS["pt_swap"] += 1
         return self.q.clone()
 
-    def acceptance(self, dtype):
-        """(R - 1,) accepted over proposed swaps of each pair (0 where none
-        was proposed), divided once, in ``dtype``."""
-        return self.accs.to(dtype) / torch.clamp(self.prop, min=1).to(dtype)
+
+def swap_acceptance(prop, accs, dtype):
+    """(R - 1,) accepted over proposed swaps of each pair (0 where none was
+    proposed), divided once, in ``dtype``."""
+    return accs.to(dtype) / torch.clamp(prop, min=1).to(dtype)

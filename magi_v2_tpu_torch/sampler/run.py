@@ -16,13 +16,31 @@ Parallel tempering (``pt_betas``: sampler/pt.py) tempers the sampling
 phase per chain and swaps adjacent rungs every ``pt_swap_every``
 transitions; warmup is shared by all chains, as in the JAX package.
 
-Not ported here (see ROADMAP.md queue 1): checkpoint/resume and dispatch
-blocking.
+``dispatch_block_steps`` cuts warmup and sampling into blocks of
+transitions (a thinned draw costs ``thin`` of them), as the JAX package's
+dispatch blocks. Here a block is only a checkpoint boundary: its size
+changes no draw. With ``checkpoint_path`` each boundary writes the carry
+to ``state.npz`` (atomically: a temporary file, then ``os.replace``) and
+each sampling block its draws and per-draw statistics to
+``draws_NNNNNN.npz``; a second identical call resumes bit for bit from the
+last boundary, or loads a finished run from disk without a transition.
+The carry holds the chain states, the dual-averaging state, both Welford
+accumulators, the inverse mass (each tensor with its strides), the step
+size, the device generator's state, the host NumPy generator's (HMC's
+trajectory lengths) and, under PT, the swap counters; the bound
+transitions are rebuilt on resume. A fingerprint of the run refuses a
+checkpoint of another. ``profile_timings`` fills ``ChainStats.timings``
+with the JAX package's keys, each wall read after the device is waited
+for.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import math
+import os
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -34,8 +52,10 @@ from magi_v2_tpu_torch.sampler.pt import (
     BoundSwap,
     check_ladder,
     rung_temperatures,
+    swap_acceptance,
 )
 from magi_v2_tpu_torch.sampler.mass import (
+    TailDenseMass,
     identity_mass,
     mass_diag,
     mass_from_moments,
@@ -103,6 +123,15 @@ class SamplerConfig(NamedTuple):
     # even-odd exchanges (sampler/pt.py)
     pt_betas: tuple = ()
     pt_swap_every: int = 1
+    # transitions a block (0: one block), a checkpoint boundary; a thinned
+    # draw costs ``thin`` transitions of it
+    dispatch_block_steps: int = 0
+    # directory for mid-run checkpoint/resume ("" = off; see the module's
+    # docstring)
+    checkpoint_path: str = ""
+    # phase walls in ChainStats.timings, each after a device sync (the syncs
+    # cost the host's lead over the card: keep off in production)
+    profile_timings: bool = False
 
 
 class DAState(NamedTuple):
@@ -207,6 +236,129 @@ class ChainStats(NamedTuple):
     tail_inv_mass: torch.Tensor | None = None
     # (R-1,) swap acceptance of each adjacent rung pair (PT runs only)
     pt_swap_accept: torch.Tensor | None = None
+    # profile_timings only: eps_init_s, warmup_s, warmup_block_walls_s,
+    # block_walls_s, sample_total_s, sample_dispatch_s,
+    # sample_first_dispatch_s, sample_stage_s (the device-to-host copies of
+    # checkpointed blocks), staged_bytes, sample_drain_s
+    timings: dict | None = None
+
+
+def _blocks(total: int, block_steps: int, transitions_per_step: int = 1):
+    """[(start, size)] blocks of ``total`` steps, ``block_steps``
+    transitions each (a step runs ``transitions_per_step``); one block when
+    ``block_steps`` is 0 or covers the total."""
+    B = block_steps
+    if B > 0 and transitions_per_step > 1:
+        B = max(1, B // transitions_per_step)
+    if B <= 0 or B >= total:
+        return [(0, total)]
+    return [(s, min(B, total - s)) for s in range(0, total, B)]
+
+
+_CKPT_VERSION = "torch-v1"
+
+
+def _ckpt_fingerprint(config: SamplerConfig, C: int, dim: int, seed,
+                      q0) -> str:
+    """The identity of a run: every SamplerConfig field but the I/O knobs
+    (progress_every, checkpoint_path, profile_timings), the chain count and
+    state width, the seed and a digest of the initial states."""
+    ident = config._replace(progress_every=0, checkpoint_path="",
+                            profile_timings=False)
+    q0_digest = hashlib.blake2b(
+        np.ascontiguousarray(q0.detach().cpu().numpy()).tobytes(),
+        digest_size=8).hexdigest()
+    return (f"{_CKPT_VERSION}/{ident!r}/C{C}/dim{dim}/seed{int(seed)}/"
+            f"q0{q0_digest}")
+
+
+def _welford_items(name, w):
+    if w is None:
+        return {}
+    return {f"{name}_count": w.count, f"{name}_mean": w.mean,
+            f"{name}_m2": w.m2}
+
+
+def _mass_items(inv_mass):
+    if isinstance(inv_mass, TailDenseMass):
+        return {"mass_diag": inv_mass.diag, "mass_tail_inv": inv_mass.tail_inv,
+                "mass_tail_msqrt": inv_mass.tail_msqrt}
+    return {"mass_diag": inv_mass}
+
+
+def _ckpt_tensor(arrays, name, device):
+    """The carry's tensor ``name`` on ``device``, with the strides it was
+    saved with (a product's bits may depend on its operands' layout)."""
+    a = arrays[name]
+    t = torch.empty_strided(a.shape, tuple(arrays[f"_stride_{name}"]),
+                            dtype=torch.from_numpy(a).dtype, device=device)
+    return t.copy_(torch.from_numpy(a))
+
+
+def _ckpt_welford(arrays, name, device) -> Welford:
+    return Welford(float(arrays[f"{name}_count"]),
+                   _ckpt_tensor(arrays, f"{name}_mean", device),
+                   _ckpt_tensor(arrays, f"{name}_m2", device))
+
+
+def _ckpt_mass(arrays, device):
+    diag = _ckpt_tensor(arrays, "mass_diag", device)
+    if "mass_tail_inv" not in arrays:
+        return diag
+    return TailDenseMass(diag, _ckpt_tensor(arrays, "mass_tail_inv", device),
+                         _ckpt_tensor(arrays, "mass_tail_msqrt", device))
+
+
+def _ckpt_save_state(dirpath, phase, nxt, carry, fingerprint):
+    """Atomically persist a block boundary's carry (phase: warmup or
+    sample; ``nxt`` the next step of the phase). Tensors are saved with
+    their strides, the generator's state as its bytes."""
+    os.makedirs(dirpath, exist_ok=True)
+    arrays = {}
+    for name, v in carry.items():
+        if isinstance(v, torch.Tensor):
+            arrays[name] = v.detach().cpu().numpy()
+            arrays[f"_stride_{name}"] = np.asarray(v.stride(), np.int64)
+        else:
+            arrays[name] = np.asarray(v)
+    # np.savez appends ".npz" to a name without it: keep the suffix
+    tmp = os.path.join(dirpath, "state.tmp.npz")
+    np.savez(tmp, _phase=np.array(phase), _next=np.array(nxt),
+             _fingerprint=np.array(fingerprint), **arrays)
+    os.replace(tmp, os.path.join(dirpath, "state.npz"))
+
+
+def _ckpt_load_state(dirpath, fingerprint):
+    """(phase, next step, {name: array}) of the saved carry, or None."""
+    p = os.path.join(dirpath, "state.npz")
+    if not os.path.exists(p):
+        return None
+    with np.load(p) as z:
+        found = str(z["_fingerprint"])
+        if found != fingerprint:
+            raise ValueError(
+                f"sampler checkpoint at {dirpath!r} is from a different "
+                f"run (saved {found!r} != requested {fingerprint!r}); "
+                "delete the directory or point checkpoint_path elsewhere"
+            )
+        return str(z["_phase"]), int(z["_next"]), {k: z[k] for k in z.files}
+
+
+def _ckpt_save_draws(dirpath, start, s_blk, info_dict):
+    tmp = os.path.join(dirpath, f"draws_{start:06d}.tmp.npz")
+    np.savez(tmp, samples=np.asarray(s_blk),
+             **{f"info_{k}": np.asarray(v) for k, v in info_dict.items()})
+    os.replace(tmp, os.path.join(dirpath, f"draws_{start:06d}.npz"))
+
+
+def _ckpt_load_draws(dirpath, start):
+    p = os.path.join(dirpath, f"draws_{start:06d}.npz")
+    if not os.path.exists(p):
+        return None
+    with np.load(p) as z:
+        return z["samples"], {
+            k[len("info_"):]: z[k] for k in z.files if k.startswith("info_")
+        }
 
 
 def find_reasonable_step_size(logp_grad, q0_row, generator, inv_mass,
@@ -268,7 +420,8 @@ def run_chains(
     The momenta and uniforms come from a ``torch.Generator`` on the device
     seeded with ``seed``, a swap round's uniforms after its transition's;
     HMC's trajectory lengths from a NumPy generator on the host with the
-    same seed.
+    same seed. ``config.dispatch_block_steps``, ``checkpoint_path`` and
+    ``profile_timings``: see the module's docstring.
     """
     if config.algorithm not in ("nuts", "hmc"):
         raise ValueError(f"unknown algorithm {config.algorithm!r}; expected "
@@ -364,94 +517,242 @@ def run_chains(
             )
 
     k = config.dense_tail_size
-    inv_mass = identity_mass(dim, k, dtype, dev)
-    eps0 = find_reasonable_step_size(
-        lambda q: tempered_logp_grad(q, temps[0]), q0[:1], gen, inv_mass,
-        config.initial_step_size,
-    )
-    da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
-    wf = welford_init(dim, dtype, dev)
-    wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
-    if nuts:
-        bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg,
-                          per_chain=pt)
-    elif hasattr(tempered_logp_grad, "bind"):
-        bound = BoundTransition(tempered_logp_grad, q0, inv_mass,
-                                per_chain=pt)
+    ck = config.checkpoint_path
+    fingerprint = _ckpt_fingerprint(config, C, dim, seed, q0) if ck else ""
+    resume = _ckpt_load_state(ck, fingerprint) if ck else None
+    timings = {} if config.profile_timings else None
 
-    qs = q0
-    for step in range(B):
-        eps = torch.exp(da.log_step if da.count < num_adapt
-                        else da.log_step_avg)
-        qs, info = transition(qs, eps, inv_mass, step)
-        progress("warmup", step, eps, info)
-        if step < num_adapt:
-            da = da_update(da, torch.mean(info.accept_prob),
-                           config.target_accept)
-        if not adapt_mass:
-            continue
-        in_window = win_lo <= step < win_hi or (
-            two_windows and win2_lo <= step < win2_hi)
-        if in_window:
-            wf = welford_add_batch(wf, qs)
-            if wf_tail is not None:
-                wf_tail = welford_cov_add_batch(wf_tail, qs[:, -k:])
-        if step == win_hi or (two_windows and step == win2_hi):
-            var = welford_variance(wf)
-            if wf_tail is None:
-                inv_mass = var
-            else:
-                cov = welford_covariance(wf_tail, config.dense_shrinkage)
-                if two_windows and config.mass_window1_diag and step == win_hi:
-                    cov = torch.diag(torch.diag(cov))
-                inv_mass = mass_from_moments(var, cov)
-            # restart dual averaging around the current step size and the
-            # accumulators for a second window
-            da = da_init(torch.exp(da.log_step))
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def restore(arrays, name):
+        return _ckpt_tensor(arrays, name, dev)
+
+    def rng_state():
+        return {"gen": gen.get_state(),
+                "host_rng": json.dumps(host_rng.bit_generator.state)}
+
+    def set_rng_state(arrays):
+        gen.set_state(torch.from_numpy(arrays["gen"]))
+        host_rng.bit_generator.state = json.loads(str(arrays["host_rng"]))
+
+    def make_bound(inv_mass):
+        nonlocal bound
+        if nuts:
+            bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg,
+                              per_chain=pt)
+        elif hasattr(tempered_logp_grad, "bind"):
+            bound = BoundTransition(tempered_logp_grad, q0, inv_mass,
+                                    per_chain=pt)
+
+    T = config.num_results
+    sample_done = 0
+    swap = swap_counts = None
+
+    def sample_carry():
+        counts = (swap.prop, swap.accs) if swap is not None else swap_counts
+        return {"qs": qs, "eps": eps_final, **_mass_items(inv_mass),
+                **rng_state(),
+                **({"swap_prop": counts[0], "swap_accs": counts[1]}
+                   if pt else {})}
+
+    if resume is not None and resume[0] == "sample":
+        # warmup finished in an earlier call: its carry
+        _, sample_done, arrays = resume
+        qs = restore(arrays, "qs")
+        eps_final = restore(arrays, "eps")
+        inv_mass = _ckpt_mass(arrays, dev)
+        set_rng_state(arrays)
+        if pt:
+            swap_counts = (restore(arrays, "swap_prop"),
+                           restore(arrays, "swap_accs"))
+    else:
+        if resume is not None:
+            # a warmup block boundary
+            _, warmup_done, arrays = resume
+            qs = restore(arrays, "qs")
+            da = DAState(*(restore(arrays, f"da_{f}")
+                           for f in DAState._fields[:4]),
+                         float(arrays["da_count"]))
+            wf = _ckpt_welford(arrays, "wf", dev)
+            wf_tail = _ckpt_welford(arrays, "wf_tail", dev) if k > 0 else None
+            inv_mass = _ckpt_mass(arrays, dev)
+            set_rng_state(arrays)
+        else:
+            t0 = time.perf_counter()
+            inv_mass = identity_mass(dim, k, dtype, dev)
+            eps0 = find_reasonable_step_size(
+                lambda q: tempered_logp_grad(q, temps[0]), q0[:1], gen,
+                inv_mass, config.initial_step_size,
+            )
+            if timings is not None:
+                sync()
+                timings["eps_init_s"] = time.perf_counter() - t0
+            da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
             wf = welford_init(dim, dtype, dev)
             wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
+            qs, warmup_done = q0, 0
+        t_warm0 = time.perf_counter()
+        for start, size in _blocks(B, config.dispatch_block_steps):
+            if start + size <= warmup_done:
+                continue
+            if bound is None:
+                make_bound(inv_mass)
+            t_blk = time.perf_counter()
+            for step in range(start, start + size):
+                eps = torch.exp(da.log_step if da.count < num_adapt
+                                else da.log_step_avg)
+                qs, info = transition(qs, eps, inv_mass, step)
+                progress("warmup", step, eps, info)
+                if step < num_adapt:
+                    da = da_update(da, torch.mean(info.accept_prob),
+                                   config.target_accept)
+                if not adapt_mass:
+                    continue
+                in_window = win_lo <= step < win_hi or (
+                    two_windows and win2_lo <= step < win2_hi)
+                if in_window:
+                    wf = welford_add_batch(wf, qs)
+                    if wf_tail is not None:
+                        wf_tail = welford_cov_add_batch(wf_tail, qs[:, -k:])
+                if step == win_hi or (two_windows and step == win2_hi):
+                    var = welford_variance(wf)
+                    if wf_tail is None:
+                        inv_mass = var
+                    else:
+                        cov = welford_covariance(wf_tail,
+                                                 config.dense_shrinkage)
+                        if (two_windows and config.mass_window1_diag
+                                and step == win_hi):
+                            cov = torch.diag(torch.diag(cov))
+                        inv_mass = mass_from_moments(var, cov)
+                    # restart dual averaging around the current step size
+                    # and the accumulators for a second window
+                    da = da_init(torch.exp(da.log_step))
+                    wf = welford_init(dim, dtype, dev)
+                    wf_tail = (welford_cov_init(k, dtype, dev) if k > 0
+                               else None)
+            if timings is not None:
+                sync()
+                timings.setdefault("warmup_block_walls_s", []).append(
+                    time.perf_counter() - t_blk)
+            if ck:
+                _ckpt_save_state(ck, "warmup", start + size, {
+                    "qs": qs, **{f"da_{f}": getattr(da, f)
+                                 for f in DAState._fields},
+                    **_welford_items("wf", wf),
+                    **_welford_items("wf_tail", wf_tail),
+                    **_mass_items(inv_mass), **rng_state()}, fingerprint)
+        eps_final = torch.exp(da.log_step_avg)
+        if timings is not None:
+            sync()
+            timings["warmup_s"] = time.perf_counter() - t_warm0
+        if pt:
+            swap_counts = tuple(torch.zeros((len(betas) - 1,),
+                                            dtype=torch.int32, device=dev)
+                                for _ in range(2))
+        if ck:
+            _ckpt_save_state(ck, "sample", 0, sample_carry(), fingerprint)
 
-    eps_final = torch.exp(da.log_step_avg)
-    beta_s = eps_s = swap = None
+    beta_s = eps_s = None
     if pt:
         # sampling at each chain's rung: its beta and a step scaled by
         # beta^(-1/2), both in the sampling dtype
         beta_s, scale = rung_temperatures(betas, C, dtype, dev)
         eps_s = eps_final * scale
-        swap = BoundSwap(tempered_logp_grad, q0, betas)
-    T = config.num_results
+
     samples = torch.empty((T, C, dim), dtype=dtype, device=dev)
     accept = torch.empty((T, C), dtype=dtype, device=dev)
     diverging = torch.empty((T, C), dtype=torch.bool, device=dev)
     num_leapfrogs = (torch.empty((T, C), dtype=torch.int32, device=dev)
                      if nuts else np.empty((T, C), np.int32))
     depths = torch.empty((T, C), dtype=torch.int32, device=dev)
-    for i in range(T):
-        for t in range(config.thin):
-            step = B + i * config.thin + t
-            if not pt:
-                qs, info = transition(qs, eps_final, inv_mass, step)
-            else:
-                qs, info = transition(qs, eps_s, inv_mass, step, beta_s)
-                rel = step - B
-                if (rel + 1) % config.pt_swap_every == 0:
-                    u = torch.rand((len(betas) - 1, C // len(betas)),
-                                   generator=gen, dtype=dtype, device=dev)
-                    qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
-            progress("sample", step, eps_final, info)
-        samples[i] = qs
-        accept[i] = info.accept_prob
-        diverging[i] = info.diverging
-        num_leapfrogs[i] = info.num_leapfrogs
-        if nuts:
-            depths[i] = info.depth
+    info_arrays = {"accept": accept, "diverging": diverging,
+                   "num_leapfrogs": num_leapfrogs,
+                   **({"depths": depths} if nuts else {})}
+    staged = {"dispatch_s": 0.0, "first_dispatch_s": None, "stage_s": 0.0,
+              "staged_bytes": 0}
+    t_sample0 = time.perf_counter()
+    for start, size in _blocks(T, config.dispatch_block_steps, config.thin):
+        end = start + size
+        if ck and end <= sample_done:
+            loaded = _ckpt_load_draws(ck, start)
+            if loaded is None:
+                raise FileNotFoundError(
+                    f"checkpoint state at {ck!r} marks block {start} "
+                    f"complete but draws_{start:06d}.npz is missing; delete "
+                    "state.npz to restart")
+            samples[start:end] = torch.from_numpy(loaded[0]).to(dev)
+            for name, arr in info_arrays.items():
+                arr[start:end] = (torch.from_numpy(loaded[1][name]).to(dev)
+                                  if isinstance(arr, torch.Tensor)
+                                  else loaded[1][name])
+            continue
+        if bound is None:
+            make_bound(inv_mass)
+        if pt and swap is None:
+            swap = BoundSwap(tempered_logp_grad, q0, betas)
+            swap.prop.copy_(swap_counts[0])
+            swap.accs.copy_(swap_counts[1])
+        t0 = time.perf_counter()
+        for i in range(start, end):
+            for t in range(config.thin):
+                step = B + i * config.thin + t
+                if not pt:
+                    qs, info = transition(qs, eps_final, inv_mass, step)
+                else:
+                    qs, info = transition(qs, eps_s, inv_mass, step, beta_s)
+                    rel = step - B
+                    if (rel + 1) % config.pt_swap_every == 0:
+                        u = torch.rand((len(betas) - 1, C // len(betas)),
+                                       generator=gen, dtype=dtype, device=dev)
+                        qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
+                progress("sample", step, eps_final, info)
+            samples[i] = qs
+            accept[i] = info.accept_prob
+            diverging[i] = info.diverging
+            num_leapfrogs[i] = info.num_leapfrogs
+            if nuts:
+                depths[i] = info.depth
+        if timings is not None:
+            sync()
+            timings.setdefault("block_walls_s", []).append(
+                time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        staged["dispatch_s"] += wall
+        if staged["first_dispatch_s"] is None:
+            staged["first_dispatch_s"] = wall
+        if ck:
+            # the block's draws to the host, then to disk with the carry
+            t0 = time.perf_counter()
+            s_blk = samples[start:end].cpu().numpy()
+            i_blk = {name: (arr[start:end].cpu().numpy()
+                            if isinstance(arr, torch.Tensor)
+                            else arr[start:end].copy())
+                     for name, arr in info_arrays.items()}
+            staged["stage_s"] += time.perf_counter() - t0
+            staged["staged_bytes"] += s_blk.nbytes + sum(
+                v.nbytes for v in i_blk.values())
+            _ckpt_save_draws(ck, start, s_blk, i_blk)
+            _ckpt_save_state(ck, "sample", end, sample_carry(), fingerprint)
 
+    if timings is not None:
+        t0 = time.perf_counter()
+        sync()
+        timings["sample_drain_s"] = time.perf_counter() - t0
+        timings["sample_total_s"] = time.perf_counter() - t_sample0
+        timings["sample_dispatch_s"] = staged["dispatch_s"]
+        timings["sample_first_dispatch_s"] = staged["first_dispatch_s"]
+        timings["sample_stage_s"] = staged["stage_s"]
+        timings["staged_bytes"] = staged["staged_bytes"]
     if nuts:
         num_leapfrogs, depths = num_leapfrogs.cpu().numpy(), \
             depths.cpu().numpy()
     else:
         depths = np.ceil(np.log2(np.maximum(num_leapfrogs, 1))).astype(
             np.int32)
+    counts = (swap.prop, swap.accs) if swap is not None else swap_counts
     stats = ChainStats(
         step_size=eps_final,
         inv_mass=mass_diag(inv_mass),
@@ -460,6 +761,7 @@ def run_chains(
         divergences=diverging,
         depths=depths,
         tail_inv_mass=mass_tail_inv(inv_mass),
-        pt_swap_accept=swap.acceptance(dtype) if pt else None,
+        pt_swap_accept=swap_acceptance(*counts, dtype) if pt else None,
+        timings=timings,
     )
     return samples, stats

@@ -1,11 +1,14 @@
-"""Fitted state carried across packages (counterpart of
-magi_v2_tpu/utils/checkpoint.py:load_fit).
+"""Fitted state and results on disk, in the JAX package's format
+(counterpart of magi_v2_tpu/utils/checkpoint.py).
 
-``load_fit`` reads the NPZ that ``magi_v2_tpu.utils.checkpoint.save_fit``
-writes; ``from_fit_arrays`` builds a fitted port model from a dict of the
-same arrays (e.g. taken from a fitted JAX model). Either way the port
-samples the same posterior, from the same operators, as the model the
-arrays came from. Saving fits and results is ROADMAP.md queue 1 item 14.
+``save_fit`` writes, and ``load_fit`` reads, the NPZ of FIT_FIELDS plus
+``_meta`` (D_thetas, bandsize or -1) that both packages read and write;
+``from_fit_arrays`` builds a fitted port model from a dict of the same
+arrays (e.g. taken from a fitted JAX model). Either way the port samples
+the same posterior, from the same operators, as the model the arrays came
+from. ``save_results``/``load_results`` keep a predict() results dict with
+its nested dicts flattened to "kernel_results.<key>" (and
+"timings.<key>"), None entries omitted.
 """
 
 from __future__ import annotations
@@ -64,6 +67,18 @@ def from_fit_arrays(arrays: dict, f_vec, D_thetas: int, bandsize=None,
     return model
 
 
+def save_fit(model, path: str) -> None:
+    """Persist everything initial_fit computed, plus the constructor's
+    data, compressed."""
+    arrays = {f: np.asarray(getattr(model, f)) for f in FIT_FIELDS
+              if getattr(model, f, None) is not None}
+    arrays["_meta"] = np.array(
+        [model.D_thetas, -1 if model.BANDSIZE is None else model.BANDSIZE],
+        dtype=np.int64,
+    )
+    np.savez_compressed(path, **arrays)
+
+
 def load_fit(path: str, f_vec, config=None):
     """Reconstruct a fitted MAGI_v2 from a ``save_fit`` NPZ (written by
     either package's format); ready to predict."""
@@ -74,3 +89,36 @@ def load_fit(path: str, f_vec, config=None):
         data, f_vec, D_thetas, bandsize=None if bandsize < 0 else bandsize,
         config=config,
     )
+
+
+# the nested dicts of a results dict, flattened to "<name>.<key>"
+_NESTED = ("kernel_results", "timings")
+
+
+def save_results(results: dict, path: str) -> None:
+    """Persist a predict() results dict, compressed; nested dicts are
+    flattened and None entries (e.g. tail_inv_mass without a dense tail)
+    omitted."""
+    arrays = {}
+    for k, v in results.items():
+        if k in _NESTED and isinstance(v, dict):
+            for kk, vv in v.items():
+                if vv is not None:
+                    arrays[f"{k}.{kk}"] = np.asarray(vv)
+        elif v is not None:
+            arrays[k] = np.asarray(v)
+    np.savez_compressed(path, **arrays)
+
+
+def load_results(path: str) -> dict:
+    """A results dict from ``save_results``'s NPZ (either package's), with
+    ``kernel_results`` (and ``timings`` where saved) nested again."""
+    out = {"kernel_results": {}}
+    with np.load(path, allow_pickle=False) as z:
+        for k in z.files:
+            name, _, key = k.partition(".")
+            if name in _NESTED and key:
+                out.setdefault(name, {})[key] = z[k]
+            else:
+                out[k] = z[k]
+    return out

@@ -357,3 +357,52 @@ def test_manifold_plan_checks_once_and_reuses_its_buffers():
                         dict(bufs, dr=new(D, C, N + 1)))
     with pytest.raises(ValueError, match="does not hold"):
         mf.ManifoldPlan(x["f"], x["I"], consts, 2.0, N * D, bufs)
+
+
+# the four branches of the natural-coordinate log_posterior: dense and
+# block-banded storage, each in the factored ||R x||^2 form and the raw
+# x'C^{-1}x form
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("factored", [True, False])
+def test_log_posterior_and_value_and_grad_match_jax(jax_fit, banded,
+                                                    factored):
+    """``log_posterior``/``make_log_posterior``/``make_value_and_grad``
+    against the JAX functions (float64): values within 1e-12 and each
+    gradient within 1e-10 of its largest entry."""
+    jm = jax_fit
+    _, _, tm, data = _targets(jm, jnp.float64, torch.float64)
+    R64, S64 = data.C_inv_sqrts.numpy(), data.K_inv_sqrts.numpy()
+    sq = dict(C_inv_sqrts=R64, K_inv_sqrts=S64) if factored and not banded \
+        else {}
+    jdata = jpo.make_posterior_data(
+        jm.I, jm.C_d_invs, jm.m_ds, jm.K_d_invs, jm.mu_ds, jm.beta,
+        jm.obs_index, data.sigma_sqs_LB.numpy(), jnp.float64, **sq)
+    tdata = tpo.make_posterior_data(
+        jm.I, jm.C_d_invs, jm.m_ds, jm.K_d_invs, jm.mu_ds, jm.beta,
+        jm.obs_index, data.sigma_sqs_LB, torch.float64, device="cpu",
+        **{k: torch.as_tensor(v) for k, v in sq.items()})
+    if banded:
+        fac = dict(C_inv_sqrts_f64=R64, K_inv_sqrts_f64=S64) if factored \
+            else {}
+        jdata = jpo.to_banded_data(jdata, jm.BANDSIZE, **fac)
+        tdata = tpo.to_banded_data(tdata, jm.BANDSIZE, **fac)
+        assert (tdata.C_sqrt_blocks is not None) == factored
+        assert tdata.C_blocks is not None
+    rng = np.random.default_rng(11)
+    jvg = jpo.make_value_and_grad(jdata, jseir)
+    tvg = tpo.make_value_and_grad(tdata, tseir)
+    tlp = tpo.make_log_posterior(tdata, tseir)
+    for _ in range(3):
+        X = jm.Xhat_init + 0.01 * rng.standard_normal(jm.Xhat_init.shape)
+        sp = -10.0 + 0.1 * rng.standard_normal(3)
+        tp = np.log(np.expm1(jm.thetas_init)) + 0.1 * rng.standard_normal(3)
+        vj, gj = jvg(jnp.asarray(X), jnp.asarray(sp), jnp.asarray(tp),
+                     BETA_TEMP)
+        args = [torch.as_tensor(a) for a in (X, sp, tp)]
+        vt, gt = tvg(*args, BETA_TEMP)
+        np.testing.assert_allclose(float(vt), float(vj), rtol=1e-12)
+        np.testing.assert_allclose(float(tlp(*args, BETA_TEMP)), float(vj),
+                                   rtol=1e-12)
+        for a, b in zip(gt, gj):
+            b = np.asarray(b)
+            assert np.abs(a.numpy() - b).max() <= 1e-10 * np.abs(b).max()

@@ -186,8 +186,10 @@ def test_unported_branches_raise(seir_data):
     with pytest.raises(ValueError, match="thetas_init"):
         T.MAGI_v2(3, ts, X, None, tseir, TINY_T).initial_fit(
             1, thetas_init=np.ones(3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        thp.fit_kernel_hparams(ts, X[:, :1], optimizer="lbfgs",
+    # L-BFGS is ported; an unknown optimizer is refused as in JAX
+    with pytest.raises(ValueError, match="optimizer must be 'adam' or "
+                       "'lbfgs'"):
+        thp.fit_kernel_hparams(ts, X[:, :1], optimizer="sgd",
                                device="cpu")
     # NUTS's tree depth defaults to the JAX package's and reaches the
     # sampler's config

@@ -111,7 +111,8 @@ def test_unwhiten_draws_matches_jax(fitted):
     ({"init_states": {"theta": np.ones(3)}}, ValueError),
     # parallel tempering is ported; the refusal left is the JAX package's
     ({"pt_betas": (1.0, 0.5), "anneal_mode": "reference"}, ValueError),
-    ({"checkpoint_path": "ckpt"}, NotImplementedError),
+    # checkpoints are ported; the tunneled runtime's staging knob is not
+    ({"stage_above_bytes": 1 << 20}, ValueError),
     ({"matmul_precision": "high"}, ValueError),
 ])
 def test_unported_predict_options_raise(fitted, override, exc):
