@@ -51,6 +51,10 @@ only when all of them passed):
    alignment), both parities, one lp NaN, uniforms held away from ties:
    q, lp and the counters equal. Float32 and float64, timed with CUDA
    events.
+3b. The pairwise Matern build on a non-uniform float64 grid of 1100
+   points: the direct build against the row tiles ``ops/kernels.py``
+   takes from 1024 points up, within 1e-12 of each output's scale; peak
+   memory and time of each printed.
 4. SEIR path: SEIR data (t_max 4, 81 observations), ``initial_fit`` and a
    256-chain, L = 192, dense-metric HMC ``predict`` (1000 + 1000 steps) in
    float32 on the card. Fails on non-finite draws, a kernel that never
@@ -72,7 +76,7 @@ only when all of them passed):
    forms, bit for bit.
 6b. SEIR NUTS path: the same fit, ``predict`` with the default algorithm
    (NUTS, trees up to depth 10) and otherwise the bench recipe, 256
-   chains, 500 + 500 transitions, float32. Fails on non-finite draws, a
+   chains, 200 + 200 transitions, float32. Fails on non-finite draws, a
    kernel that never launched (K1, K2, the leaf kernel), a transition
    that replayed no leaf, leaves that launched K2, rhat_max > 1.05 or a theta mean more than 15% from truth; prints
    the mean depth, leaves a chain and leaves replayed a transition (the
@@ -83,7 +87,7 @@ only when all of them passed):
    K2 or other op) and one transition (device time by kernel, busy
    share), and the share of leaf replays in which no chain was active.
    Then the whitened SEIR path on the same fit: ``predict(reparam=
-   "whitened")`` with the NUTS recipe, 256 chains, 300 + 300 transitions,
+   "whitened")`` with the NUTS recipe, 256 chains, 100 + 100 transitions,
    float32, dense storage; fails on non-finite draws, K1's fwd launched in
    its GN form or never in its whitened form (counted as
    "manifold_fwd_whitened_seir"), a transition that replayed no leaf, or a
@@ -101,8 +105,8 @@ only when all of them passed):
    ``extend_for_forecast(5.0, results=...)`` (N_I = 161 -> 201, a dense
    metric 609 wide), K1 at N_I = 201 and K2's NUTS form and the leaf
    kernel at dense 609 against their plain versions (each launch twice
-   bit for bit), and the recipe on the extended grid, 256 chains, 500 +
-   500: fails on non-finite draws, K1 or the leaf kernel not launched,
+   bit for bit), and the recipe on the extended grid, 256 chains, 200 +
+   200: fails on non-finite draws, K1 or the leaf kernel not launched,
    rhat_max > 1.05 or a theta mean more than 15% from truth; prints the
    forecast's posterior-mean RMSE and 95% band coverage of the true
    trajectory on (4, 5]. Then checkpoint/resume on the extended model (64
@@ -122,11 +126,20 @@ only when all of them passed):
    8 replicas, HMC, 600 + 3000): the beta = 1 rung's right-mode share must
    lie in (0.6, 0.95), every pair's swap acceptance exceed 0.05, and K6
    launch once a sampling transition.
+6f. Chain sharding on the SEIR HMC recipe over two shards of the card
+   (``parallel.chain_mesh([cuda:0, cuda:0])``, predict's sampler call
+   routed through ``parallel.run_chains_sharded``): float64, 64 chains,
+   20 + 20, must equal the one-shard run to 1e-10 of the draws' scale;
+   float32, 256 chains, 100 + 100, must launch K1 and K2 and keep theta
+   within 15% of truth, its wall printed beside the one-shard run's. Then
+   ``hmc_jitter=False`` on the recipe (64 chains, 10 + 10): every
+   transition must take exactly 192 leapfrogs.
 6c. Hes1 path (partially observed: H never observed): the data of
    examples/hes1.py, ``initial_fit(2)`` at the config's full iteration
    counts (N_I = 129, gradient matching for H and theta), beta = 1, and a
-   64-chain centered NUTS predict (300 + 300 transitions since the SEIR
-   forecast block joined the smoke, 500 + 500 and 1000 + 1000 before; no
+   64-chain centered NUTS predict (150 + 150 transitions since the
+   refresh and sharding phases joined the smoke, 300 + 300, 500 + 500 and
+   1000 + 1000 before; no
    annealing,
    sigma pinned at 0.15^2, diagonal mass) in float32. Fails on non-finite
    draws, K1 not launched through the Hes1-log functor or launched
@@ -144,7 +157,7 @@ only when all of them passed):
    solve_triangular, K4 at one chain), float64; then
    ``map_estimate(sigma_sqs_fixed=0.15^2, laplace_draws=64)`` and a
    64-chain centered NUTS predict from its joint draws
-   (``init_states``), 300 + 300 transitions, the Hes1 recipe otherwise
+   (``init_states``), 150 + 150 transitions, the Hes1 recipe otherwise
    (scripts/hes1_long.py --init laplace, cut from 16 x 3000 + 8000).
    Fails on a Laplace Hessian not SPD beyond float64 roundoff (an
    eigenvalue below -1e-12 of its largest), a MAP outside the truth basin,
@@ -157,7 +170,7 @@ only when all of them passed):
 6e. Hes1 with parallel tempering, on the same fit (scripts/hes1_pt.py's
    recipe): ``predict(pt_betas=(1, 0.6, 0.36, 0.22, 0.13))``, 16
    replicas a rung (80 chains), centered, no annealing, sigma pinned,
-   heuristic starts, NUTS, 300 + 300 (cut from 3000 + 8000), float32.
+   heuristic starts, NUTS, 150 + 150 (cut from 3000 + 8000), float32.
    Fails on non-finite draws, K1 not launched with a temperature per chain
    through the Hes1-log functor, any launch of K1's given kernels, K6 not
    launched, the swap graph not replayed once a sampling transition, or a
@@ -170,8 +183,9 @@ only when all of them passed):
    a transition with its swap round and of a swap round alone.
 7. Lorenz fit: the dense-grid configuration (257 observations, t_max 2,
    discretization 2: N_I = 1025, bandsize 100), ``initial_fit`` in float32,
-   with theta started from the same data's discretization-1 fit through
-   ``initial_fit(2, thetas_init=...)`` (see ``lorenz_fit``).
+   with theta started from the same data's discretization-1 fit (its
+   hyperparameters by L-BFGS) through ``initial_fit(2, thetas_init=...)``
+   (see ``lorenz_fit``).
 8. Lorenz kernels vs plain: K1 with the Lorenz model; K3 (block-banded
    matvec and adjoint, single and paired: [R; m] delta and [R' | -m'] gcat
    are one launch each) on the fit's band-truncated R, m, S and K4 (the
@@ -190,7 +204,7 @@ only when all of them passed):
    pair the faster of two such calls and one on the stacked operators;
    torch.linalg.solve_triangular on the densified factor for K4).
 9. Hybrid path: ``predict(storage="hybrid")``, 256 chains, L <= 64,
-   500 + 500 steps, reference annealing at a 0.3 floor, sigma pinned at
+   300 + 300 steps, reference annealing at a 0.3 floor, sigma pinned at
    0.25, diagonal mass. Fails on non-finite draws, a kernel that never
    launched, a transition that replayed no captured leapfrog, a step size
    below 1e-2, mean acceptance below 0.5, or a theta
@@ -213,6 +227,19 @@ only when all of them passed):
    K3's four entries never launched, K3 not once per evaluation, or K4
    launched (step and theta printed only: centered coordinates at N_I =
    1025 are ~1e8-stiff); then 20 transitions by graph and by eager.
+16. The mid-warmup refresh on the Lorenz banded path:
+   ``predict(storage="banded", precond_refresh_steps=100)``, 64 chains,
+   the banded recipe, 100 + 100 after stage A, for the "remap" and
+   "laplace" restarts. Fails on non-finite draws, no warning, or K1, K2,
+   K3's four entries or K4 not launched after the rebuild; then the
+   rebuilt float64 target at the new anchor card vs CPU (8 states, 1e-10).
+   Step, acceptance, divergences, rhat and the walls of stage A, the
+   rebuild and stage B are printed, not gated (the JAX package measured
+   the refresh harmful at this scale).
+17. Host staging on the Lorenz hybrid recipe (64 chains, 100 + 200,
+   blocks of 50): ``stage_above_bytes=0`` against the default must give
+   the same results bit for bit; peak device memory through the sampler
+   and the predict printed for both.
 
 The last lines are the card's name and power limit, a JSON object with
 each kernel's launch count (from the path named beside it; K2's NUTS form
@@ -228,6 +255,7 @@ time (null where no one PyTorch call computes the same function), and
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -256,7 +284,11 @@ COMPOSED_TOL = 1e-9
 TRUE_THETAS = np.array([6.0, 0.6, 1.8])
 NUM_CHAINS, NUM_LEAPFROGS, NUM_STEPS = 256, 192, 1000
 LORENZ_THETAS = np.array([10.0, 28.0, 8.0 / 3.0])
-LORENZ_CHAINS, LORENZ_LEAPFROGS, LORENZ_STEPS = 256, 64, 500
+# the hybrid run's 500 + 500 cut to 300 + 300 when the refresh, staging
+# and sharding phases joined the smoke, to keep its wall inside its limit;
+# K4's unwhitening check keeps the 500 draws it was sized for
+LORENZ_CHAINS, LORENZ_LEAPFROGS, LORENZ_STEPS = 256, 64, 300
+UNWHITEN_DRAWS = 500
 BANDED_CHAINS, BANDED_STEPS = 64, 200
 # a chain count that fills one of K4's chain groups in part
 RAGGED_CHAINS = 257
@@ -494,10 +526,23 @@ def part_errors(pairs, N, D):
     return out
 
 
+# a timing's loop stops at about this many ms of device time (at least 10
+# calls): the plain versions take milliseconds a call, and 200 of each
+# set much of the smoke's wall
+TIME_BUDGET_MS = 50.0
+
+
 def _time_ms(fn, reps=200):
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(1, min(reps, max(10, int(TIME_BUDGET_MS
+                                        / max(start.elapsed_time(end),
+                                              1e-3)))))
     start.record()
     for _ in range(reps):
         fn()
@@ -1575,9 +1620,10 @@ def main_path(device, num_steps=NUM_STEPS):
     return model, counts
 
 
-# 500 + 500 since the Hes1 path joined the smoke (1000 + 1000 before), to
-# keep the smoke's wall inside its limit
-NUTS_STEPS = 500
+# 200 + 200 since the refresh, staging and sharding phases joined the smoke
+# (500 + 500 from the Hes1 path on, 1000 + 1000 before), to keep the
+# smoke's wall inside its limit
+NUTS_STEPS = 200
 NUTS_RECIPE = dict(mass_matrix="dense", anneal_mode="reference",
                    dense_shrinkage=0.2, mass_window=(0.25, 0.45),
                    mass_window2=(0.50, 0.72), mass_window1_diag=True)
@@ -1667,8 +1713,10 @@ def nuts_path(model, device, num_steps=NUTS_STEPS):
 
 
 # the whitened SEIR path: predict's default NUTS in the GP prior's
-# whitened coordinates, otherwise the SEIR NUTS path's recipe
-WHITENED_STEPS = 300
+# whitened coordinates, otherwise the SEIR NUTS path's recipe; 100 + 100
+# since the refresh, staging and sharding phases joined the smoke (300 +
+# 300 before), to keep its wall inside its limit
+WHITENED_STEPS = 100
 
 
 def whitened_path(model, device, num_steps=WHITENED_STEPS):
@@ -1772,8 +1820,9 @@ def warmstart_check(model, device, iters=200):
 FORECAST_T_MAX = 5.0
 FORECAST_GRID = 201
 # the starting predict cut from 300 + 300 to keep the smoke's wall inside
-# its limit (it only starts the forecast)
-FORECAST_START_STEPS, FORECAST_STEPS = 150, 500
+# its limit (it only starts the forecast), the forecast's from 500 + 500
+# when the refresh, staging and sharding phases joined the smoke
+FORECAST_START_STEPS, FORECAST_STEPS = 150, 200
 # K2's NUTS form and the leaf kernel at the forecast's dense metric
 FORECAST_CASES = (("dense609", 609, 609),)
 # an L-BFGS fit may end at most this far above Adam-1000's objective (the
@@ -2075,6 +2124,8 @@ def trace_check(model, device, steps=5):
 
 # the sigma_pre and theta_pre of the SEIR states near the fit
 SEIR_TAIL = (-10.5, -10.5, -10.5, 1.8, -0.5, 0.6)
+# and of the Lorenz states
+LORENZ_TAIL = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
 
 
 def _nuts_setup(model, device, kr, num_chains=NUM_CHAINS, seed=2,
@@ -2357,11 +2408,12 @@ def unregistered_field(device, steps=100, chains=FHN_CHAINS):
 # state of 397); beta = 1, sigma pinned at 0.15^2, centered coordinates,
 # no annealing, NUTS with a diagonal metric.
 HES1_X0 = np.array([1.439, 2.037, 17.904])
-# 300 + 300 transitions since the SEIR L-BFGS and forecast block joined
-# the smoke (500 + 500 from the Laplace-start phase on, 1000 + 1000
-# before), to keep the smoke's wall inside its limit; the Laplace-start
-# and PT runs take the same depth, so their H coverages compare
-HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 300, 129
+# 150 + 150 transitions since the refresh, staging and sharding phases
+# joined the smoke (300 + 300 from the SEIR L-BFGS and forecast block on,
+# 500 + 500 from the Laplace-start phase on, 1000 + 1000 before), to keep
+# the smoke's wall inside its limit; the Laplace-start and PT runs take
+# the same depth, so their H coverages compare
+HES1_CHAINS, HES1_STEPS, HES1_GRID = 64, 150, 129
 HES1_SIGMA = 0.15 ** 2
 # the JAX package's converged recovery (results/hes1_long2.json: 16 chains
 # x 3000 + 8000 NUTS transitions, centered, float64 on a CPU): theta's
@@ -2831,23 +2883,18 @@ def check_launched(counts, kernels, path):
 
 
 def check_composed(model, device, storage="dense", tail=SEIR_TAIL,
-                   reparam="precond", betas=None):
+                   reparam="precond", betas=None, rebuild_at=None,
+                   tol=COMPOSED_TOL):
     """The float64 target of ``reparam`` and ``storage`` on the card
     against the same target, moved to the CPU (plain versions), at 8
     states near the fit (``tail`` the sigma_pre and theta_pre of the
     states), at the temperature 0.37 or, with ``betas`` (8,), one per
-    state."""
-    from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
-
-    arrays = {f: getattr(model, f) for f in FIT_FIELDS}
-    m64 = from_fit_arrays(
-        arrays, model.f_vec, model.D_thetas, bandsize=model.BANDSIZE,
-        config=model.config.replace(dtype=torch.float64),
-        exact_operators=(model._exact_operators() if storage == "hybrid"
-                         else None),
-    )
-    m64.beta = model.beta
+    state; with ``rebuild_at`` (X, theta), the banded mode rebuilt at that
+    anchor (``SamplingMode.rebuild``), as the refresh rebuilds it."""
+    m64 = as_float64(model, hybrid=storage == "hybrid")
     mode, _, _ = m64._build_sampling_setup(reparam, storage, torch.float64)
+    if rebuild_at is not None:
+        mode = mode.rebuild(*rebuild_at)
     target = mode.logp_grad
     cpu_target = target.to("cpu")
     rng = np.random.default_rng(1)
@@ -2861,9 +2908,10 @@ def check_composed(model, device, storage="dense", tail=SEIR_TAIL,
     e_g = _relerr(g_c, g_d.cpu())[1]
     print(f"composed float64 {reparam} {storage} target"
           + ("" if betas is None else ", a temperature per chain")
+          + ("" if rebuild_at is None else ", rebuilt at the refresh's anchor")
           + ", card vs CPU: lp rel "
-          f"{e_lp:.3e}, grad rel {e_g:.3e} (tol {COMPOSED_TOL:.0e})")
-    if not (e_lp <= COMPOSED_TOL and e_g <= COMPOSED_TOL):
+          f"{e_lp:.3e}, grad rel {e_g:.3e} (tol {tol:.0e})")
+    if not (e_lp <= tol and e_g <= tol):
         raise AssertionError(f"composed {storage} target disagrees between "
                              "card and CPU")
 
@@ -3377,7 +3425,10 @@ def lorenz_fit(device, n_obs=257):
     theta that initial_fit fits through K^{-1} depends on the LAPACK that
     computed it: the JAX package on a CPU and the port on the card and on
     a CPU all put rho near 1e-4, and the banded run anchored there collapsed
-    its step size to 1.2e-7. At N_I = 513 the fit is well posed."""
+    its step size to 1.2e-7. At N_I = 513 the fit is well posed. That fit
+    only starts theta, so its hyperparameters are fitted by L-BFGS
+    (``hparam_optimizer="lbfgs"``, far quicker than Adam-1000, which keeps
+    the smoke's wall inside its limit); N_I = 1025's by Adam as before."""
     from magi_v2_tpu_torch import MAGI_v2, MagiConfig
     from magi_v2_tpu_torch.models import lorenz_f_vec
     from magi_v2_tpu_torch.utils.data import simulate_ode
@@ -3390,7 +3441,9 @@ def lorenz_fit(device, n_obs=257):
     thetas_init = None
     for disc in (1, 2):
         model = MAGI_v2(D_thetas=3, ts_obs=ts, X_obs=X_obs, bandsize=100,
-                        f_vec=lorenz_f_vec, config=cfg)
+                        f_vec=lorenz_f_vec,
+                        config=(cfg.replace(hparam_optimizer="lbfgs")
+                                if disc == 1 else cfg))
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -3429,7 +3482,7 @@ def check_banded_kernels(model, device):
         library_at=(BANDED_CHAINS, LORENZ_CHAINS, RAGGED_CHAINS))
     solve_repeatability(mode.factor, model.mag_I, model.D, RAGGED_CHAINS,
                         device)
-    check_unwhiten(mode.factor, model.mag_I, model.D, LORENZ_STEPS,
+    check_unwhiten(mode.factor, model.mag_I, model.D, UNWHITEN_DRAWS,
                    LORENZ_CHAINS, device)
     return results
 
@@ -3926,6 +3979,360 @@ def centered_banded_path(model, device, num_steps=CENTERED_BANDED_STEPS):
     return kr
 
 
+# --- chain sharding, hmc_jitter, the mid-warmup refresh,
+# host staging and the row-blocked pairwise build ---------------------------
+
+# sharded SEIR: float64 at 64 chains, 20 + 20, against the one-shard run;
+# float32 at 256 chains, 100 + 100, theta gated, walls printed
+SHARD_CHECK_CHAINS, SHARD_CHECK_STEPS = 64, 20
+SHARD_CHAINS, SHARD_STEPS = 256, 100
+SHARD_TOL = 1e-10
+# hmc_jitter=False on the SEIR recipe
+NO_JITTER_CHAINS, NO_JITTER_STEPS = 64, 10
+# the refresh on the Lorenz banded path: stage A, then 100 + 100
+REFRESH_STEPS = 100
+REBUILT_TOL = 1e-10
+# host staging on the Lorenz hybrid path, blocks of 50 transitions
+STAGING_STEPS, STAGING_BLOCK = 200, 50
+# the row-blocked pairwise build on a non-uniform float64 grid
+ROWBLOCK_POINTS, ROWBLOCK_TOL = 1100, 1e-12
+SEIR_RECIPE = dict(init_jitter=0.01, algorithm="hmc",
+                   hmc_num_leapfrogs=NUM_LEAPFROGS, mass_matrix="dense",
+                   anneal_mode="reference", dense_shrinkage=0.2,
+                   mass_window=(0.25, 0.45), mass_window2=(0.50, 0.72),
+                   mass_window1_diag=True)
+
+
+@contextlib.contextmanager
+def sampler_hook(mesh=None, before=None, after=None, **changes):
+    """predict's sampler call (``api.run_chains``) run over ``mesh`` with
+    ``parallel.run_chains_sharded``, and/or with the SamplerConfig fields
+    ``changes`` that predict has no argument for (``hmc_jitter``);
+    ``before()`` and ``after()``, where given, are called when the sampler
+    starts and returns. The package is not changed: the hook is undone on
+    exit."""
+    import magi_v2_tpu_torch.api as api
+    from magi_v2_tpu_torch.parallel import run_chains_sharded
+
+    real = api.run_chains
+
+    def hooked(logp_grad, q0, seed, config):
+        config = config._replace(**changes)
+        if before is not None:
+            before()
+        out = (real(logp_grad, q0, seed, config) if mesh is None
+               else run_chains_sharded(logp_grad, q0, seed, config,
+                                       mesh=mesh))
+        if after is not None:
+            after()
+        return out
+
+    api.run_chains = hooked
+    try:
+        yield
+    finally:
+        api.run_chains = real
+
+
+def as_float64(model, hybrid=False):
+    """A float64 copy of a fitted model on its device (the fit's arrays)."""
+    from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
+
+    arrays = {f: getattr(model, f) for f in FIT_FIELDS}
+    m64 = from_fit_arrays(
+        arrays, model.f_vec, model.D_thetas, bandsize=model.BANDSIZE,
+        config=model.config.replace(dtype=torch.float64),
+        exact_operators=model._exact_operators() if hybrid else None,
+    )
+    m64.beta = model.beta
+    return m64
+
+
+def sharded_seir(model, device):
+    """Chain sharding on the SEIR HMC recipe over two shards of the card
+    (``chain_mesh([cuda:0, cuda:0])``: each shard its own target copy,
+    workspaces and CUDA graphs, the noise and the pooled statistics on the
+    gathered chains). Float64, 64 chains: the 20 + 20 predict's draws
+    against the one-shard run's (printed: cuBLAS rounds a product of 32
+    rows otherwise than one of 64, and the run's adaptation and
+    trajectories grow that), then one transition from that run's last
+    states (no warmup, identity mass, the same noise) by both, which must
+    agree to SHARD_TOL of their scale. Float32, 256 chains, 100 + 100: K1
+    and K2 launched, finite draws, theta within 15% of truth; both walls
+    printed. Returns the float32 sharded run's launch counts."""
+    from magi_v2_tpu_torch.ops import manifold as mf
+    from magi_v2_tpu_torch.parallel import chain_mesh, run_chains_sharded
+    from magi_v2_tpu_torch.sampler.run import SamplerConfig, run_chains
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    mesh = chain_mesh([device, device])
+    m64 = as_float64(model)
+    kw = dict(num_results=SHARD_CHECK_STEPS,
+              num_burnin_steps=SHARD_CHECK_STEPS,
+              num_chains=SHARD_CHECK_CHAINS, seed=3, **SEIR_RECIPE)
+    ref = m64.predict(**kw)
+    with sampler_hook(mesh=mesh):
+        sh = m64.predict(**kw)
+    a, b = ref["sample_results"], sh["sample_results"]
+    run_err = float(np.abs(a - b).max() / np.abs(a).max())
+    mode = m64._build_sampling_setup("precond", "dense", torch.float64)[0]
+    q = torch.as_tensor(a[-1], device=device)
+    cfg = SamplerConfig(num_results=1, num_burnin_steps=0,
+                        use_annealing=False, algorithm="hmc",
+                        hmc_num_leapfrogs=NUM_LEAPFROGS,
+                        dense_tail_size=q.shape[1])
+    one, st = run_chains(mode.logp_grad, q, 7, cfg)
+    two, _ = run_chains_sharded(mode.logp_grad, q, 7, cfg, mesh=mesh)
+    step_err = float((one - two).abs().max() / one.abs().max())
+    print(f"sharded SEIR float64 ({SHARD_CHECK_CHAINS} chains, 2 shards of "
+          f"one card) vs one shard: the {SHARD_CHECK_STEPS}+"
+          f"{SHARD_CHECK_STEPS} predict's draws max relative difference "
+          f"{run_err:.3e} (bit for bit: {bool(np.all(a == b))}); one "
+          f"transition from its last states ({int(st.num_leapfrogs[0, 0])} "
+          f"leapfrogs, acceptance {float(st.accept_probs.mean()):.3f}) "
+          f"{step_err:.3e} (bit for bit: {bool(torch.equal(one, two))}; tol "
+          f"{SHARD_TOL:.0e})")
+    if not step_err <= SHARD_TOL:
+        raise AssertionError("a sharded float64 SEIR transition differs from "
+                             f"the one-shard transition by {step_err:.3e}")
+
+    kw = dict(num_results=SHARD_STEPS, num_burnin_steps=SHARD_STEPS,
+              num_chains=SHARD_CHAINS, seed=0, **SEIR_RECIPE)
+    walls = {}
+    for label in ("one shard", "two shards"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with sampler_hook(mesh=None if label == "one shard" else mesh):
+            res = model.predict(**kw)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        counts = launch_counts()
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, walls["two shards"])
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    rel = np.abs(theta_mean - TRUE_THETAS) / TRUE_THETAS
+    print(f"sharded SEIR float32 ({SHARD_CHAINS} chains, {SHARD_STEPS}+"
+          f"{SHARD_STEPS}, L<={NUM_LEAPFROGS}): predict wall "
+          f"{walls['two shards']:.2f} s over 2 shards, "
+          f"{walls['one shard']:.2f} s over one; {predict_phases(model, walls['two shards'])}; "
+          f"step {float(kr['step_size']):.5f}, acceptance "
+          f"{kr['accept_probs'].mean():.4f}, theta "
+          f"{np.round(theta_mean, 4).tolist()} (relative "
+          f"{np.round(rel, 4).tolist()}), rhat_max {summ['rhat_max']:.4f}; "
+          f"launch counts {counts}")
+    if not (np.all(np.isfinite(res["X_samps"])) and np.all(np.isfinite(thetas))):
+        raise AssertionError("sharded SEIR: non-finite draws")
+    check_launched(counts, mf.KERNELS + ("leapfrog_update",), "sharded SEIR")
+    if not np.all(rel <= 0.15):
+        raise AssertionError(f"sharded SEIR: theta means {theta_mean} off "
+                             f"truth by {rel}")
+    return counts
+
+
+def no_jitter_check(model):
+    """``hmc_jitter=False`` (a SamplerConfig field, which predict passes
+    at its default: set through the sampler hook) on the SEIR recipe: every
+    transition takes exactly hmc_num_leapfrogs."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with sampler_hook(hmc_jitter=False):
+        res = model.predict(num_results=NO_JITTER_STEPS,
+                            num_burnin_steps=NO_JITTER_STEPS,
+                            num_chains=NO_JITTER_CHAINS, seed=1,
+                            **SEIR_RECIPE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    L = res["kernel_results"]["num_leapfrogs"]
+    graphs = graph_counts()
+    print(f"SEIR hmc_jitter=False ({NO_JITTER_CHAINS} chains, "
+          f"{NO_JITTER_STEPS}+{NO_JITTER_STEPS}): {wall:.2f} s, leapfrogs a "
+          f"transition {sorted(set(np.asarray(L).ravel().tolist()))}, graph "
+          f"replays {graphs}")
+    if not (np.all(L == NUM_LEAPFROGS) and np.all(np.isfinite(
+            res["thetas_samps"]))):
+        raise AssertionError("hmc_jitter=False: a transition took another "
+                             f"length than {NUM_LEAPFROGS}, or non-finite "
+                             "draws")
+
+
+def refresh_path(model, device, restart):
+    """``predict(storage="banded", precond_refresh_steps=100,
+    precond_refresh_restart=restart)`` on the Lorenz fit, 64 chains, the
+    banded run's recipe otherwise (sigma pinned at 0.25, reference
+    annealing, diagonal mass, HMC L <= 64), 100 + 100 after the 100 steps
+    of stage A. Fails on non-finite draws, or K1, K2, K3 or K4 not launched
+    after the rebuild (stage B's own target); then the rebuilt float64
+    target at the new anchor on the card against the same target on the
+    CPU. Step, acceptance, divergences, rhat and the walls are printed, not
+    gated: the JAX package measured the refresh harmful at this scale."""
+    import magi_v2_tpu_torch.sampler.modes as modes_mod
+    from magi_v2_tpu_torch.utils.diagnostics import summarize_chains
+
+    anchors, after = [], {}
+    build_parts, reanchor = modes_mod._build_banded_gn_parts, \
+        modes_mod.reanchor
+
+    def recording_build(*args, **kw):
+        anchors.append((args[5], args[6]))
+        return build_parts(*args, **kw)
+
+    def marking_reanchor(*args, **kw):
+        out = reanchor(*args, **kw)
+        torch.cuda.synchronize()
+        after.update(launch_counts())
+        return out
+
+    modes_mod._build_banded_gn_parts = recording_build
+    modes_mod.reanchor = marking_reanchor
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = model.predict(
+                num_results=REFRESH_STEPS, num_burnin_steps=REFRESH_STEPS,
+                num_chains=BANDED_CHAINS, seed=0, init_jitter=0.05,
+                algorithm="hmc", hmc_num_leapfrogs=LORENZ_LEAPFROGS,
+                storage="banded", anneal_mode="reference",
+                sigma_sqs_fixed=0.25, mass_matrix="diag",
+                precond_refresh_steps=REFRESH_STEPS,
+                precond_refresh_restart=restart)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        modes_mod._build_banded_gn_parts = build_parts
+        modes_mod.reanchor = reanchor
+    counts = launch_counts()
+    stage_b = {k: counts[k] - after.get(k, 0) for k in counts}
+    kr = res["kernel_results"]
+    thetas = res["thetas_samps"]
+    summ = summarize_chains(thetas, wall)
+    theta_mean = thetas.reshape(-1, 3).mean(axis=0)
+    t = model.predict_timings
+    warned = any("HARMFUL" in str(w.message) for w in caught)
+    print(f"Lorenz banded refresh ({restart}): predict {wall:.2f} s (stage A "
+          f"{t['refresh_stage_a']:.2f} s, rebuild and restart "
+          f"{t['refresh_rebuild']:.2f} s, stage B {t['sampling']:.2f} s; "
+          f"{predict_phases(model, wall)}); step "
+          f"{float(kr['step_size']):.3e}, acceptance "
+          f"{kr['accept_probs'].mean():.4f}, divergences "
+          f"{kr['divergences'].mean():.4f}, rhat_max {summ['rhat_max']:.3f}, "
+          f"theta {np.round(theta_mean, 4).tolist()}; new anchor's theta "
+          f"{np.round(anchors[-1][1], 4).tolist()}; warned: {warned}")
+    print(f"Lorenz banded refresh ({restart}): launches after the rebuild "
+          f"{ {k: v for k, v in stage_b.items() if v} }")
+    if not (np.all(np.isfinite(res["X_samps"])) and np.all(np.isfinite(thetas))):
+        raise AssertionError(f"refresh ({restart}): non-finite draws")
+    check_launched(stage_b, ("manifold_fwd", "manifold_energy",
+                             "manifold_bwd", "leapfrog_update",
+                             "banded_matvec", "banded_matvec_adjoint",
+                             "banded_matvec_pair",
+                             "banded_matvec_adjoint_pair", "banded_solve",
+                             "banded_solve_adjoint"),
+                   f"Lorenz banded refresh ({restart}) stage B")
+    if not warned:
+        raise AssertionError("the refresh did not warn")
+    check_composed(model, device, "banded", tail=LORENZ_TAIL,
+                   rebuild_at=anchors[-1], tol=REBUILT_TOL)
+    return stage_b
+
+
+def staging_check(model, device):
+    """Host staging on the Lorenz hybrid recipe (64 chains, 100 + 200,
+    blocks of 50 transitions): ``stage_above_bytes=0`` against the default
+    (draws on the card): the results equal bit for bit; the peak device
+    memory above the sampler's start, through the sampler and through the
+    sampler and the unwhitening, printed for both, with the staged bytes
+    and the host's time in the copies."""
+    kw = dict(num_results=STAGING_STEPS, num_burnin_steps=STAGING_STEPS // 2,
+              num_chains=BANDED_CHAINS, seed=0, init_jitter=0.05,
+              algorithm="hmc", hmc_num_leapfrogs=LORENZ_LEAPFROGS,
+              storage="hybrid", anneal_mode="reference",
+              sigma_sqs_fixed=0.25, mass_matrix="diag",
+              dispatch_block_steps=STAGING_BLOCK, profile_timings=True)
+    out = {}
+    for label, extra in (("on the card", {}),
+                         ("staged", {"stage_above_bytes": 0})):
+        # the peaks above what is allocated when each phase starts, with
+        # an earlier run's garbage collected
+        gc.collect()
+        torch.cuda.synchronize()
+        peak = {"base": torch.cuda.memory_allocated(device)}
+        torch.cuda.reset_peak_memory_stats(device)
+
+        def sampler_starts():
+            peak["sampler_base"] = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+
+        def sampler_ends():
+            torch.cuda.synchronize()
+            peak["sampler"] = (torch.cuda.max_memory_allocated(device)
+                               - peak["sampler_base"])
+
+        t0 = time.perf_counter()
+        with sampler_hook(before=sampler_starts, after=sampler_ends):
+            res = model.predict(**kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak["after"] = (torch.cuda.max_memory_allocated(device)
+                         - peak["sampler_base"])
+        t = res["timings"]
+        print(f"Lorenz hybrid staging, draws {label}: predict {wall:.2f} s; "
+              f"peak device memory above its start: "
+              f"{peak['sampler'] / 2**20:.1f} MiB through the sampler, "
+              f"{peak['after'] / 2**20:.1f} MiB through the sampler and the "
+              f"unwhitening; staged {t['staged_bytes']} bytes, host time in "
+              f"the copies {t['sample_stage_s']:.4f} s, unwhiten "
+              f"{t['unwhiten_s']:.2f} s")
+        out[label] = res
+    a, b = out["on the card"], out["staged"]
+    keys = ("X_samps", "thetas_samps", "sigma_sqs_samps", "sample_results")
+    same = all(np.array_equal(a[k], b[k]) for k in keys) and all(
+        np.array_equal(a["kernel_results"][k], b["kernel_results"][k])
+        for k in ("accept_probs", "divergences", "num_leapfrogs"))
+    if not (same and b["timings"]["staged_bytes"] > 0):
+        raise AssertionError("staged draws differ from the draws kept on "
+                             "the card")
+
+
+def rowblocked_check(device):
+    """The pairwise Matern build on a non-uniform float64 grid of 1100
+    points on the card: the direct (N, N) build against the row-blocked one
+    (tiles of 512 rows) that ``matern_derivative_matrices`` takes from
+    1024 points up; each output within ROWBLOCK_TOL of its scale; peak
+    device memory and time of each printed."""
+    from magi_v2_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(4)
+    s = torch.tensor(np.sort(rng.uniform(0.0, 20.0, ROWBLOCK_POINTS)),
+                     dtype=torch.float64, device=device)
+    builds = {"direct": lambda: K._matern_parts(*K._pairwise(s), 1.3, 0.7,
+                                                2.01),
+              "row-blocked": lambda: K.matern_derivative_matrices(
+                  s, 1.3, 0.7, 2.01)}
+    outs, line = {}, []
+    for name, fn in builds.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        line.append(f"{name} {peak / 2**20:.1f} MiB, {ms:.1f} ms")
+    errs = [float((a - b).abs().max() / a.abs().max())
+            for a, b in zip(outs["direct"], outs["row-blocked"])]
+    print(f"pairwise Matern build, {ROWBLOCK_POINTS} non-uniform points, "
+          f"float64, peak memory above the inputs: " + "; ".join(line)
+          + f"; row-blocked vs direct relative errors "
+          f"{[f'{e:.2e}' for e in errs]} (tol {ROWBLOCK_TOL:.0e})")
+    if not max(errs) <= ROWBLOCK_TOL:
+        raise AssertionError("the row-blocked Matern build disagrees with "
+                             "the direct one")
+
+
 def main():
     t_start = time.perf_counter()
     smi = check_device()
@@ -3966,6 +4373,7 @@ def main():
         if model != "fhn" and C != 37:
             timing.update(recorded)
     timing.update(check_pt_swap(device))
+    rowblocked_check(device)
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     model, counts_seir = main_path(device)
     print(f"SEIR HMC path done at {time.perf_counter() - t_start:.1f} s")
@@ -3987,6 +4395,10 @@ def main():
                  reparam="whitened", label="SEIR whitened NUTS")
     warmstart_check(model, device)
     print(f"SEIR whitened path done at {time.perf_counter() - t_start:.1f} s")
+    sharded_seir(model, device)
+    no_jitter_check(model)
+    print(f"SEIR sharding and hmc_jitter done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     fmodel = lbfgs_fit(device, model)
     start = forecast_start(fmodel)
     timing.update(forecast_kernels(device))
@@ -4029,30 +4441,34 @@ def main():
     counts_b = lorenz_path(lmodel, device, "banded", BANDED_CHAINS,
                            BANDED_STEPS, gate_theta=False)
     print(f"Lorenz paths done at {time.perf_counter() - t_start:.1f} s")
-    lorenz_tail = (-1.5, -1.5, -1.5, 10.0, 28.0, 2.6)
     for storage in ("hybrid", "banded"):
-        check_composed(lmodel, device, storage, tail=lorenz_tail)
+        check_composed(lmodel, device, storage, tail=LORENZ_TAIL)
     per_launch = profile_leapfrog(
-        lmodel, device, "hybrid", tail=lorenz_tail, step_size=0.05,
+        lmodel, device, "hybrid", tail=LORENZ_TAIL, step_size=0.05,
         beta_temp=0.3, dense_mass=False, num_leapfrogs=64, reps=3)
     report_solve(timing, per_launch)
     profile_leapfrog(
-        lmodel, device, "banded", tail=lorenz_tail, step_size=0.03,
+        lmodel, device, "banded", tail=LORENZ_TAIL, step_size=0.03,
         beta_temp=0.3, dense_mass=False, num_chains=BANDED_CHAINS,
         num_leapfrogs=64, reps=3)
     for storage, chains, eps in (("hybrid", LORENZ_CHAINS, 0.05),
                                  ("banded", BANDED_CHAINS, 0.03)):
         graph_vs_eager(lmodel, device, storage, chains, LORENZ_LEAPFROGS,
-                       lorenz_tail, step_size=eps, beta_temp=0.3,
+                       LORENZ_TAIL, step_size=eps, beta_temp=0.3,
                        dense_mass=False, sigma_fixed=0.25)
-    check_composed(lmodel, device, "banded", tail=lorenz_tail,
+    check_composed(lmodel, device, "banded", tail=LORENZ_TAIL,
                    reparam="centered")
     kr_cb = centered_banded_path(lmodel, device)
     graph_vs_eager(lmodel, device, "banded", BANDED_CHAINS, LORENZ_LEAPFROGS,
-                   lorenz_tail, step_size=float(kr_cb["step_size"]),
+                   LORENZ_TAIL, step_size=float(kr_cb["step_size"]),
                    beta_temp=0.3, dense_mass=False, sigma_fixed=0.25,
                    reparam="centered")
     print(f"Lorenz centered banded done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    for restart in ("remap", "laplace"):
+        refresh_path(lmodel, device, restart)
+    staging_check(lmodel, device)
+    print(f"Lorenz refresh and staging done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, kernel, source, path, counts):

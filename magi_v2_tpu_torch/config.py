@@ -3,7 +3,10 @@
 Same tunables and defaults as the JAX package's ``MagiConfig``, plus the
 device the whole pipeline runs on. The JAX package's ``setup_on_cpu``
 (scoped x64 on the host CPU backend) has no counterpart: setup runs in
-float64 on ``device`` itself, sampling in ``dtype``.
+float64 on ``device`` itself, sampling in ``dtype``. The sampler's own
+knobs, among them the JAX package's ``hmc_jitter`` and
+``stage_above_bytes``, are ``SamplerConfig``'s (sampler/run.py), as
+there.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ the closed forms).
 Per component d: C = Kappa, 'C = dKappa/ds, C'' = d2Kappa/dsdt,
 m = 'C C^{-1}, K = C'' + 'C C^{-1} 'C. Uniform grids take the Toeplitz path
 (one Bessel row per component, then gathers); other grids the pairwise
-build. Differentiable in (phi1, phi2) through ``KvLadder``. Every function
-broadcasts over a leading component axis when phi1/phi2 are (D,) tensors.
+build, in row tiles from ``ROW_BLOCK_THRESHOLD`` points up. Differentiable
+in (phi1, phi2) through ``KvLadder``. Every function broadcasts over a
+leading component axis when phi1/phi2 are (D,) tensors.
 """
 
 from __future__ import annotations
@@ -24,29 +25,32 @@ def _amp(v: float) -> float:
     return 2.0 ** (1.0 - v) / _scipy_gamma(v)
 
 
-def _param(p):
-    """A hyperparameter as a tensor; Python numbers become float64."""
+def _param(p, device=None):
+    """A hyperparameter as a tensor; Python numbers become float64 (on
+    ``device``)."""
     return p if isinstance(p, torch.Tensor) else torch.tensor(
-        p, dtype=torch.float64)
+        p, dtype=torch.float64, device=device)
 
 
-def _expand(p, ndim: int):
+def _expand(p, ndim: int, device=None):
     """phi (...,) -> (..., 1, ..., 1) with ``ndim`` trailing unit axes."""
-    p = _param(p)
+    p = _param(p, device)
     return p.reshape(p.shape + (1,) * ndim)
 
 
 def _matern_parts(r, off, phi1, phi2, v: float):
-    """(kappa, dkappa/ds, kappa_pp) over signed differences ``r``; entries
-    where ``off`` is False get the analytic diagonal limits. phi1/phi2 are
-    scalars or (D,) (then the outputs gain a leading D axis)."""
+    """(kappa, dkappa/ds, kappa_pp) over a block of signed differences
+    ``r``; entries where ``off`` is False get the analytic diagonal limits.
+    phi1/phi2 are scalars or (D,) (then the outputs gain a leading D axis).
+    Shared by the direct pairwise build, the row tiles of the large-grid
+    build and the Toeplitz rows."""
     mu, k = _split_order(v)
     if k < 2:
         raise ValueError("magi kernel matrices require v > 2 (reference: v=2.01)")
     A = _amp(v)
     nd = r.dim()
-    phi1 = _expand(phi1, nd)
-    phi2 = _expand(phi2, nd)
+    phi1 = _expand(phi1, nd, r.device)
+    phi2 = _expand(phi2, nd, r.device)
     c = np.sqrt(2.0 * v) / phi2
     ell = torch.abs(torch.where(off, r, torch.ones_like(r)))
     u = c * ell
@@ -65,6 +69,45 @@ def _matern_parts(r, off, phi1, phi2, v: float):
     return kappa, dk, kpp
 
 
+# From this many grid points the pairwise build runs in row tiles: the
+# Bessel ladder holds ~15 N x N temporaries at once, the memory cliff of a
+# large non-uniform grid (its O(N^2) Bessel evaluations are unavoidable
+# off the Toeplitz path).
+ROW_BLOCK_THRESHOLD = 1024
+ROW_BLOCK = 512
+
+
+def _rowblocked(fn_block, I, phi1, phi2, v: float, row_block: int):
+    """``fn_block`` (a tuple of blocks) over row tiles of the pairwise
+    difference matrix, each written into preallocated (..., N, N) outputs:
+    peak temporary memory O(row_block * N) instead of O(N^2). The rows are
+    padded to a tile multiple with strictly increasing dummy times (u > 0
+    keeps the Bessel ladder finite there) and the padded rows dropped.
+    Differentiable in phi1/phi2: each tile's write is recorded."""
+    s = torch.as_tensor(I).reshape(-1)
+    N = s.shape[0]
+    nb = -(-N // row_block)
+    pad = nb * row_block - N
+    s_rows = s
+    if pad:
+        step = (s[-1] - s[0]) / max(N - 1, 1)
+        extra = torch.arange(1, pad + 1, dtype=s.dtype, device=s.device)
+        s_rows = torch.cat([s, s[-1] + step * extra])
+    cols = torch.arange(N, device=s.device)
+    outs = None
+    for b in range(nb):
+        lo = b * row_block
+        rows = torch.arange(lo, lo + row_block, device=s.device)
+        r = s_rows[lo: lo + row_block, None] - s[None, :]
+        tile = fn_block(r, rows[:, None] != cols[None, :], phi1, phi2, v)
+        if outs is None:
+            outs = tuple(t.new_empty(t.shape[:-2] + (N, N)) for t in tile)
+        n = min(row_block, N - lo)
+        for out, t in zip(outs, tile):
+            out[..., lo: lo + n, :] = t[..., :n, :]
+    return outs
+
+
 def _pairwise(I):
     s = torch.as_tensor(I).reshape(-1)
     r = s[:, None] - s[None, :]
@@ -72,16 +115,19 @@ def _pairwise(I):
     return r, off
 
 
-def matern_gram(I, phi1, phi2, v: float = 2.01):
-    """Matern Gram matrix Kappa over grid I (pairwise build)."""
-    r, off = _pairwise(I)
-    return _matern_parts(r, off, phi1, phi2, v)[0]
-
-
 def matern_derivative_matrices(I, phi1, phi2, v: float = 2.01):
-    """(Kappa, dKappa/ds, d2Kappa/dsdt) over grid I (pairwise build)."""
-    r, off = _pairwise(I)
-    return _matern_parts(r, off, phi1, phi2, v)
+    """(Kappa, dKappa/ds, d2Kappa/dsdt) over grid I (pairwise build; in
+    row tiles from ``ROW_BLOCK_THRESHOLD`` points up, see _rowblocked)."""
+    s = torch.as_tensor(I).reshape(-1)
+    if s.shape[0] >= ROW_BLOCK_THRESHOLD:
+        return _rowblocked(_matern_parts, s, phi1, phi2, v, ROW_BLOCK)
+    return _matern_parts(*_pairwise(s), phi1, phi2, v)
+
+
+def matern_gram(I, phi1, phi2, v: float = 2.01):
+    """Matern Gram matrix Kappa over grid I (pairwise build, row-tiled as
+    ``matern_derivative_matrices``)."""
+    return matern_derivative_matrices(I, phi1, phi2, v)[0]
 
 
 def uniform_spacing(I) -> float | None:

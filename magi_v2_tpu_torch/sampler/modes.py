@@ -18,14 +18,21 @@ hybrid storage takes ``precond`` only, as in the JAX package.
 
 Each map is linear and fixed, so the posterior over X is the same in all
 of them. Known-sigma pinning (``sigma_sqs_fixed``) is applied here, inside
-``build_sampling_mode``; user-supplied starts (``init_states``) enter
-through ``apply_init_states`` and each mode's float64 ``whiten64``. The
-mid-warmup re-anchoring (``precond_refresh_steps``) is ROADMAP.md queue 1
-item 10.
+``build_sampling_mode``, so that a re-anchored banded mode keeps it;
+user-supplied starts (``init_states``) enter through ``apply_init_states``
+and each mode's float64 ``whiten64``. ``refresh_gn_anchor`` is the
+mid-warmup re-anchoring of the banded and hybrid modes
+(``precond_refresh_steps``): a short stage-A warmup, then the GN factor,
+zero point and whitening rebuilt at the chains' median
+(``SamplingMode.rebuild``) and the chains restarted in the new
+coordinates. The JAX package measured it harmful at dense-grid scale and
+warns; the port keeps the feature and the warning.
 """
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -33,7 +40,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from magi_v2_tpu_torch.ops.banded import UpperFactor, banded_solve
+from magi_v2_tpu_torch.ops.banded import (
+    UpperFactor,
+    banded_solve,
+    block_banded_matvec_upper,
+)
 from magi_v2_tpu_torch.sampler.magi_state import (
     gp_sqrt_factors,
     unwhiten_Z,
@@ -123,7 +134,11 @@ class SamplingMode:
       D, float64 on the model's device) into this mode's X-block
       coordinates, in float64 exactly as ``X0`` was made (the identity in
       centered coordinates); ``apply_init_states`` maps user starts with
-      it.
+      it;
+    - ``rebuild(anchor_X, anchor_th) -> SamplingMode`` — the banded and
+      hybrid modes only (None elsewhere): the same mode with its GN
+      factor, zero point and whitening anchored at a new natural-coordinate
+      point (X (N_I, D), theta (D_thetas,)), sigma pinning kept.
     """
 
     reparam: str
@@ -133,6 +148,7 @@ class SamplingMode:
     factor: object
     gn: Optional[dict] = None
     whiten64: Optional[Callable] = None
+    rebuild: Optional[Callable] = None
 
 
 def _build_banded_gn_parts(model, data, dtype, R64, S64, anchor_X, anchor_th,
@@ -249,6 +265,31 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                     dtype=torch.float64, device=dev)
 
+    def pin(logp_grad):
+        if sig_pre_fix is None:
+            return logp_grad
+        return pin_sigma_coordinates(
+            logp_grad, torch.as_tensor(np.asarray(sig_pre_fix), dtype=dtype,
+                                       device=dev),
+            model.mag_I, model.D,
+        )
+
+    if reparam == "precond" and storage in ("banded", "hybrid"):
+        def banded_mode(anchor_X, anchor_th, timer=untimed):
+            logp_grad, gn = _build_banded_gn_parts(
+                model, data, dtype, R64, S64,
+                np.asarray(anchor_X, np.float64),
+                np.asarray(anchor_th, np.float64),
+                exact=storage == "hybrid", timer=timer,
+            )
+            return SamplingMode(
+                reparam=reparam, storage=storage, logp_grad=pin(logp_grad),
+                X0=gn["z064"].to(dtype), factor=gn["factor"], gn=gn,
+                whiten64=gn["whiten64"], rebuild=banded_mode)
+
+        return banded_mode(*((model.Xhat_init, model.thetas_init)
+                             if anchor is None else anchor), timer=timer)
+
     whiten64 = None
     if reparam == "centered":
         from magi_v2_tpu_torch.posterior import make_ref_point
@@ -300,16 +341,6 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
                 data, model.f_vec, factor, model.mag_I, model.D,
                 model.D_thetas, ref=ref, z0=X0.reshape(-1),
             )
-    elif storage in ("banded", "hybrid"):
-        anchor_X, anchor_th = ((model.Xhat_init, model.thetas_init)
-                               if anchor is None else anchor)
-        logp_grad, gn = _build_banded_gn_parts(
-            model, data, dtype, R64, S64, np.asarray(anchor_X, np.float64),
-            np.asarray(anchor_th, np.float64), exact=storage == "hybrid",
-            timer=timer,
-        )
-        factor, whiten64 = gn["factor"], gn["whiten64"]
-        X0 = gn["z064"].to(dtype)
     else:
         if dtype == torch.float32 and model.mag_I >= DENSE_FLOAT32_WARN_N_I:
             warnings.warn(
@@ -346,14 +377,9 @@ def build_sampling_mode(model, data, reparam: str, storage: str, dtype, R64,
         X0 = z064.to(dtype)
         mu64 = f64(model.mu_ds)
         whiten64 = lambda X: whiten_X_full(X, mu64, L_inv64)
-    if sig_pre_fix is not None:
-        logp_grad = pin_sigma_coordinates(
-            logp_grad, torch.as_tensor(np.asarray(sig_pre_fix), dtype=dtype,
-                                       device=dev),
-            model.mag_I, model.D,
-        )
-    return SamplingMode(reparam=reparam, storage=storage, logp_grad=logp_grad,
-                        X0=X0, factor=factor, gn=gn, whiten64=whiten64)
+    return SamplingMode(reparam=reparam, storage=storage,
+                        logp_grad=pin(logp_grad), X0=X0, factor=factor, gn=gn,
+                        whiten64=whiten64)
 
 
 def apply_init_states(q0, init_states: dict, mode: SamplingMode, model,
@@ -425,28 +451,159 @@ def apply_init_states(q0, init_states: dict, mode: SamplingMode, model,
     return q0
 
 
+_REFRESH_NEEDS_BANDED = (
+    "precond_refresh_steps requires reparam='precond' and "
+    "storage='banded' (the mode whose linearization goes stale "
+    "at dense-grid scale)"
+)
+
+
+def refresh_gn_anchor(mode: SamplingMode, model, q0, num_chains: int,
+                      sampler_config, dtype, seed: int,
+                      precond_refresh_steps: int, verbose: bool = False,
+                      restart: str = "remap", restart_scatter: float = 0.1,
+                      timer=untimed):
+    """Stage A and the re-anchoring of a banded or hybrid GN mode
+    (predict's ``precond_refresh_steps``), as the JAX function: a warmup of
+    ``precond_refresh_steps`` transitions (``run_chains`` with one result,
+    seed + 1000, its checkpoints under ``<checkpoint_path>/stageA``) moves
+    the chains off the start, then ``reanchor`` rebuilds the mode at their
+    median and restarts them. Returns (the rebuilt mode, the stage-B
+    starts (num_chains, dim) in NumPy).
+
+    ``restart``: "remap" carries each chain's stage-A state into the new
+    coordinates (z = z0_new + U_new (x - x_anchor)); "laplace" restarts
+    every chain at a scaled GN Laplace draw of the new anchor (z0_new +
+    ``restart_scatter`` * N(0, I), theta at the anchor plus a 0.05 jitter
+    on its pre-image, sigma carried from stage A).
+
+    Experimental and measured HARMFUL at dense-grid scale by the JAX
+    package (Lorenz N_I = 1025 x 256 chains: 31-91% divergences, R-hat
+    4.8-198 across the restart modes; see its refresh_gn_anchor), which
+    this warns of as it does. ``timer`` times stage A ("refresh_stage_a")
+    and the rebuild with the restart ("refresh_rebuild"). An unknown
+    restart is refused before stage A runs."""
+    from magi_v2_tpu_torch.sampler.run import run_chains
+
+    if mode.rebuild is None:
+        raise ValueError(_REFRESH_NEEDS_BANDED)
+    if restart not in ("remap", "laplace"):
+        raise ValueError(f"unknown refresh restart mode {restart!r}")
+    warnings.warn(
+        "precond_refresh_steps is experimental and measured HARMFUL at "
+        "dense-grid scale (Lorenz N_I=1025 x 256 chains: 31-91% divergence "
+        "across all restart modes; see refresh_gn_anchor docstring). The "
+        "supported large-grid recipe is no refresh: init-anchored banded "
+        "GN sampling the tempered (anneal_mode='reference') target.",
+        stacklevel=2,
+    )
+    ck = sampler_config.checkpoint_path
+    cfg_a = sampler_config._replace(
+        num_results=1, num_burnin_steps=precond_refresh_steps,
+        progress_every=0, thin=1,
+        # stage A is another step sequence than the main run's: a
+        # checkpoint namespace of its own
+        checkpoint_path=os.path.join(ck, "stageA") if ck else "",
+    )
+    t0 = time.perf_counter()
+    with timer("refresh_stage_a"):
+        samples_a, _ = run_chains(
+            mode.logp_grad,
+            torch.as_tensor(np.asarray(q0), dtype=dtype,
+                            device=model.config.torch_device),
+            seed + 1000, cfg_a,
+        )
+    qs_a = samples_a[-1].to(model.config.torch_device)
+    with timer("refresh_rebuild"):
+        mode, q0 = reanchor(mode, model, qs_a, seed, restart,
+                            restart_scatter)
+    if verbose:
+        print(f"[precond_refresh] re-anchored after {precond_refresh_steps} "
+              f"steps in {time.perf_counter() - t0:.0f}s")
+        one = torch.ones((), dtype=dtype, device=model.config.torch_device)
+        lps = mode.logp_grad(torch.as_tensor(q0[:4], dtype=dtype,
+                                             device=one.device), one)[0]
+        print(f"[precond_refresh] lp at remapped chains[:4]: "
+              f"{np.round(lps.cpu().numpy(), 2)}")
+    return mode, q0
+
+
+def reanchor(mode: SamplingMode, model, qs_a, seed: int,
+             restart: str = "remap", restart_scatter: float = 0.1):
+    """The part of ``refresh_gn_anchor`` after stage A, from the stage-A
+    chain states ``qs_a`` (C, dim) in the sampling dtype on the model's
+    device: the trajectories x = x0 + U^{-1}(z - z0) (K4 on the card, the
+    zero point's float64 x0 added in float64), the anchor at their chain
+    median and the chain mean of softplus(theta_pre), the mode rebuilt
+    there, and the restart. Returns (the rebuilt mode, the stage-B starts
+    in NumPy: float64 for "laplace", the sampling dtype for "remap")."""
+    from magi_v2_tpu_torch.posterior import softplus
+    from magi_v2_tpu_torch.sampler.precond import unwhiten_Z_banded
+
+    if restart not in ("remap", "laplace"):
+        raise ValueError(f"unknown refresh restart mode {restart!r}")
+    N, D, Dth = model.mag_I, model.D, model.D_thetas
+    ND = N * D
+    C, dt = qs_a.shape[0], qs_a.dtype
+    gn = mode.gn
+    dz = qs_a[:, :ND] - gn["z0"][None, :]
+    Xc = unwhiten_Z_banded(dz.reshape(C, N, D),
+                           torch.zeros((D,), dtype=dt, device=dz.device),
+                           gn["factor"])
+    X_chains = (Xc.double() + gn["ref"].x0.double()[None]).cpu().numpy()
+    # NumPy's median: the mean of the two middle values for an even count
+    anchor_X = np.median(X_chains, axis=0)
+    anchor_th = softplus(qs_a[:, ND + D:]).mean(dim=0).double().cpu().numpy()
+    mode = mode.rebuild(anchor_X, anchor_th)
+    if restart == "laplace":
+        rng = np.random.default_rng(seed + 2000)
+        z_new = mode.gn["z064"].reshape(1, -1).cpu().numpy()
+        z_new = z_new + restart_scatter * rng.standard_normal((C, ND))
+        th_pre = (anchor_th + np.log(-np.expm1(-anchor_th)))[None, :] \
+            + 0.05 * rng.standard_normal((C, Dth))
+        sig_pre = qs_a[:, ND:ND + D].double().cpu().numpy()
+        return mode, np.concatenate([z_new, sig_pre, th_pre], axis=1)
+    # z_new = z0_new + U_new (x - x_anchor): the deviation is small, so the
+    # sampling dtype keeps it (K3 on the card)
+    dev = qs_a.device
+    delta = (torch.as_tensor(X_chains, dtype=dt, device=dev)
+             - torch.as_tensor(anchor_X, dtype=dt, device=dev)[None])
+    z_new = mode.gn["z0"][None, :] + block_banded_matvec_upper(
+        mode.gn["U_blocks"], delta.reshape(C, -1))
+    return mode, torch.cat([z_new, qs_a[:, ND:]], dim=1).cpu().numpy()
+
+
 def unwhiten_draws(mode: SamplingMode, Z, mu_ds, max_bytes: int = 1 << 30):
     """Trajectories from z draws Z (T, C, N_I, D): X = mu + L z (one GEMM
     per chunk, or, for the GP factor of the whitened mode, one batched
     over its D blocks, x_d = mu_d + L_d z_d), X = mu + U^{-1} z (K4 over
     the chunk's draws and chains), the chunk bounded by ``max_bytes`` of
-    output, or, in centered coordinates, X = z."""
+    output, or, in centered coordinates, X = z. Draws staged in host
+    memory (``SamplerConfig.stage_above_bytes``) stay there: each chunk
+    goes to mu_ds's device, is mapped there and comes back, so the card
+    never holds more than a chunk."""
     if mode.factor is None:
         return Z.clone()
+    dev = mu_ds.device
+    staged = Z.device != dev
     T = Z.shape[0]
     per_draw = max(1, Z[0].numel() * Z.element_size())
     chunk = max(1, max_bytes // per_draw)
     out = torch.empty_like(Z)
     for i in range(0, T, chunk):
-        z = Z[i: i + chunk]
+        z = Z[i: i + chunk].to(dev)
+        dst = out[i: i + chunk]
         if isinstance(mode.factor, UpperFactor):
             flat = z.reshape(-1, 1, z.shape[-2] * z.shape[-1])
-            x = out[i: i + chunk].view(flat.shape)
+            x = torch.empty_like(flat) if staged else dst.view(flat.shape)
             banded_solve(mode.factor, flat.contiguous(), x)
             x += mu_ds.repeat(z.shape[-2])
+            if not staged:
+                continue
         elif mode.reparam == "whitened":
-            out[i: i + chunk] = unwhiten_Z(z, mu_ds, mode.factor)
+            x = unwhiten_Z(z, mu_ds, mode.factor)
         else:
             flat = z.reshape(z.shape[:2] + (-1,))
-            out[i: i + chunk] = (flat @ mode.factor.T).reshape(z.shape) + mu_ds
+            x = (flat @ mode.factor.T).reshape(z.shape) + mu_ds
+        dst.copy_(x.reshape(dst.shape))
     return out

@@ -46,8 +46,14 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from magi_v2_tpu_torch.sampler.hmc import BoundTransition, hmc_step
-from magi_v2_tpu_torch.sampler.nuts import BoundNuts, NutsConfig, draw_noise
+from magi_v2_tpu_torch.sampler.hmc import BoundTransition, HmcInfo, hmc_step
+from magi_v2_tpu_torch.sampler.nuts import (
+    BoundNuts,
+    NutsConfig,
+    NutsInfo,
+    NutsNoise,
+    draw_noise,
+)
 from magi_v2_tpu_torch.sampler.pt import (
     BoundSwap,
     check_ladder,
@@ -115,8 +121,11 @@ class SamplerConfig(NamedTuple):
     # chains)
     algorithm: str = "nuts"
     # HMC's trajectory length: uniform on {1, ..., hmc_num_leapfrogs}, one
-    # draw per transition shared by all chains
+    # draw per transition shared by all chains (the JAX package's
+    # hmc_jitter); with hmc_jitter False every transition takes
+    # hmc_num_leapfrogs and nothing is drawn for it
     hmc_num_leapfrogs: int = 64
+    hmc_jitter: bool = True
     # parallel tempering of the sampling phase (two rungs or more): chains
     # are rung-major, chains [r*M, (r+1)*M) at beta = pt_betas[r] (M =
     # C/R), and every pt_swap_every transitions adjacent rungs propose
@@ -132,6 +141,12 @@ class SamplerConfig(NamedTuple):
     # phase walls in ChainStats.timings, each after a device sync (the syncs
     # cost the host's lead over the card: keep off in production)
     profile_timings: bool = False
+    # the JAX package's stage_above_bytes: with dispatch blocks, draws whose
+    # total (num_results * C * dim * itemsize) exceeds this many bytes are
+    # staged to (pinned) host memory block by block, so the device holds a
+    # block's draws, not the run's; a checkpointed run always stages. An
+    # I/O knob: the draws are the same bits either way
+    stage_above_bytes: int = 1 << 30
 
 
 class DAState(NamedTuple):
@@ -238,8 +253,8 @@ class ChainStats(NamedTuple):
     pt_swap_accept: torch.Tensor | None = None
     # profile_timings only: eps_init_s, warmup_s, warmup_block_walls_s,
     # block_walls_s, sample_total_s, sample_dispatch_s,
-    # sample_first_dispatch_s, sample_stage_s (the device-to-host copies of
-    # checkpointed blocks), staged_bytes, sample_drain_s
+    # sample_first_dispatch_s, sample_stage_s (the host's time in the
+    # device-to-host copies of staged blocks), staged_bytes, sample_drain_s
     timings: dict | None = None
 
 
@@ -261,10 +276,12 @@ _CKPT_VERSION = "torch-v1"
 def _ckpt_fingerprint(config: SamplerConfig, C: int, dim: int, seed,
                       q0) -> str:
     """The identity of a run: every SamplerConfig field but the I/O knobs
-    (progress_every, checkpoint_path, profile_timings), the chain count and
-    state width, the seed and a digest of the initial states."""
+    (progress_every, checkpoint_path, profile_timings, stage_above_bytes),
+    the chain count and state width, the seed and a digest of the initial
+    states."""
     ident = config._replace(progress_every=0, checkpoint_path="",
-                            profile_timings=False)
+                            profile_timings=False,
+                            stage_above_bytes=SamplerConfig().stage_above_bytes)
     q0_digest = hashlib.blake2b(
         np.ascontiguousarray(q0.detach().cpu().numpy()).tobytes(),
         digest_size=8).hexdigest()
@@ -392,11 +409,50 @@ def find_reasonable_step_size(logp_grad, q0_row, generator, inv_mass,
     return eps
 
 
+class Shard(NamedTuple):
+    """Chains [lo, hi) of a run, on ``device``, with their own copy of the
+    target (its workspaces and bound graphs are the shard's)."""
+    lo: int
+    hi: int
+    device: torch.device
+    target: Callable
+
+
+def _target_on(target, device):
+    """The target's copy on ``device`` (``target.to``), or the callable
+    itself when it has no ``to``."""
+    return target.to(device) if hasattr(target, "to") else target
+
+
+def _mass_on(inv_mass, device):
+    """The inverse mass on ``device``: the same object when it is there."""
+    parts = inv_mass if isinstance(inv_mass, TailDenseMass) else (inv_mass,)
+    if all(t.device == device for t in parts):
+        return inv_mass
+    if isinstance(inv_mass, TailDenseMass):
+        return TailDenseMass(*(t.to(device) for t in inv_mass))
+    return inv_mass.to(device)
+
+
+def make_shards(target, C: int, mesh) -> list:
+    """One ``Shard`` per entry of ``mesh`` (a sequence of devices, an entry
+    per shard, repeats allowed): contiguous chain ranges of C / len(mesh),
+    each with the target moved to its device."""
+    k = len(mesh)
+    if k == 0 or C % k:
+        raise ValueError(f"num chains {C} must be a multiple of mesh size "
+                         f"{k}")
+    M = C // k
+    return [Shard(i * M, (i + 1) * M, torch.device(d), _target_on(target, d))
+            for i, d in enumerate(mesh)]
+
+
 def run_chains(
     tempered_logp_grad: Callable,   # (q (C, dim), beta_temp) -> (logp, grad)
     q0: torch.Tensor,               # (C, dim) initial chain states
     seed: int,
     config: SamplerConfig = SamplerConfig(),
+    shards: list | None = None,
 ):
     """Warmup + sampling of C chains with ``config.algorithm``: "nuts"
     (``nuts.BoundNuts``) or "hmc" (jittered fixed-length HMC).
@@ -416,11 +472,23 @@ def run_chains(
     beta = 1 rung), and ``stats.pt_swap_accept`` holds each pair's
     acceptance.
 
-    Returns (samples (num_results, C, dim) on q0's device, ChainStats).
-    The momenta and uniforms come from a ``torch.Generator`` on the device
-    seeded with ``seed``, a swap round's uniforms after its transition's;
-    HMC's trajectory lengths from a NumPy generator on the host with the
-    same seed. ``config.dispatch_block_steps``, ``checkpoint_path`` and
+    ``shards`` (``make_shards``; ``parallel.run_chains_sharded`` makes
+    them) splits each transition over chain ranges, each on its shard's
+    device with its own target, workspaces and bound transition; the
+    states, the noise and everything pooled (dual averaging's mean
+    acceptance, the Welford moments, the swap rounds, the checkpoint
+    carry) live gathered, (C, ...), on the first shard's device. None is
+    one shard: q0's device and ``tempered_logp_grad`` itself, with no
+    slicing and no gather.
+
+    Returns (samples (num_results, C, dim), ChainStats): on the first
+    shard's device, or in host memory when the run stages its draws
+    (``config.stage_above_bytes``). The momenta and uniforms of all C
+    chains come from a ``torch.Generator`` on that device seeded with
+    ``seed``, a swap round's uniforms after its transition's; HMC's
+    trajectory lengths from a NumPy generator on the host with the same
+    seed. So a sharded run draws what the unsharded one draws.
+    ``config.dispatch_block_steps``, ``checkpoint_path`` and
     ``profile_timings``: see the module's docstring.
     """
     if config.algorithm not in ("nuts", "hmc"):
@@ -429,7 +497,12 @@ def run_chains(
     nuts = config.algorithm == "nuts"
     pin_full_float32_matmuls()
     C, dim = q0.shape
-    dtype, dev = q0.dtype, q0.device
+    if shards is None:
+        shards = [Shard(0, C, q0.device, tempered_logp_grad)]
+    dtype, dev = q0.dtype, shards[0].device
+    q0 = q0.to(dev)
+    tempered_logp_grad = shards[0].target
+    single = len(shards) == 1
     betas = check_ladder(config, C)
     pt = betas is not None
     gen = torch.Generator(device=dev)
@@ -479,30 +552,80 @@ def run_chains(
     temps = torch.as_tensor(temps, dtype=dtype, device=dev)
 
     def draw_num_leapfrogs() -> int:
+        if not config.hmc_jitter:
+            return config.hmc_num_leapfrogs
         return max(1, math.ceil(host_rng.random() * config.hmc_num_leapfrogs))
 
     # a target with a bound evaluation runs on fixed buffers, and on the
-    # card as replayed CUDA graphs, made once the first mass is known
-    bound = None
+    # card as replayed CUDA graphs, made once the first mass is known: one
+    # bound transition per shard
+    bounds = None
+    masses = {"src": None, "per_shard": None}
 
     nuts_cfg = NutsConfig(config.max_tree_depth, config.max_energy_diff)
+
+    def shard_masses(inv_mass):
+        """Each shard's copy of the mass, remade when the mass changes."""
+        if inv_mass is not masses["src"]:
+            masses["src"] = inv_mass
+            masses["per_shard"] = [_mass_on(inv_mass, sh.device)
+                                   for sh in shards]
+        return masses["per_shard"]
+
+    def shard_step(i, qs, eps, inv_mass, beta_temp, noise):
+        bound = bounds[i]
+        if nuts:
+            return bound(qs, eps, inv_mass, beta_temp, noise)
+        L, normals, uniforms = noise
+        if bound is not None:
+            return bound(qs, eps, inv_mass, beta_temp, L, normals, uniforms,
+                         config.max_energy_diff)
+        target = shards[i].target
+        return hmc_step(
+            lambda q: target(q, beta_temp), qs, eps, inv_mass, L, normals,
+            uniforms, config.max_energy_diff,
+        )
+
+    def part(t, sh):
+        """Shard ``sh``'s rows of a per-chain tensor (a 0-dim one whole),
+        on its device."""
+        if t.dim() and t.shape[0] == C:
+            t = t[sh.lo:sh.hi]
+        return t.to(sh.device)
+
+    def gather(outs):
+        qs = torch.cat([q.to(dev) for q, _ in outs])
+        infos = [info for _, info in outs]
+        cat = lambda f: torch.cat([getattr(x, f).to(dev) for x in infos])
+        if nuts:
+            return qs, NutsInfo(*(cat(f) for f in NutsInfo._fields))
+        return qs, HmcInfo(cat("accept_prob"), infos[0].num_leapfrogs,
+                           cat("diverging"))
 
     def transition(qs, eps, inv_mass, step, beta_temp=None):
         if beta_temp is None:
             beta_temp = temps[step]
         if nuts:
-            return bound(qs, eps, inv_mass, beta_temp,
-                         draw_noise(gen, C, dim, nuts_cfg.max_tree_depth,
-                                    dtype, dev))
-        normals = torch.randn((C, dim), generator=gen, dtype=dtype, device=dev)
-        uniforms = torch.rand((C,), generator=gen, dtype=dtype, device=dev)
-        if bound is not None:
-            return bound(qs, eps, inv_mass, beta_temp, draw_num_leapfrogs(),
-                         normals, uniforms, config.max_energy_diff)
-        return hmc_step(
-            lambda q: tempered_logp_grad(q, beta_temp), qs, eps, inv_mass,
-            draw_num_leapfrogs(), normals, uniforms, config.max_energy_diff,
-        )
+            noise = draw_noise(gen, C, dim, nuts_cfg.max_tree_depth, dtype,
+                               dev)
+        else:
+            normals = torch.randn((C, dim), generator=gen, dtype=dtype,
+                                  device=dev)
+            uniforms = torch.rand((C,), generator=gen, dtype=dtype,
+                                  device=dev)
+            noise = (draw_num_leapfrogs(), normals, uniforms)
+        if single:
+            return shard_step(0, qs, eps, inv_mass, beta_temp, noise)
+        per = shard_masses(inv_mass)
+        outs = []
+        for i, sh in enumerate(shards):
+            if nuts:
+                sh_noise = NutsNoise(*(part(t, sh) for t in noise))
+            else:
+                sh_noise = (noise[0], part(noise[1], sh), part(noise[2], sh))
+            outs.append(shard_step(i, part(qs, sh), part(eps, sh), per[i],
+                                   part(beta_temp, sh), sh_noise))
+        return gather(outs)
 
     def progress(phase, step, eps, info):
         every = config.progress_every
@@ -523,8 +646,9 @@ def run_chains(
     timings = {} if config.profile_timings else None
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in {sh.device for sh in shards}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def restore(arrays, name):
         return _ckpt_tensor(arrays, name, dev)
@@ -538,13 +662,19 @@ def run_chains(
         host_rng.bit_generator.state = json.loads(str(arrays["host_rng"]))
 
     def make_bound(inv_mass):
-        nonlocal bound
-        if nuts:
-            bound = BoundNuts(tempered_logp_grad, q0, inv_mass, nuts_cfg,
-                              per_chain=pt)
-        elif hasattr(tempered_logp_grad, "bind"):
-            bound = BoundTransition(tempered_logp_grad, q0, inv_mass,
-                                    per_chain=pt)
+        nonlocal bounds
+        per = [inv_mass] if single else shard_masses(inv_mass)
+        bounds = []
+        for sh, mass in zip(shards, per):
+            q0_sh = q0 if single else q0[sh.lo:sh.hi].to(sh.device)
+            if nuts:
+                bounds.append(BoundNuts(sh.target, q0_sh, mass, nuts_cfg,
+                                        per_chain=pt))
+            elif hasattr(sh.target, "bind"):
+                bounds.append(BoundTransition(sh.target, q0_sh, mass,
+                                              per_chain=pt))
+            else:
+                bounds.append(None)
 
     T = config.num_results
     sample_done = 0
@@ -597,7 +727,7 @@ def run_chains(
         for start, size in _blocks(B, config.dispatch_block_steps):
             if start + size <= warmup_done:
                 continue
-            if bound is None:
+            if bounds is None:
                 make_bound(inv_mass)
             t_blk = time.perf_counter()
             for step in range(start, start + size):
@@ -662,19 +792,74 @@ def run_chains(
         beta_s, scale = rung_temperatures(betas, C, dtype, dev)
         eps_s = eps_final * scale
 
-    samples = torch.empty((T, C, dim), dtype=dtype, device=dev)
-    accept = torch.empty((T, C), dtype=dtype, device=dev)
-    diverging = torch.empty((T, C), dtype=torch.bool, device=dev)
-    num_leapfrogs = (torch.empty((T, C), dtype=torch.int32, device=dev)
-                     if nuts else np.empty((T, C), np.int32))
-    depths = torch.empty((T, C), dtype=torch.int32, device=dev)
+    blocks = _blocks(T, config.dispatch_block_steps, config.thin)
+    # draws of more than stage_above_bytes, and a checkpointed run's, are
+    # staged: each block is computed into a device buffer and copied into
+    # host memory (pinned on the card); the device holds a block's draws
+    stage_host = bool(ck) or (
+        config.dispatch_block_steps > 0
+        and T * C * dim * q0.element_size() > config.stage_above_bytes)
+    out_dev = torch.device("cpu") if stage_host else dev
+    pin = stage_host and dev.type == "cuda"
+
+    def out(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=out_dev, pin_memory=pin)
+
+    samples = out(T, C, dim)
+    accept = out(T, C)
+    diverging = out(T, C, dt=torch.bool)
+    num_leapfrogs = (out(T, C, dt=torch.int32) if nuts
+                     else np.empty((T, C), np.int32))
+    depths = out(T, C, dt=torch.int32) if nuts else None
+    # the per-draw tensors a block writes on the device (when staged, into
+    # a device buffer first)
+    per_draw = {"samples": samples, "accept": accept,
+                 "diverging": diverging,
+                 **({"num_leapfrogs": num_leapfrogs, "depths": depths}
+                    if nuts else {})}
     info_arrays = {"accept": accept, "diverging": diverging,
                    "num_leapfrogs": num_leapfrogs,
                    **({"depths": depths} if nuts else {})}
+    bufs = copy_stream = None
+    if stage_host:
+        # two device buffers on the card, so that a block's copy (on a
+        # stream of its own, after the block's last write) overlaps the
+        # next block's compute, as the JAX package's finalize_block
+        # overlaps its fetch; one where the copy is synchronous (the CPU,
+        # or a checkpoint, whose files need the block on the host)
+        nbuf = 2 if dev.type == "cuda" and not ck else 1
+        bmax = max(size for _, size in blocks)
+        bufs = [{name: torch.empty((bmax,) + a.shape[1:], dtype=a.dtype,
+                                   device=dev)
+                 for name, a in per_draw.items()} for _ in range(nbuf)]
+        copied = [None] * nbuf
+        if nbuf == 2:
+            copy_stream = torch.cuda.Stream(dev)
     staged = {"dispatch_s": 0.0, "first_dispatch_s": None, "stage_s": 0.0,
               "staged_bytes": 0}
+
+    def stage(j, start, size, views):
+        """Block [start, start + size)'s draws and stats, from device
+        buffer j into the host arrays."""
+        t0 = time.perf_counter()
+        if copy_stream is None:
+            for name, v in views.items():
+                per_draw[name][start:start + size].copy_(v)
+        else:
+            done = torch.cuda.current_stream(dev).record_event()
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(done)
+                for name, v in views.items():
+                    per_draw[name][start:start + size].copy_(
+                        v, non_blocking=True)
+                copied[j] = copy_stream.record_event()
+        staged["stage_s"] += time.perf_counter() - t0
+        staged["staged_bytes"] += sum(v.numel() * v.element_size()
+                                      for v in views.values()) + (
+            0 if nuts else num_leapfrogs[start:start + size].nbytes)
+
     t_sample0 = time.perf_counter()
-    for start, size in _blocks(T, config.dispatch_block_steps, config.thin):
+    for b, (start, size) in enumerate(blocks):
         end = start + size
         if ck and end <= sample_done:
             loaded = _ckpt_load_draws(ck, start)
@@ -683,18 +868,26 @@ def run_chains(
                     f"checkpoint state at {ck!r} marks block {start} "
                     f"complete but draws_{start:06d}.npz is missing; delete "
                     "state.npz to restart")
-            samples[start:end] = torch.from_numpy(loaded[0]).to(dev)
+            samples[start:end] = torch.from_numpy(loaded[0])
             for name, arr in info_arrays.items():
-                arr[start:end] = (torch.from_numpy(loaded[1][name]).to(dev)
+                arr[start:end] = (torch.from_numpy(loaded[1][name])
                                   if isinstance(arr, torch.Tensor)
                                   else loaded[1][name])
             continue
-        if bound is None:
+        if bounds is None:
             make_bound(inv_mass)
         if pt and swap is None:
             swap = BoundSwap(tempered_logp_grad, q0, betas)
             swap.prop.copy_(swap_counts[0])
             swap.accs.copy_(swap_counts[1])
+        if stage_host:
+            j = b % len(bufs)
+            if copied[j] is not None:
+                # the buffer's last copy must be done before it is rewritten
+                torch.cuda.current_stream(dev).wait_event(copied[j])
+            views = {name: buf[:size] for name, buf in bufs[j].items()}
+        else:
+            views = {name: a[start:end] for name, a in per_draw.items()}
         t0 = time.perf_counter()
         for i in range(start, end):
             for t in range(config.thin):
@@ -709,12 +902,15 @@ def run_chains(
                                        generator=gen, dtype=dtype, device=dev)
                         qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
                 progress("sample", step, eps_final, info)
-            samples[i] = qs
-            accept[i] = info.accept_prob
-            diverging[i] = info.diverging
-            num_leapfrogs[i] = info.num_leapfrogs
+            n = i - start
+            views["samples"][n] = qs
+            views["accept"][n] = info.accept_prob
+            views["diverging"][n] = info.diverging
             if nuts:
-                depths[i] = info.depth
+                views["num_leapfrogs"][n] = info.num_leapfrogs
+                views["depths"][n] = info.depth
+            else:
+                num_leapfrogs[i] = info.num_leapfrogs
         if timings is not None:
             sync()
             timings.setdefault("block_walls_s", []).append(
@@ -723,29 +919,31 @@ def run_chains(
         staged["dispatch_s"] += wall
         if staged["first_dispatch_s"] is None:
             staged["first_dispatch_s"] = wall
+        if stage_host:
+            stage(j, start, size, views)
         if ck:
-            # the block's draws to the host, then to disk with the carry
-            t0 = time.perf_counter()
-            s_blk = samples[start:end].cpu().numpy()
-            i_blk = {name: (arr[start:end].cpu().numpy()
+            # the block's draws, on the host, to disk with the carry
+            i_blk = {name: (arr[start:end].numpy()
                             if isinstance(arr, torch.Tensor)
                             else arr[start:end].copy())
                      for name, arr in info_arrays.items()}
-            staged["stage_s"] += time.perf_counter() - t0
-            staged["staged_bytes"] += s_blk.nbytes + sum(
-                v.nbytes for v in i_blk.values())
-            _ckpt_save_draws(ck, start, s_blk, i_blk)
+            _ckpt_save_draws(ck, start, samples[start:end].numpy(), i_blk)
             _ckpt_save_state(ck, "sample", end, sample_carry(), fingerprint)
 
     if timings is not None:
         t0 = time.perf_counter()
         sync()
+        if copy_stream is not None:
+            copy_stream.synchronize()
         timings["sample_drain_s"] = time.perf_counter() - t0
         timings["sample_total_s"] = time.perf_counter() - t_sample0
         timings["sample_dispatch_s"] = staged["dispatch_s"]
         timings["sample_first_dispatch_s"] = staged["first_dispatch_s"]
         timings["sample_stage_s"] = staged["stage_s"]
         timings["staged_bytes"] = staged["staged_bytes"]
+    if copy_stream is not None:
+        # the host arrays are read from here on
+        copy_stream.synchronize()
     if nuts:
         num_leapfrogs, depths = num_leapfrogs.cpu().numpy(), \
             depths.cpu().numpy()

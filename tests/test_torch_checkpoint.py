@@ -32,7 +32,8 @@ torch.set_num_threads(2)
 
 DIM, CHAINS = 3, 4
 # the I/O knobs, which change no draw and are not fingerprinted
-IO_FIELDS = ("progress_every", "checkpoint_path", "profile_timings")
+IO_FIELDS = ("progress_every", "checkpoint_path", "profile_timings",
+             "stage_above_bytes")
 KINDS = {
     "nuts": {},
     "hmc": {"algorithm": "hmc", "hmc_num_leapfrogs": 8,
@@ -178,6 +179,7 @@ CHANGED = {
     "mass_window2_begin": 0.6, "mass_window2_end": 0.78,
     "mass_window1_diag": True, "dense_tail_size": 2, "dense_shrinkage": 0.2,
     "thin": 2, "algorithm": "hmc", "hmc_num_leapfrogs": 16,
+    "hmc_jitter": False,
     "pt_betas": (1.0, 0.5), "pt_swap_every": 2, "dispatch_block_steps": 5,
 }
 

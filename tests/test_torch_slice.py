@@ -107,12 +107,14 @@ def test_unwhiten_draws_matches_jax(fitted):
     ({"reparam": "whitened", "storage": "banded"}, ValueError),
     ({"reparam": "whitened", "storage": "hybrid"}, ValueError),
     ({"reparam": "centered", "storage": "hybrid"}, ValueError),
-    ({"precond_refresh_steps": 10}, NotImplementedError),
+    # the refresh is ported; the JAX package refuses it in dense storage
+    ({"precond_refresh_steps": 10}, ValueError),
     ({"init_states": {"theta": np.ones(3)}}, ValueError),
     # parallel tempering is ported; the refusal left is the JAX package's
     ({"pt_betas": (1.0, 0.5), "anneal_mode": "reference"}, ValueError),
-    # checkpoints are ported; the tunneled runtime's staging knob is not
-    ({"stage_above_bytes": 1 << 20}, ValueError),
+    # and an unknown restart of the refresh in banded storage
+    ({"precond_refresh_steps": 10, "storage": "banded",
+      "precond_refresh_restart": "bogus"}, ValueError),
     ({"matmul_precision": "high"}, ValueError),
 ])
 def test_unported_predict_options_raise(fitted, override, exc):
