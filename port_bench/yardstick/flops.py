@@ -1,0 +1,38 @@
+"""Operations of one sampler evaluation, counted from shapes alone.
+
+``sampler_mfu_pct`` multiplies this count by the evaluations the chains
+needed and divides by the sampling phase's wall and the float32 peak. The
+count depends only on the shapes of dense storage, never on
+which kernel or library computes the work, so it still bounds a gain once
+a kernel is fused or a library call replaced.
+"""
+
+from __future__ import annotations
+
+from port_bench.yardstick.bounds import K1_FLOPS
+
+
+def evaluation_flops(N: int, D: int, P: int, k: int, algorithm: str) -> int:
+    """Operations of one target evaluation and its update, for one chain,
+    in dense storage.
+
+    - whitening, x = mu + L z and the gradient through it: two dense
+      products of the (N D)^2 factor;
+    - operators, for each of D components: R delta, m delta and S r
+      forward and their adjoints backward, six products of N x N;
+    - K1's epilogue work per grid point and component;
+    - the update: HMC's leapfrog (two kicks, the velocity through a dense
+      block of k columns, the drift) or a NUTS leaf (two products with the
+      dense block, ten operations an element).
+    """
+    n = N * D
+    dim = n + D + P
+    whitening = 4 * n * n
+    ops = D * 6 * 2 * N * N
+    k1 = sum(K1_FLOPS.values()) * n
+    head = dim - k
+    if algorithm == "hmc":
+        update = 7 * head + k * (2 * k + 6)
+    else:
+        update = 2 * 2 * k * k + 10 * dim
+    return whitening + ops + k1 + update
