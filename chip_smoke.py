@@ -4013,16 +4013,18 @@ def sampler_hook(mesh=None, before=None, after=None, **changes):
     exit."""
     import magi_v2_tpu_torch.api as api
     from magi_v2_tpu_torch.parallel import run_chains_sharded
+    from magi_v2_tpu_torch.utils.profiling import untimed
 
     real = api.run_chains
 
-    def hooked(logp_grad, q0, seed, config):
+    def hooked(logp_grad, q0, seed, config, timer=untimed):
         config = config._replace(**changes)
         if before is not None:
             before()
-        out = (real(logp_grad, q0, seed, config) if mesh is None
+        out = (real(logp_grad, q0, seed, config, timer=timer)
+               if mesh is None
                else run_chains_sharded(logp_grad, q0, seed, config,
-                                       mesh=mesh))
+                                       mesh=mesh, timer=timer))
         if after is not None:
             after()
         return out

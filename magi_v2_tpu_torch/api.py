@@ -125,6 +125,8 @@ class MAGI_v2:
         self.m_ds = None
         self.K_d_invs = None
         self.band_truncation = None
+        # initial_fit's trace (utils.profiling.PhaseTimer.export)
+        self.fit_trace = None
 
     # ------------------------------------------------------------------
 
@@ -161,9 +163,18 @@ class MAGI_v2:
         package's gradient-matching branch: the observed components
         CV-smoothed, a multi-start gradient-matching fit of (X_unobs,
         theta), the unobserved components' hyperparameters fitted on the
-        grid). Host wall seconds per phase land in ``fit_timings``; each
-        phase ends by copying its result to the host, so the walls include
-        the device work.
+        grid).
+
+        The fit is traced (``utils.profiling.PhaseTimer``) into
+        ``fit_trace``: a root span "initial_fit" and its phases
+        "hparam_mle" (attribute ``optimizer``; counters "lbfgs_iters",
+        "lbfgs_evals", "lbfgs_reads" or "adam_steps"), "kernel_matrices",
+        "theta_init" (counter "adam_steps") or, partially observed,
+        "gradient_matching" and "hparam_mle_unobserved", and
+        "cv_smoother"; each phase records the counters' change over it in
+        ``attrs["counts"]``. ``fit_timings`` is the view of its phases:
+        host wall seconds per phase name, each phase ending after the
+        device is waited for. ``verbose`` prints both.
 
         ``thetas_init`` (D_thetas,) skips the theta fit of a fully observed
         system and starts theta there. On dense grids the fit through
@@ -186,6 +197,19 @@ class MAGI_v2:
                 raise ValueError(
                     f"thetas_init must be {self.D_thetas} finite values, got "
                     f"{thetas_init!r}")
+        timer = PhaseTimer(self.config.torch_device, trace=True)
+        self.fit_timings = timer.phases
+        with timer.span("initial_fit", discretization=discretization):
+            self._fit_phases(timer, discretization, partial, thetas_init,
+                             verbose)
+        self.fit_trace = timer.export()
+        if verbose:
+            print(f"initial_fit phases (s): {self.fit_timings}; counters: "
+                  f"{timer.counts}")
+
+    def _fit_phases(self, timer, discretization, partial, thetas_init,
+                    verbose):
+        """``initial_fit``'s work, its phases timed by ``timer``."""
         cfg = self.config
         obs = self.observed_indicators
         self.I, self.X_obs_discret = preprocess.discretize(
@@ -205,7 +229,6 @@ class MAGI_v2:
             raise ValueError(
                 f"unknown hparam_fit_points {cfg.hparam_fit_points!r}"
             )
-        timings = self.fit_timings = {}
         hparams = lambda I, X: fit_kernel_hparams(
             I, X,
             nu=cfg.matern_nu,
@@ -214,77 +237,76 @@ class MAGI_v2:
             cholesky_jitter=cfg.cholesky_jitter,
             optimizer=cfg.hparam_optimizer,
             device=cfg.torch_device,
+            timer=timer,
         )
-        t0 = time.perf_counter()
-        hp = hparams(fit_I, fit_X)
-        timings["hparam_mle"] = time.perf_counter() - t0
+        with timer("hparam_mle", optimizer=cfg.hparam_optimizer):
+            hp = hparams(fit_I, fit_X)
         self.Xhat_init = self.X_obs_discret.copy()
         self.C_d_invs, self.m_ds, self.K_d_invs = (
             np.zeros((self.D, self.mag_I, self.mag_I)) for _ in range(3))
-        t0 = time.perf_counter()
-        self._set_components(self.observed_components, hp, self.X_interp_obs)
-        timings["kernel_matrices"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        with timer("kernel_matrices"):
+            self._set_components(self.observed_components, hp,
+                                 self.X_interp_obs)
         if partial:
-            X_smoothed_obs = preprocess.cv_cubic_smoother(
+            with timer("gradient_matching"):
+                X_smoothed_obs = preprocess.cv_cubic_smoother(
+                    self.I,
+                    self.X_interp_obs,
+                    n_splits=cfg.spline_cv_folds,
+                    obs_per_knot=cfg.spline_obs_per_knot,
+                    min_points=cfg.spline_min_points,
+                )
+                X_unobs, self.thetas_init, _ = \
+                    fit_unobserved_gradient_matching(
+                        self.f_vec,
+                        self._f64(self.I),
+                        self._f64(X_smoothed_obs),
+                        self.proper_order,
+                        self.D_unobserved,
+                        self.D_thetas,
+                        learning_rate=cfg.init_learning_rate,
+                        num_iters=cfg.init_num_iters,
+                        # the winner by the observed-manifold score (see
+                        # the JAX function), from the observed components'
+                        # operators
+                        observed_components=self.observed_components,
+                        m_ds_obs=self._f64(self.m_ds[obs]),
+                        K_invs_obs=self._f64(self.K_d_invs[obs]),
+                        mu_obs=self._f64(self.mu_ds[obs]),
+                        timer=timer,
+                    )
+            with timer("hparam_mle_unobserved",
+                       optimizer=cfg.hparam_optimizer):
+                hp_unobs = hparams(self.I, X_unobs)
+            with timer("kernel_matrices"):
+                self._set_components(self.unobserved_components, hp_unobs,
+                                     X_unobs)
+        else:
+            with timer("theta_init"):
+                if thetas_init is None:
+                    self.thetas_init, _ = fit_theta_fully_observed(
+                        self.f_vec,
+                        self._f64(self.I),
+                        self._f64(self.Xhat_init),
+                        self._f64(self.mu_ds),
+                        self._f64(self.m_ds),
+                        self._f64(self.K_d_invs),
+                        self.D_thetas,
+                        learning_rate=cfg.init_learning_rate,
+                        num_iters=cfg.init_num_iters,
+                        timer=timer,
+                    )
+                else:
+                    self.thetas_init = thetas_init.copy()
+        self._apply_band_truncation(verbose)
+        with timer("cv_smoother"):
+            self.Xhat_init = preprocess.cv_cubic_smoother(
                 self.I,
-                self.X_interp_obs,
+                self.Xhat_init,
                 n_splits=cfg.spline_cv_folds,
                 obs_per_knot=cfg.spline_obs_per_knot,
                 min_points=cfg.spline_min_points,
             )
-            X_unobs, self.thetas_init, _ = fit_unobserved_gradient_matching(
-                self.f_vec,
-                self._f64(self.I),
-                self._f64(X_smoothed_obs),
-                self.proper_order,
-                self.D_unobserved,
-                self.D_thetas,
-                learning_rate=cfg.init_learning_rate,
-                num_iters=cfg.init_num_iters,
-                # the winner by the observed-manifold score (see the JAX
-                # function), from the observed components' operators
-                observed_components=self.observed_components,
-                m_ds_obs=self._f64(self.m_ds[obs]),
-                K_invs_obs=self._f64(self.K_d_invs[obs]),
-                mu_obs=self._f64(self.mu_ds[obs]),
-            )
-            timings["gradient_matching"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            hp_unobs = hparams(self.I, X_unobs)
-            timings["hparam_mle_unobserved"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self._set_components(self.unobserved_components, hp_unobs,
-                                 X_unobs)
-            timings["kernel_matrices"] += time.perf_counter() - t0
-        elif thetas_init is None:
-            self.thetas_init, _ = fit_theta_fully_observed(
-                self.f_vec,
-                self._f64(self.I),
-                self._f64(self.Xhat_init),
-                self._f64(self.mu_ds),
-                self._f64(self.m_ds),
-                self._f64(self.K_d_invs),
-                self.D_thetas,
-                learning_rate=cfg.init_learning_rate,
-                num_iters=cfg.init_num_iters,
-            )
-            timings["theta_init"] = time.perf_counter() - t0
-        else:
-            self.thetas_init = thetas_init.copy()
-            timings["theta_init"] = time.perf_counter() - t0
-        self._apply_band_truncation(verbose)
-        t0 = time.perf_counter()
-        self.Xhat_init = preprocess.cv_cubic_smoother(
-            self.I,
-            self.Xhat_init,
-            n_splits=cfg.spline_cv_folds,
-            obs_per_knot=cfg.spline_obs_per_knot,
-            min_points=cfg.spline_min_points,
-        )
-        timings["cv_smoother"] = time.perf_counter() - t0
-        if verbose:
-            print(f"initial_fit phases (s): {timings}")
 
     def _set_components(self, comps, hp, X_init):
         """Write the fitted hyperparameters ``hp``, the initial
@@ -547,10 +569,16 @@ class MAGI_v2:
         ``dispatch_block_steps`` transitions and each sampling block's
         draws; calling predict again with the same arguments resumes bit
         for bit from the last block, and a checkpoint of another run is
-        refused (``sampler/run.py``). ``profile_timings`` fills
-        ``results["timings"]`` with the sampler's phase walls (the JAX
-        package's keys) and sampler_total_s, unwhiten_s, x_fetch_s,
-        post_total_s; it is None otherwise. ``stage_above_bytes``
+        refused (``sampler/run.py``). ``profile_timings`` traces the call
+        (``utils.profiling.PhaseTimer``: the spans below a root "predict",
+        the sampler's down to each transition, NUTS doubling and device
+        read, the graph replays' counters and, on one card, the device
+        markers of the sampling phase; ``sampler/run.py``) and fills
+        ``results["timings"]`` with its views, the sampler's phase walls
+        under the JAX package's keys and sampler_total_s, unwhiten_s,
+        x_fetch_s, post_total_s, and with the trace itself under "trace":
+        {"spans": [...], "counts": {...}, "fit": ``fit_trace``}; it is
+        None otherwise. ``stage_above_bytes``
         (default 1 GiB, ``SamplerConfig``): with ``dispatch_block_steps``,
         draws larger than this are staged to host memory block by block
         (0 stages always), the same bits either way; the unwhitening then
@@ -565,11 +593,13 @@ class MAGI_v2:
         ``anneal_mode="warmup_only"`` then runs unannealed. With
         num_chains > 1 the ``*_samps`` arrays carry a chain axis at
         position 1. Host wall seconds per phase land in
-        ``predict_timings`` (the device is waited for at the end of each):
-        the parts of the sampling setup ("setup_*", with "setup_rest" the
-        remainder), "map_warmstart" if asked for, "refresh_stage_a" and
-        "refresh_rebuild" with a refresh, "sampling" and "unwhiten" (the
-        draws' copy to the host comes after it)."""
+        ``predict_timings``, the view of the call's phase spans (the
+        device is waited for at the end of each): the parts of the sampling
+        setup ("setup_*", with "setup_rest" the span's remainder, its wall
+        less its parts'), "map_warmstart" if asked for, "refresh_stage_a"
+        and "refresh_rebuild" with a refresh, "sampling" and "unwhiten"
+        (the draws' copy to the host, the span "x_fetch", comes after
+        it)."""
         # a NumPy ladder too (its truth value is ambiguous)
         pt_betas = (tuple(float(b) for b in pt_betas)
                     if pt_betas is not None else None)
@@ -589,8 +619,9 @@ class MAGI_v2:
         sig_fix64, sigma_pre_fix = self._sigma_bounds(sigma_sqs_LB,
                                                       sigma_sqs_fixed)[1:]
         dense_tail_size = self._dense_tail_size(mass_matrix, sigma_sqs_fixed)
-        timer = PhaseTimer(dev)
+        timer = PhaseTimer(dev, trace=profile_timings)
         self.predict_timings = timer.phases
+        root = timer.open("predict")
         with timer("setup_rest"):
             mode, data, sigma_sqs_LB = self._build_sampling_setup(
                 reparam, storage, dtype, sigma_sqs_LB=sigma_sqs_LB,
@@ -688,6 +719,7 @@ class MAGI_v2:
                 torch.as_tensor(q0, dtype=dtype, device=dev),
                 seed,
                 sampler_config,
+                timer=timer,
             )
         if pt_betas and len(pt_betas) > 1:
             # only the beta = 1 rung (rung-major: the first M chains) draws
@@ -703,15 +735,13 @@ class MAGI_v2:
             if verbose:
                 print("[pt] swap acceptance per adjacent pair: "
                       f"{np.round(stats.pt_swap_accept.cpu().numpy(), 3)}")
-        t_post0 = time.perf_counter()
-        with timer("unwhiten"):
+        with timer("unwhiten") as unwhiten:
             Z, sigma_pre, theta_pre = unflatten_samples(
                 samples, self.mag_I, self.D, self.D_thetas
             )
             X_samps = unwhiten_draws(mode, Z, data.mu_ds)
-        t0 = time.perf_counter()
-        X_samps = X_samps.cpu().numpy()
-        fetch_s = time.perf_counter() - t0
+        with timer.span("x_fetch") as fetch:
+            X_samps = X_samps.cpu().numpy()
         minutes = np.round((time.time() - start) / 60, 2)
         squeeze = num_chains == 1
 
@@ -719,22 +749,27 @@ class MAGI_v2:
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             return a[:, 0] if squeeze else a
 
-        if sigma_sqs_fixed is not None:
-            # the pinned coordinates random-walk; report the known values
-            sigma_sqs_samps = np.broadcast_to(
-                sig_fix64, host(sigma_pre).shape).copy()
-        else:
-            sigma_sqs_samps = _np_softplus(host(sigma_pre)) + sigma_sqs_LB
-        thetas_samps = _np_softplus(host(theta_pre))
-        samples_np = samples.cpu().numpy()
+        with timer.span("host_copy") as host_copy:
+            if sigma_sqs_fixed is not None:
+                # the pinned coordinates random-walk; report the known
+                # values
+                sigma_sqs_samps = np.broadcast_to(
+                    sig_fix64, host(sigma_pre).shape).copy()
+            else:
+                sigma_sqs_samps = (_np_softplus(host(sigma_pre))
+                                   + sigma_sqs_LB)
+            thetas_samps = _np_softplus(host(theta_pre))
+            samples_np = samples.cpu().numpy()
+        timer.close(root)
         out_timings = None
         if profile_timings:
             out_timings = dict(stats.timings)
             out_timings.update(
                 sampler_total_s=timer.phases["sampling"],
                 unwhiten_s=timer.phases["unwhiten"],
-                x_fetch_s=fetch_s,
-                post_total_s=time.perf_counter() - t_post0,
+                x_fetch_s=(fetch.t1_ns - fetch.t0_ns) * 1e-9,
+                post_total_s=(host_copy.t1_ns - unwhiten.t0_ns) * 1e-9,
+                trace={**timer.export(), "fit": self.fit_trace},
             )
         return {
             "timings": out_timings,

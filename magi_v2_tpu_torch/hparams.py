@@ -24,6 +24,7 @@ from magi_v2_tpu_torch.ops.kernels import (
 from magi_v2_tpu_torch.init import adam_minimize
 from magi_v2_tpu_torch.ops.lbfgs import lbfgs_minimize
 from magi_v2_tpu_torch.posterior import softplus_inverse
+from magi_v2_tpu_torch.utils.profiling import untimed
 
 
 class FourierPrior(NamedTuple):
@@ -119,13 +120,15 @@ def fit_kernel_hparams(
     optimizer: str = "adam",
     *,
     device,
+    timer=untimed,
 ):
     """Fit (phi1s, phi2s, sigma_sqs) for each column of X_filled, in
     float64 on ``device``: Adam at ``learning_rate`` for ``num_iters``
     steps, or with ``optimizer="lbfgs"`` L-BFGS for at most
     min(num_iters, 200) iterations to a gradient sup-norm of 1e-5 (the
     objective's gradient is O(n) nats; ``learning_rate`` is then unused).
-    Returns host NumPy arrays like the JAX version."""
+    Returns host NumPy arrays like the JAX version; the optimizer counts
+    its steps in ``timer`` (``utils.profiling.PhaseTimer``)."""
     if optimizer not in ("adam", "lbfgs"):
         raise ValueError(
             f"optimizer must be 'adam' or 'lbfgs', got {optimizer!r}"
@@ -137,11 +140,12 @@ def fit_kernel_hparams(
     )
     if optimizer == "lbfgs":
         res = lbfgs_minimize(neg_map, params,
-                             num_iters=min(num_iters, 200), tol=1e-5)
+                             num_iters=min(num_iters, 200), tol=1e-5,
+                             timer=timer)
         params, losses = res.params, res.losses
     else:
         params, losses = adam_minimize(neg_map, params, learning_rate,
-                                       num_iters)
+                                       num_iters, timer)
     out = lambda p: F.softplus(p).cpu().numpy()
     return {
         "phi1s": out(params["phi1_pre"]),

@@ -20,15 +20,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magi_v2_tpu_torch.utils.profiling import untimed
 
-def adam_minimize(loss_fn, params: dict, learning_rate: float, num_iters: int):
+
+def adam_minimize(loss_fn, params: dict, learning_rate: float, num_iters: int,
+                  timer=untimed):
     """``num_iters`` Adam steps (eps=1e-7, the update of
     ``optax.adam(lr, eps=1e-7)``) on a dict of tensors; returns
     (params, losses (num_iters, ...) tensor). ``loss_fn`` may return a
     tensor of independent losses (one per start of a batch whose starts
     share no parameter): Adam minimizes their sum, which, Adam being
     elementwise, is each start's own Adam, and each is recorded. The loop
-    reads nothing back from the device."""
+    reads nothing back from the device. Each step taken adds one to
+    ``timer``'s counter "adam_steps" (``utils.profiling.PhaseTimer``)."""
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     opt = torch.optim.Adam(list(params.values()), lr=learning_rate, eps=1e-7)
@@ -38,6 +42,7 @@ def adam_minimize(loss_fn, params: dict, learning_rate: float, num_iters: int):
         loss = loss_fn(params)
         loss.sum().backward()
         opt.step()
+        timer.count("adam_steps")
         if losses is None:
             losses = loss.new_empty((num_iters,) + loss.shape)
         losses[i] = loss.detach()
@@ -54,11 +59,13 @@ def fit_theta_fully_observed(
     D_thetas: int,
     learning_rate: float = 0.01,
     num_iters: int = 10000,
+    timer=untimed,
 ):
     """theta MAP with X fixed: minimizes
     sum_d ||f_d(I, Xhat, theta) - m_d (x_d - mu_d)||^2_{K_d^{-1}}.
     Tensor inputs (float64, on the device to run on); returns
-    (thetas, losses) as host NumPy arrays like the JAX version."""
+    (thetas, losses) as host NumPy arrays like the JAX version; Adam's
+    steps are counted in ``timer``."""
     X_cent = (Xhat_init - mu_ds[None, :]).T                     # (D, N)
     m_prod = torch.einsum("dnm,dm->dn", m_ds, X_cent)
 
@@ -68,7 +75,8 @@ def fit_theta_fully_observed(
 
     theta0 = torch.full((D_thetas,), math.log(math.expm1(1.0)),
                         dtype=Xhat_init.dtype, device=Xhat_init.device)
-    p, losses = adam_minimize(loss, {"th": theta0}, learning_rate, num_iters)
+    p, losses = adam_minimize(loss, {"th": theta0}, learning_rate, num_iters,
+                              timer)
     return F.softplus(p["th"]).cpu().numpy(), losses.cpu().numpy()
 
 
@@ -99,14 +107,14 @@ def gradient_matching_starts(num_starts: int, N_I: int, D_unobserved: int,
 def run_gradient_matching(f_vec, I, X_obs_smoothed, proper_order, X_unobs0,
                           th_pre0, learning_rate: float, num_iters: int,
                           observed_components=None, m_ds_obs=None,
-                          K_invs_obs=None, mu_obs=None):
+                          K_invs_obs=None, mu_obs=None, timer=untimed):
     """Every start of the gradient-matching fit at once, on a leading
     axis: one Adam over the stacked (X_unobs, theta_pre) with the losses
     summed over starts. Returns (X_unobs (S, N, D_unobs), thetas (S, P),
     losses (num_iters, S), scores (S,)) as tensors; a start's score is its
     observed-manifold score sum_d ||f_d - m_d (x_d - mu_d)||^2_{K_d^{-1}}
     over the observed components when their operators are given, else its
-    final gradient-matching loss."""
+    final gradient-matching loss. Adam's steps are counted in ``timer``."""
     dev, dt = X_obs_smoothed.device, X_obs_smoothed.dtype
     order = torch.as_tensor(np.asarray(proper_order), dtype=torch.long,
                             device=dev)
@@ -125,7 +133,7 @@ def run_gradient_matching(f_vec, I, X_obs_smoothed, proper_order, X_unobs0,
 
     start = {"X_unobs": X_unobs0.to(device=dev, dtype=dt),
              "th_pre": th_pre0.to(device=dev, dtype=dt)}
-    p, losses = adam_minimize(loss, start, learning_rate, num_iters)
+    p, losses = adam_minimize(loss, start, learning_rate, num_iters, timer)
     with torch.no_grad():
         if m_ds_obs is not None and K_invs_obs is not None \
                 and mu_obs is not None and observed_components is not None:
@@ -158,6 +166,7 @@ def fit_unobserved_gradient_matching(
     K_invs_obs=None,
     mu_obs=None,
     starts=None,
+    timer=untimed,
 ):
     """Joint (X_unobs, theta) gradient-matching init of a partially
     observed system (magi_v2_tpu/init.py:fit_unobserved_gradient_matching):
@@ -170,7 +179,7 @@ def fit_unobserved_gradient_matching(
     ``starts`` (X_unobs0, theta_pre0) replaces the drawn starts
     (``gradient_matching_starts``). Returns (X_unobs (N_I, D_unobserved),
     thetas, losses (num_iters,)) as host NumPy arrays, like the JAX
-    version."""
+    version; Adam's steps are counted in ``timer``."""
     if starts is None:
         starts = gradient_matching_starts(num_starts, X_obs_smoothed.shape[0],
                                           D_unobserved, D_thetas,
@@ -179,7 +188,7 @@ def fit_unobserved_gradient_matching(
         f_vec, I, X_obs_smoothed, proper_order, *starts,
         learning_rate=learning_rate, num_iters=num_iters,
         observed_components=observed_components, m_ds_obs=m_ds_obs,
-        K_invs_obs=K_invs_obs, mu_obs=mu_obs)
+        K_invs_obs=K_invs_obs, mu_obs=mu_obs, timer=timer)
     best = int(torch.argmin(scores))
     return (X_unobs[best].cpu().numpy(), thetas[best].cpu().numpy(),
             losses[:, best].cpu().numpy())

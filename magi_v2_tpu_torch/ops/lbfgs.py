@@ -33,6 +33,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from magi_v2_tpu_torch.utils.profiling import untimed
+
 
 class LbfgsResult(NamedTuple):
     params: Any               # a dict like x0, or a tensor when x0 is one
@@ -99,13 +101,17 @@ def lbfgs_minimize(
     tol: float = 1e-8,
     c1: float = 1e-4,
     max_backtracks: int = 25,
+    timer=untimed,
 ) -> LbfgsResult:
     """Minimize the scalar ``fun`` from ``x0`` (a dict of tensors or a
     tensor), on x0's device and in its dtype. ``tol`` is on the sup-norm
     of the gradient; ``max_backtracks`` is the line search's budget of
     evaluations an iteration (bracketing and zoom together). A failed
     search ends the run at the current iterate, ``converged`` reporting
-    the gradient test only."""
+    the gradient test only. ``timer`` (``utils.profiling.PhaseTimer``)
+    counts the iterations ("lbfgs_iters"), the value-and-gradient
+    evaluations ("lbfgs_evals") and the reads of the device
+    ("lbfgs_reads")."""
     x, unflatten = _flatten(x0)
     n, dtype, dev = x.shape[0], x.dtype, x.device
     fdt = np.dtype(str(dtype).removeprefix("torch.")).type
@@ -115,6 +121,7 @@ def lbfgs_minimize(
     c1, c2 = fdt(c1), fdt(0.9)
 
     def value_and_grad(x):
+        timer.count("lbfgs_evals")
         leaf = x.detach().requires_grad_(True)
         with torch.enable_grad():
             f = fun(unflatten(leaf))
@@ -123,6 +130,7 @@ def lbfgs_minimize(
 
     def read(*scalars):
         """The one read of an evaluation: NumPy scalars of ``fdt``."""
+        timer.count("lbfgs_reads")
         return tuple(fdt(v) for v in torch.stack(scalars).cpu().numpy())
 
     def line_search(x, f0, g0, gn0, d):
@@ -201,6 +209,7 @@ def lbfgs_minimize(
         x, f, g, gn = x_new, f_new, g_new, gn_new
         done = bool(gn <= tol) or not ok
         iters += 1
+        timer.count("lbfgs_iters")
         losses.append(f)
     losses += [f] * (num_iters - iters)
     as_t = lambda v: torch.tensor(v, dtype=dtype, device=dev)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from magi_v2_tpu_torch.sampler.run import SamplerConfig, make_shards, run_chains
+from magi_v2_tpu_torch.utils.profiling import untimed
 
 
 def chain_mesh(devices=None) -> tuple:
@@ -52,7 +53,8 @@ def shard_chain_states(q0, mesh) -> list:
 
 
 def run_chains_sharded(tempered_logp_grad, q0, seed: int,
-                       config: SamplerConfig = SamplerConfig(), mesh=None):
+                       config: SamplerConfig = SamplerConfig(), mesh=None,
+                       timer=untimed):
     """``run_chains`` with the chain axis split over ``mesh`` (default:
     ``chain_mesh()``): the same arguments and the same result, (samples
     (num_results, C, dim), ChainStats), gathered on the mesh's first
@@ -63,4 +65,5 @@ def run_chains_sharded(tempered_logp_grad, q0, seed: int,
     if mesh is None:
         mesh = chain_mesh()
     shards = make_shards(tempered_logp_grad, q0.shape[0], mesh)
-    return run_chains(tempered_logp_grad, q0, seed, config, shards=shards)
+    return run_chains(tempered_logp_grad, q0, seed, config, shards=shards,
+                      timer=timer)

@@ -38,10 +38,20 @@ Two forms of one transition, which give the same bits:
   CPU it runs the same steps eagerly.
   A capture or replay that fails raises; there is no other path on the
   card.
+
+A bound transition's ``recorder`` (a ``utils.profiling.PhaseTimer``, set
+by ``run_chains`` when it traces; None otherwise) counts each step's
+replays ("replays.<step>") and the host ns spent in them
+("replay_ns.<step>", the whole of ``CapturedStep.replay``) into the
+trace; on the CPU the eager steps are counted alike. ``GRAPH_COUNTS``
+counts the card's replays of the process, whether or not a recorder is
+set.
 """
 
 from __future__ import annotations
 
+import gc
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -352,6 +362,24 @@ class CapturedStep:
                 counts[k] += n
 
 
+def run_step(bound, name: str) -> None:
+    """Step ``name`` of a bound transition (``BoundTransition``,
+    ``sampler/nuts.py:BoundNuts``): its graph's replay on the card, else
+    the step run eagerly; with the bound's ``recorder`` the replay (or
+    the eager step) and its host ns are counted under the step's name."""
+    rec = bound.recorder
+    t0 = None if rec is None else time.perf_counter_ns()
+    if bound.graphs is not None:
+        bound.graphs[name].replay()
+        GRAPH_COUNTS[name] += 1
+    else:
+        bound.steps[name]()
+    if rec is not None:
+        dt = time.perf_counter_ns() - t0
+        rec.count(f"replay_ns.{name}", dt)
+        rec.count(f"replays.{name}")
+
+
 def capture_steps(steps: dict, device) -> dict:
     """{name: CapturedStep} of the callables ``steps`` (each runs on the
     current stream and allocates nothing it keeps). Each runs once on the
@@ -359,7 +387,20 @@ def capture_steps(steps: dict, device) -> dict:
     shared-memory attribute, the card's SM count, cuBLAS's workspace) is
     made before any capture; the graphs share one memory pool. A capture
     records launches and runs none: its launch counts are taken back and
-    added at each replay instead."""
+    added at each replay instead. Python's garbage collector is held off
+    while the graphs are captured: a collection in a capture could free an
+    earlier run's graphs or events (cyclic garbage), a CUDA call that
+    invalidates the capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        return _capture_steps(steps, device)
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _capture_steps(steps: dict, device) -> dict:
     counters = _launch_counters()
     current = torch.cuda.current_stream(device)
     stream = torch.cuda.Stream(device)
@@ -448,6 +489,8 @@ class BoundTransition:
                       "next": leapfrog(later)}
         self.graphs = (capture_steps(self.steps, dev) if dev.type == "cuda"
                        else None)
+        # the trace recorder of the steps' replays (run_chains sets it)
+        self.recorder = None
 
     def _set_mass(self, inv_mass) -> None:
         diag, tail_inv, k = _mass_parts(inv_mass)
@@ -460,11 +503,7 @@ class BoundTransition:
         self._mass_src = inv_mass
 
     def _step(self, name: str) -> None:
-        if self.graphs is None:
-            self.steps[name]()
-        else:
-            self.graphs[name].replay()
-            GRAPH_COUNTS[name] += 1
+        run_step(self, name)
 
     def __call__(self, q, step_size, inv_mass, beta_temp, num_leapfrogs: int,
                  normals, uniforms, max_energy_diff: float = 1000.0):

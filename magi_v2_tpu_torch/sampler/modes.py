@@ -511,7 +511,7 @@ def refresh_gn_anchor(mode: SamplingMode, model, q0, num_chains: int,
             mode.logp_grad,
             torch.as_tensor(np.asarray(q0), dtype=dtype,
                             device=model.config.torch_device),
-            seed + 1000, cfg_a,
+            seed + 1000, cfg_a, timer=timer,
         )
     qs_a = samples_a[-1].to(model.config.torch_device)
     with timer("refresh_rebuild"):

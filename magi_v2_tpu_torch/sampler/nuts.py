@@ -33,7 +33,11 @@ initial kinetic energy and the trajectory's state), a doubling's prologue
 (the acceptance across subtrees, the endpoints, the whole-trajectory
 U-turn), and replays them: 2^d leaves in doubling d whatever the chains
 do (the masked leaves cost a leaf's time each), and one read of the
-device per doubling, whether any chain goes on. The leaf index and the
+device per doubling, whether any chain goes on. With a ``recorder``
+(``utils.profiling.PhaseTimer``, set by ``run_chains`` when it traces)
+each doubling is a "doubling" span with device markers at its start
+(before its prologue's replay) and its end (after its epilogue's), and
+its read a "device_read" span. The leaf index and the
 doubling live on the device. On the CPU, or for any other callable, the
 same steps run eagerly: ``nuts_step`` is that form, and gives the same
 bits.
@@ -48,12 +52,12 @@ import torch
 from magi_v2_tpu_torch.ops.banded import launch_stream
 from magi_v2_tpu_torch.ops.nuts import bind_nuts_leaf
 from magi_v2_tpu_torch.sampler.hmc import (
-    GRAPH_COUNTS,
     _mass_parts,
     bind_leapfrog,
     capture_steps,
     check_per_chain,
     padded_tail,
+    run_step,
 )
 from magi_v2_tpu_torch.sampler.mass import TailDenseMass, momentum_from_normal
 
@@ -178,6 +182,9 @@ class BoundNuts:
         self.graphs = (capture_steps(self.steps, dev)
                        if dev.type == "cuda" and hasattr(target, "bind")
                        else None)
+        # the trace recorder of the steps and doublings (run_chains sets
+        # it)
+        self.recorder = None
 
     def _root(self, k2_root):
         def run():
@@ -254,11 +261,20 @@ class BoundNuts:
         self._mass_src = inv_mass
 
     def _step(self, name: str) -> None:
-        if self.graphs is None:
-            self.steps[name]()
-        else:
-            self.graphs[name].replay()
-            GRAPH_COUNTS[name] += 1
+        run_step(self, name)
+
+    def _traced_end(self, rec, span, d: int) -> bool:
+        """The end of doubling ``d`` under a recorder: its end marker
+        (after its epilogue's replay), its device read in a span of its
+        own, and the span's close. Whether the transition stops."""
+        rec.mark(span, "dev_t1_ns")
+        stop = d + 1 == self.cfg.max_tree_depth
+        if not stop:
+            read = rec.open("device_read")
+            stop = not bool(self.going)
+            rec.close(read)
+        rec.close(span)
+        return stop
 
     def __call__(self, q, step_size, inv_mass, beta_temp, noise: NutsNoise,
                  on_doubling=None):
@@ -281,15 +297,22 @@ class BoundNuts:
         self._step("nuts_start")
         self.p.copy_(momentum_from_normal(inv_mass, noise.normals))
         self._step("nuts_root")
+        rec = self.recorder
         for d in range(self.cfg.max_tree_depth):
+            if rec is not None:
+                span = rec.open("doubling", depth=d)
+                rec.mark(span, "dev_t0_ns")
             self._step("nuts_prologue")
             for _ in range(1 << d):
                 self._step("nuts_leaf")
             if on_doubling is not None:
                 on_doubling(d)
             self._step("nuts_epilogue")
+            if rec is not None:
+                if self._traced_end(rec, span, d):
+                    break
             # the one read of the device in a doubling
-            if d + 1 < self.cfg.max_tree_depth and not bool(self.going):
+            elif d + 1 < self.cfg.max_tree_depth and not bool(self.going):
                 break
         n = torch.clamp(self.n_leaves, min=1).to(self.lsw.dtype)
         info = NutsInfo(accept_prob=self.sum_alpha / n,

@@ -29,9 +29,20 @@ accumulators, the inverse mass (each tensor with its strides), the step
 size, the device generator's state, the host NumPy generator's (HMC's
 trajectory lengths) and, under PT, the swap counters; the bound
 transitions are rebuilt on resume. A fingerprint of the run refuses a
-checkpoint of another. ``profile_timings`` fills ``ChainStats.timings``
-with the JAX package's keys, each wall read after the device is waited
-for.
+checkpoint of another.
+
+``profile_timings`` traces the run into a ``utils.profiling.PhaseTimer``
+(the caller's ``timer``, or one of its own): spans ``eps_init``,
+``warmup`` and ``sample`` (each waiting for the device at its end; the
+last two hold Python's garbage collector off, see ``PhaseTimer.span``),
+their ``block`` spans (waiting too), a ``transition`` span per
+transition (a NUTS ``doubling`` per doubling, its device read a
+``device_read`` span), the ``sample`` span's ``stage`` and ``drain``, and
+the bound transitions' replay counters. On one card the ``warmup`` and
+``sample`` spans' transitions and doublings carry device markers
+(``dev_t0_ns``, ``dev_t1_ns``: where the card reached the start and the
+end of their work, on the host clock). ``ChainStats.timings`` is the view
+of those spans under the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -40,7 +51,6 @@ import hashlib
 import json
 import math
 import os
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -60,6 +70,7 @@ from magi_v2_tpu_torch.sampler.pt import (
     rung_temperatures,
     swap_acceptance,
 )
+from magi_v2_tpu_torch.utils.profiling import PhaseTimer, untimed
 from magi_v2_tpu_torch.sampler.mass import (
     TailDenseMass,
     identity_mass,
@@ -138,8 +149,9 @@ class SamplerConfig(NamedTuple):
     # directory for mid-run checkpoint/resume ("" = off; see the module's
     # docstring)
     checkpoint_path: str = ""
-    # phase walls in ChainStats.timings, each after a device sync (the syncs
-    # cost the host's lead over the card: keep off in production)
+    # the run's trace (the module's docstring) and ChainStats.timings, its
+    # phase spans each after a device sync (the syncs cost the host's lead
+    # over the card: keep off in production)
     profile_timings: bool = False
     # the JAX package's stage_above_bytes: with dispatch blocks, draws whose
     # total (num_results * C * dim * itemsize) exceeds this many bytes are
@@ -256,6 +268,42 @@ class ChainStats(NamedTuple):
     # sample_first_dispatch_s, sample_stage_s (the host's time in the
     # device-to-host copies of staged blocks), staged_bytes, sample_drain_s
     timings: dict | None = None
+
+
+def sampler_timings(spans: list, parent) -> dict:
+    """``ChainStats.timings`` (the JAX package's keys) as the view of one
+    run's ``spans`` (``utils.profiling.Span``) whose top spans are the
+    children of span id ``parent`` (None: roots): eps_init_s, warmup_s and
+    warmup_block_walls_s where warmup ran in this call, block_walls_s
+    where a sampling block did; sample_total_s (the ``sample`` span, its
+    drain included), sample_drain_s, sample_dispatch_s (its blocks),
+    sample_first_dispatch_s, sample_stage_s (its ``stage`` spans) and
+    staged_bytes (its counter)."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    sec = lambda s: (s.t1_ns - s.t0_ns) * 1e-9
+    top = {s.name: s for s in kids.get(parent, [])}
+    named = lambda s, name: [sec(c) for c in kids.get(s.id, [])
+                             if c.name == name]
+    out = {}
+    if "eps_init" in top:
+        out["eps_init_s"] = sec(top["eps_init"])
+    if "warmup" in top:
+        if named(top["warmup"], "block"):
+            out["warmup_block_walls_s"] = named(top["warmup"], "block")
+        out["warmup_s"] = sec(top["warmup"])
+    sample = top["sample"]
+    blocks = named(sample, "block")
+    if blocks:
+        out["block_walls_s"] = blocks
+    out["sample_drain_s"] = sum(named(sample, "drain"))
+    out["sample_total_s"] = sec(sample)
+    out["sample_dispatch_s"] = float(sum(blocks))
+    out["sample_first_dispatch_s"] = blocks[0] if blocks else None
+    out["sample_stage_s"] = float(sum(named(sample, "stage")))
+    out["staged_bytes"] = sample.attrs["counts"].get("staged_bytes", 0)
+    return out
 
 
 def _blocks(total: int, block_steps: int, transitions_per_step: int = 1):
@@ -453,6 +501,7 @@ def run_chains(
     seed: int,
     config: SamplerConfig = SamplerConfig(),
     shards: list | None = None,
+    timer=untimed,
 ):
     """Warmup + sampling of C chains with ``config.algorithm``: "nuts"
     (``nuts.BoundNuts``) or "hmc" (jittered fixed-length HMC).
@@ -489,7 +538,10 @@ def run_chains(
     trajectory lengths from a NumPy generator on the host with the same
     seed. So a sharded run draws what the unsharded one draws.
     ``config.dispatch_block_steps``, ``checkpoint_path`` and
-    ``profile_timings``: see the module's docstring.
+    ``profile_timings``: see the module's docstring; with
+    ``profile_timings`` the run's spans go into ``timer`` where it traces
+    (a ``PhaseTimer`` made with ``trace=True``), under the span open there
+    now, else into a recorder of the run's own.
     """
     if config.algorithm not in ("nuts", "hmc"):
         raise ValueError(f"unknown algorithm {config.algorithm!r}; expected "
@@ -505,6 +557,13 @@ def run_chains(
     single = len(shards) == 1
     betas = check_ladder(config, C)
     pt = betas is not None
+    rec = None
+    if config.profile_timings:
+        # its spans wait for the first shard's device: the states are
+        # gathered there every transition, after every shard's work
+        rec = timer if timer.trace else PhaseTimer(dev, trace=True)
+        first_span, parent = len(rec.spans), rec.innermost()
+    span = untimed.span if rec is None else rec.span
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     host_rng = np.random.default_rng(int(seed))
@@ -614,6 +673,17 @@ def run_chains(
             uniforms = torch.rand((C,), generator=gen, dtype=dtype,
                                   device=dev)
             noise = (draw_num_leapfrogs(), normals, uniforms)
+        if rec is None:
+            return step_all(qs, eps, inv_mass, beta_temp, noise)
+        s = rec.open("transition", step=step)
+        rec.mark(s, "dev_t0_ns")
+        out = step_all(qs, eps, inv_mass, beta_temp, noise)
+        rec.mark(s, "dev_t1_ns")
+        rec.close(s)
+        return out
+
+    def step_all(qs, eps, inv_mass, beta_temp, noise):
+        """One transition of every shard's chains, gathered."""
         if single:
             return shard_step(0, qs, eps, inv_mass, beta_temp, noise)
         per = shard_masses(inv_mass)
@@ -643,12 +713,6 @@ def run_chains(
     ck = config.checkpoint_path
     fingerprint = _ckpt_fingerprint(config, C, dim, seed, q0) if ck else ""
     resume = _ckpt_load_state(ck, fingerprint) if ck else None
-    timings = {} if config.profile_timings else None
-
-    def sync():
-        for d in {sh.device for sh in shards}:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
 
     def restore(arrays, name):
         return _ckpt_tensor(arrays, name, dev)
@@ -675,8 +739,21 @@ def run_chains(
                                               per_chain=pt))
             else:
                 bounds.append(None)
+        for b in bounds:
+            if b is not None:
+                b.recorder = rec
 
     T = config.num_results
+
+    def anchor():
+        """The device markers' start before the first sampling phase
+        that runs (``PhaseTimer.anchor`` starts them once), with an event
+        for each marker the run can make: two a transition, two a
+        doubling."""
+        if rec is not None and single:
+            per = 2 + (2 * config.max_tree_depth if nuts else 0)
+            rec.anchor((B + T * config.thin) * per)
+
     sample_done = 0
     swap = swap_counts = None
 
@@ -710,74 +787,71 @@ def run_chains(
             inv_mass = _ckpt_mass(arrays, dev)
             set_rng_state(arrays)
         else:
-            t0 = time.perf_counter()
-            inv_mass = identity_mass(dim, k, dtype, dev)
-            eps0 = find_reasonable_step_size(
-                lambda q: tempered_logp_grad(q, temps[0]), q0[:1], gen,
-                inv_mass, config.initial_step_size,
-            )
-            if timings is not None:
-                sync()
-                timings["eps_init_s"] = time.perf_counter() - t0
+            with span("eps_init", wait=True):
+                inv_mass = identity_mass(dim, k, dtype, dev)
+                eps0 = find_reasonable_step_size(
+                    lambda q: tempered_logp_grad(q, temps[0]), q0[:1], gen,
+                    inv_mass, config.initial_step_size,
+                )
             da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
             wf = welford_init(dim, dtype, dev)
             wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
             qs, warmup_done = q0, 0
-        t_warm0 = time.perf_counter()
-        for start, size in _blocks(B, config.dispatch_block_steps):
-            if start + size <= warmup_done:
-                continue
-            if bounds is None:
-                make_bound(inv_mass)
-            t_blk = time.perf_counter()
-            for step in range(start, start + size):
-                eps = torch.exp(da.log_step if da.count < num_adapt
-                                else da.log_step_avg)
-                qs, info = transition(qs, eps, inv_mass, step)
-                progress("warmup", step, eps, info)
-                if step < num_adapt:
-                    da = da_update(da, torch.mean(info.accept_prob),
-                                   config.target_accept)
-                if not adapt_mass:
+        anchor()
+        with span("warmup", wait=True, hold_gc=True):
+            for start, size in _blocks(B, config.dispatch_block_steps):
+                if start + size <= warmup_done:
                     continue
-                in_window = win_lo <= step < win_hi or (
-                    two_windows and win2_lo <= step < win2_hi)
-                if in_window:
-                    wf = welford_add_batch(wf, qs)
-                    if wf_tail is not None:
-                        wf_tail = welford_cov_add_batch(wf_tail, qs[:, -k:])
-                if step == win_hi or (two_windows and step == win2_hi):
-                    var = welford_variance(wf)
-                    if wf_tail is None:
-                        inv_mass = var
-                    else:
-                        cov = welford_covariance(wf_tail,
-                                                 config.dense_shrinkage)
-                        if (two_windows and config.mass_window1_diag
-                                and step == win_hi):
-                            cov = torch.diag(torch.diag(cov))
-                        inv_mass = mass_from_moments(var, cov)
-                    # restart dual averaging around the current step size
-                    # and the accumulators for a second window
-                    da = da_init(torch.exp(da.log_step))
-                    wf = welford_init(dim, dtype, dev)
-                    wf_tail = (welford_cov_init(k, dtype, dev) if k > 0
-                               else None)
-            if timings is not None:
-                sync()
-                timings.setdefault("warmup_block_walls_s", []).append(
-                    time.perf_counter() - t_blk)
-            if ck:
-                _ckpt_save_state(ck, "warmup", start + size, {
-                    "qs": qs, **{f"da_{f}": getattr(da, f)
-                                 for f in DAState._fields},
-                    **_welford_items("wf", wf),
-                    **_welford_items("wf_tail", wf_tail),
-                    **_mass_items(inv_mass), **rng_state()}, fingerprint)
-        eps_final = torch.exp(da.log_step_avg)
-        if timings is not None:
-            sync()
-            timings["warmup_s"] = time.perf_counter() - t_warm0
+                if bounds is None:
+                    make_bound(inv_mass)
+                with span("block", wait=True):
+                    for step in range(start, start + size):
+                        eps = torch.exp(da.log_step
+                                        if da.count < num_adapt
+                                        else da.log_step_avg)
+                        qs, info = transition(qs, eps, inv_mass, step)
+                        progress("warmup", step, eps, info)
+                        if step < num_adapt:
+                            da = da_update(da,
+                                           torch.mean(info.accept_prob),
+                                           config.target_accept)
+                        if not adapt_mass:
+                            continue
+                        in_window = win_lo <= step < win_hi or (
+                            two_windows and win2_lo <= step < win2_hi)
+                        if in_window:
+                            wf = welford_add_batch(wf, qs)
+                            if wf_tail is not None:
+                                wf_tail = welford_cov_add_batch(
+                                    wf_tail, qs[:, -k:])
+                        if step == win_hi or (two_windows
+                                              and step == win2_hi):
+                            var = welford_variance(wf)
+                            if wf_tail is None:
+                                inv_mass = var
+                            else:
+                                cov = welford_covariance(
+                                    wf_tail, config.dense_shrinkage)
+                                if (two_windows
+                                        and config.mass_window1_diag
+                                        and step == win_hi):
+                                    cov = torch.diag(torch.diag(cov))
+                                inv_mass = mass_from_moments(var, cov)
+                            # restart dual averaging around the current
+                            # step size and the accumulators for a second
+                            # window
+                            da = da_init(torch.exp(da.log_step))
+                            wf = welford_init(dim, dtype, dev)
+                            wf_tail = (welford_cov_init(k, dtype, dev)
+                                       if k > 0 else None)
+                if ck:
+                    _ckpt_save_state(ck, "warmup", start + size, {
+                        "qs": qs, **{f"da_{f}": getattr(da, f)
+                                     for f in DAState._fields},
+                        **_welford_items("wf", wf),
+                        **_welford_items("wf_tail", wf_tail),
+                        **_mass_items(inv_mass), **rng_state()}, fingerprint)
+            eps_final = torch.exp(da.log_step_avg)
         if pt:
             swap_counts = tuple(torch.zeros((len(betas) - 1,),
                                             dtype=torch.int32, device=dev)
@@ -835,13 +909,10 @@ def run_chains(
         copied = [None] * nbuf
         if nbuf == 2:
             copy_stream = torch.cuda.Stream(dev)
-    staged = {"dispatch_s": 0.0, "first_dispatch_s": None, "stage_s": 0.0,
-              "staged_bytes": 0}
 
     def stage(j, start, size, views):
         """Block [start, start + size)'s draws and stats, from device
         buffer j into the host arrays."""
-        t0 = time.perf_counter()
         if copy_stream is None:
             for name, v in views.items():
                 per_draw[name][start:start + size].copy_(v)
@@ -853,94 +924,88 @@ def run_chains(
                     per_draw[name][start:start + size].copy_(
                         v, non_blocking=True)
                 copied[j] = copy_stream.record_event()
-        staged["stage_s"] += time.perf_counter() - t0
-        staged["staged_bytes"] += sum(v.numel() * v.element_size()
-                                      for v in views.values()) + (
-            0 if nuts else num_leapfrogs[start:start + size].nbytes)
+        if rec is not None:
+            rec.count("staged_bytes", sum(
+                v.numel() * v.element_size() for v in views.values()) + (
+                0 if nuts else num_leapfrogs[start:start + size].nbytes))
 
-    t_sample0 = time.perf_counter()
-    for b, (start, size) in enumerate(blocks):
-        end = start + size
-        if ck and end <= sample_done:
-            loaded = _ckpt_load_draws(ck, start)
-            if loaded is None:
-                raise FileNotFoundError(
-                    f"checkpoint state at {ck!r} marks block {start} "
-                    f"complete but draws_{start:06d}.npz is missing; delete "
-                    "state.npz to restart")
-            samples[start:end] = torch.from_numpy(loaded[0])
-            for name, arr in info_arrays.items():
-                arr[start:end] = (torch.from_numpy(loaded[1][name])
-                                  if isinstance(arr, torch.Tensor)
-                                  else loaded[1][name])
-            continue
-        if bounds is None:
-            make_bound(inv_mass)
-        if pt and swap is None:
-            swap = BoundSwap(tempered_logp_grad, q0, betas)
-            swap.prop.copy_(swap_counts[0])
-            swap.accs.copy_(swap_counts[1])
-        if stage_host:
-            j = b % len(bufs)
-            if copied[j] is not None:
-                # the buffer's last copy must be done before it is rewritten
-                torch.cuda.current_stream(dev).wait_event(copied[j])
-            views = {name: buf[:size] for name, buf in bufs[j].items()}
-        else:
-            views = {name: a[start:end] for name, a in per_draw.items()}
-        t0 = time.perf_counter()
-        for i in range(start, end):
-            for t in range(config.thin):
-                step = B + i * config.thin + t
-                if not pt:
-                    qs, info = transition(qs, eps_final, inv_mass, step)
-                else:
-                    qs, info = transition(qs, eps_s, inv_mass, step, beta_s)
-                    rel = step - B
-                    if (rel + 1) % config.pt_swap_every == 0:
-                        u = torch.rand((len(betas) - 1, C // len(betas)),
-                                       generator=gen, dtype=dtype, device=dev)
-                        qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
-                progress("sample", step, eps_final, info)
-            n = i - start
-            views["samples"][n] = qs
-            views["accept"][n] = info.accept_prob
-            views["diverging"][n] = info.diverging
-            if nuts:
-                views["num_leapfrogs"][n] = info.num_leapfrogs
-                views["depths"][n] = info.depth
+    anchor()
+    with span("sample", wait=True, hold_gc=True):
+        for b, (start, size) in enumerate(blocks):
+            end = start + size
+            if ck and end <= sample_done:
+                loaded = _ckpt_load_draws(ck, start)
+                if loaded is None:
+                    raise FileNotFoundError(
+                        f"checkpoint state at {ck!r} marks block {start} "
+                        f"complete but draws_{start:06d}.npz is missing; "
+                        "delete state.npz to restart")
+                samples[start:end] = torch.from_numpy(loaded[0])
+                for name, arr in info_arrays.items():
+                    arr[start:end] = (torch.from_numpy(loaded[1][name])
+                                      if isinstance(arr, torch.Tensor)
+                                      else loaded[1][name])
+                continue
+            if bounds is None:
+                make_bound(inv_mass)
+            if pt and swap is None:
+                swap = BoundSwap(tempered_logp_grad, q0, betas)
+                swap.prop.copy_(swap_counts[0])
+                swap.accs.copy_(swap_counts[1])
+            if stage_host:
+                j = b % len(bufs)
+                if copied[j] is not None:
+                    # the buffer's last copy must be done before it is
+                    # rewritten
+                    torch.cuda.current_stream(dev).wait_event(copied[j])
+                views = {name: buf[:size] for name, buf in bufs[j].items()}
             else:
-                num_leapfrogs[i] = info.num_leapfrogs
-        if timings is not None:
-            sync()
-            timings.setdefault("block_walls_s", []).append(
-                time.perf_counter() - t0)
-        wall = time.perf_counter() - t0
-        staged["dispatch_s"] += wall
-        if staged["first_dispatch_s"] is None:
-            staged["first_dispatch_s"] = wall
-        if stage_host:
-            stage(j, start, size, views)
-        if ck:
-            # the block's draws, on the host, to disk with the carry
-            i_blk = {name: (arr[start:end].numpy()
-                            if isinstance(arr, torch.Tensor)
-                            else arr[start:end].copy())
-                     for name, arr in info_arrays.items()}
-            _ckpt_save_draws(ck, start, samples[start:end].numpy(), i_blk)
-            _ckpt_save_state(ck, "sample", end, sample_carry(), fingerprint)
-
-    if timings is not None:
-        t0 = time.perf_counter()
-        sync()
-        if copy_stream is not None:
-            copy_stream.synchronize()
-        timings["sample_drain_s"] = time.perf_counter() - t0
-        timings["sample_total_s"] = time.perf_counter() - t_sample0
-        timings["sample_dispatch_s"] = staged["dispatch_s"]
-        timings["sample_first_dispatch_s"] = staged["first_dispatch_s"]
-        timings["sample_stage_s"] = staged["stage_s"]
-        timings["staged_bytes"] = staged["staged_bytes"]
+                views = {name: a[start:end] for name, a in per_draw.items()}
+            with span("block", wait=True):
+                for i in range(start, end):
+                    for t in range(config.thin):
+                        step = B + i * config.thin + t
+                        if not pt:
+                            qs, info = transition(qs, eps_final, inv_mass,
+                                                  step)
+                        else:
+                            qs, info = transition(qs, eps_s, inv_mass, step,
+                                                  beta_s)
+                            rel = step - B
+                            if (rel + 1) % config.pt_swap_every == 0:
+                                u = torch.rand(
+                                    (len(betas) - 1, C // len(betas)),
+                                    generator=gen, dtype=dtype, device=dev)
+                                qs = swap(qs, u,
+                                          (rel // config.pt_swap_every) % 2)
+                        progress("sample", step, eps_final, info)
+                    n = i - start
+                    views["samples"][n] = qs
+                    views["accept"][n] = info.accept_prob
+                    views["diverging"][n] = info.diverging
+                    if nuts:
+                        views["num_leapfrogs"][n] = info.num_leapfrogs
+                        views["depths"][n] = info.depth
+                    else:
+                        num_leapfrogs[i] = info.num_leapfrogs
+            if stage_host:
+                with span("stage"):
+                    stage(j, start, size, views)
+            if ck:
+                # the block's draws, on the host, to disk with the carry
+                i_blk = {name: (arr[start:end].numpy()
+                                if isinstance(arr, torch.Tensor)
+                                else arr[start:end].copy())
+                         for name, arr in info_arrays.items()}
+                _ckpt_save_draws(ck, start, samples[start:end].numpy(),
+                                 i_blk)
+                _ckpt_save_state(ck, "sample", end, sample_carry(),
+                                 fingerprint)
+        with span("drain", wait=True):
+            if rec is not None and copy_stream is not None:
+                copy_stream.synchronize()
+    if rec is not None:
+        rec.resolve_marks()
     if copy_stream is not None:
         # the host arrays are read from here on
         copy_stream.synchronize()
@@ -960,6 +1025,7 @@ def run_chains(
         depths=depths,
         tail_inv_mass=mass_tail_inv(inv_mass),
         pt_swap_accept=swap_acceptance(*counts, dtype) if pt else None,
-        timings=timings,
+        timings=(None if rec is None
+                 else sampler_timings(rec.spans[first_span:], parent)),
     )
     return samples, stats

@@ -8,7 +8,9 @@ arrays (e.g. taken from a fitted JAX model). Either way the port samples
 the same posterior, from the same operators, as the model the arrays came
 from. ``save_results``/``load_results`` keep a predict() results dict with
 its nested dicts flattened to "kernel_results.<key>" (and
-"timings.<key>"), None entries omitted.
+"timings.<key>"), None entries omitted; the trace of a profiled call
+(``timings["trace"]``) describes the run, not its result, and is not
+kept.
 """
 
 from __future__ import annotations
@@ -98,12 +100,13 @@ _NESTED = ("kernel_results", "timings")
 def save_results(results: dict, path: str) -> None:
     """Persist a predict() results dict, compressed; nested dicts are
     flattened and None entries (e.g. tail_inv_mass without a dense tail)
-    omitted."""
+    omitted, as is the trace of a profiled call."""
     arrays = {}
     for k, v in results.items():
         if k in _NESTED and isinstance(v, dict):
             for kk, vv in v.items():
-                if vv is not None:
+                if vv is not None and not (k == "timings"
+                                           and kk == "trace"):
                     arrays[f"{k}.{kk}"] = np.asarray(vv)
         elif v is not None:
             arrays[k] = np.asarray(v)

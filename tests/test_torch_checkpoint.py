@@ -278,10 +278,11 @@ def test_profile_timings_keys_match_jax(models):
               profile_timings=True)
     tt = tm.predict(**kw)["timings"]
     jt = jm.predict(**kw)["timings"]
-    assert set(tt) == set(jt)
+    # every JAX key, and the port's trace beside them
+    assert set(jt) <= set(tt) and set(tt) - set(jt) == {"trace"}
     assert len(tt["block_walls_s"]) == len(jt["block_walls_s"]) == 2
     assert len(tt["warmup_block_walls_s"]) == 2
-    assert all(v >= 0 for k, v in tt.items() if not k.endswith("walls_s"))
+    assert all(tt[k] >= 0 for k in jt if not k.endswith("walls_s"))
 
 
 def test_sampler_report_matches_jax(models):
@@ -353,7 +354,9 @@ def test_results_files_cross_packages(models, tmp_path, mass_matrix):
                 assert k not in kr
             else:
                 np.testing.assert_array_equal(kr[k], v)
-    assert tck.load_results(path)["timings"].keys() == res["timings"].keys()
+    # the trace describes the run, not its result: it is not saved
+    assert tck.load_results(path)["timings"].keys() == (
+        res["timings"].keys() - {"trace"})
     jres = {k: v for k, v in res.items() if k != "timings"}
     jck.save_results(jres, path)
     back = tck.load_results(path)

@@ -29,6 +29,7 @@ from magi_v2_tpu_torch.models import seir_f_vec as tseir
 from magi_v2_tpu_torch.sampler.modes import refresh_gn_anchor as trefresh
 from magi_v2_tpu_torch.sampler.run import SamplerConfig
 from magi_v2_tpu_torch.utils.checkpoint import FIT_FIELDS, from_fit_arrays
+from magi_v2_tpu_torch.utils.profiling import untimed
 
 torch.set_num_threads(2)
 
@@ -158,7 +159,7 @@ def test_post_stage_a_matches_jax(fitted, monkeypatch, storage, restart):
         calls.append(("jax", cfg))
         return jnp.asarray(qs_a)[None], None
 
-    def port_stage_a(lp, q0, seed, cfg):
+    def port_stage_a(lp, q0, seed, cfg, timer=None):
         calls.append(("port", cfg, seed))
         return torch.as_tensor(qs_a)[None], None
 
@@ -242,9 +243,9 @@ def test_stage_b_annealing(fitted, monkeypatch, anneal_mode,
     seen = []
     real = trun.run_chains
 
-    def recording(lp, q0, seed, cfg, shards=None):
+    def recording(lp, q0, seed, cfg, shards=None, timer=untimed):
         seen.append(cfg)
-        return real(lp, q0, seed, cfg, shards)
+        return real(lp, q0, seed, cfg, shards, timer)
 
     monkeypatch.setattr(trun, "run_chains", recording)
     monkeypatch.setattr(tapi, "run_chains", recording)

@@ -196,7 +196,7 @@ def test_unported_branches_raise(seir_data):
     assert T.MagiConfig().max_tree_depth == 10
     seen = {}
 
-    def record(target, q0, seed, config):
+    def record(target, q0, seed, config, timer=None):
         seen["config"] = config
         raise StopIteration
 
