@@ -169,8 +169,9 @@ class MAGI_v2:
         ``fit_trace``: a root span "initial_fit" and its phases
         "hparam_mle" (attribute ``optimizer``; counters "lbfgs_iters",
         "lbfgs_evals", "lbfgs_reads" or "adam_steps"), "kernel_matrices",
-        "theta_init" (counter "adam_steps") or, partially observed,
-        "gradient_matching" and "hparam_mle_unobserved", and
+        "theta_init" (counter "adam_steps", and on a card
+        "adam_graph_steps") or, partially observed, "gradient_matching"
+        (the same counters) and "hparam_mle_unobserved", and
         "cv_smoother"; each phase records the counters' change over it in
         ``attrs["counts"]``. ``fit_timings`` is the view of its phases:
         host wall seconds per phase name, each phase ending after the
