@@ -8,7 +8,8 @@ the cell's own recipe and size as the window drives it, with one of its
 sampling transitions captured as a run captures them, judged as a run
 judges its calls (``harness/judge.py``); the same call under each planted
 fault (``harness/faults.py``: stuck, half, altered, energy, kick;
-unfitted, a fit of its own, read by ``fit_grad`` alone); and the control:
+truncated and truncated_k in hybrid storage; unfitted, a fit of its own,
+read by ``fit_grad`` alone); and the control:
 the reference itself in the program's place, computed in the precision
 below the configuration's (``judge.control_precision``: TF32 on the card
 for float32), on the sound call's captured states and whitened draws.
@@ -42,15 +43,17 @@ def readings(cell_name: str, seed: int, device: str = "cuda",
     N, D = model.mag_I, model.D
     pick = judge.picks(seed, int(recipe["num_burnin_steps"]),
                        int(recipe["num_results"]), calls=(0,))
-    names = tuple(planted.FAULTS if faults is None else faults)
+    known = planted.for_storage(recipe.get("storage", "dense"))
+    names = tuple(known if faults is None else faults)
     calls = {}
     for name in ("sound",) + tuple(n for n in names if n != "unfitted"):
         capture = judge.Capture(pick)
-        with (planted.FAULTS[name]() if name != "sound"
+        with (known[name]() if name != "sound"
               else contextlib.nullcontext()), capture.installed(), \
                 capture.call_of(0):
             res = model.predict(seed=core.call_seed(seed, 0), **recipe)
-        calls[name] = ([judge.keep(res, N, D)], capture.taken)
+        calls[name] = ([judge.keep(res, N, D, capture.factors.get(0))],
+                       capture.taken)
         del res
     if "unfitted" in names:
         with planted.unfitted():

@@ -68,6 +68,7 @@ class Run:
         self.recipe = cell.recipe()
         self.setup_s = None
         self.fit_timings = []
+        self.fit_traces = []          # each fit's trace, in order
         self.calls: list[Call] = []
         self.window_s = None
         self.profile = None           # tracing.read_slice of the slice
@@ -94,9 +95,12 @@ def observations(cfg: dict):
     return ts, X_obs
 
 
-def fit(cfg: dict, ts, X_obs, device: str, timings: list):
+def fit(cfg: dict, ts, X_obs, device: str, timings: list,
+        traces: list | None = None):
     """The configuration's fits in order, each starting theta from the
-    previous fit where it says so; returns the last model."""
+    previous fit where it says so; returns the last model. Each fit's
+    phase walls go to ``timings`` and its trace (``fit_trace``) to
+    ``traces``, where given."""
     from magi_v2_tpu_torch import MAGI_v2, MagiConfig
     from magi_v2_tpu_torch import models
 
@@ -116,6 +120,8 @@ def fit(cfg: dict, ts, X_obs, device: str, timings: list):
                 thetas_init=(thetas_init if step.get("thetas_from_previous")
                              else None))
         timings.append(dict(model.fit_timings))
+        if traces is not None:
+            traces.append(model.fit_trace)
         thetas_init = model.thetas_init
     return model
 
@@ -151,7 +157,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ts, X_obs = observations(cfg)
-    model = fit(cfg, ts, X_obs, device, run.fit_timings)
+    model = fit(cfg, ts, X_obs, device, run.fit_timings, run.fit_traces)
     fit_out = fit_outputs(cfg, ts, X_obs, model)
     N, D, P = model.mag_I, model.D, model.D_thetas
     run.shapes = dict(C=int(recipe["num_chains"]), N=N, D=D, P=P,
@@ -192,7 +198,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                       file=sys.stderr)
                 res, ok = None, False
             if ok:
-                kept = judging.keep(res, N, D)
+                kept = judging.keep(res, N, D, capture.factors.get(i))
                 run.calls.append(Call(
                     model.predict_timings, res,
                     tap.sampling_counts[-1] if tap else {}, kept))
@@ -204,6 +210,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                 break
     run.window_s = time.perf_counter() - t_window
     run.attempted, run.failed = i, failed
+    tiles = next((f for f in capture.factors.values() if f is not None),
+                 None)
+    if tiles is not None:
+        run.shapes["factor_bw"] = judging.factor_bandwidth(tiles, N * D)
     if tap and tap.slice is not None and tap.slice.last is not None:
         run.profile = tracing.read_slice(tap.slice)
         run.profile_call = 0

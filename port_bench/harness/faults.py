@@ -14,11 +14,21 @@ it on exit; nothing of the port's files changes.
   posterior at half the temperature, as a K1 energy fault would;
 - ``kick``: every leapfrog update that drifts (K2, and the NUTS leaf
   kernel's close and open) leaves the momenta 1% long.
+
+Hybrid storage only (``for_storage``), where predict evaluates the
+target through the exact operators:
+
+- ``truncated``: the operators (C^{-1}, m, K^{-1}) band-truncated at the
+  model's bandsize, as dense storage holds them;
+- ``truncated_k``: K^{-1} alone band-truncated, the operator whose square
+  root S the check takes as the program's state.
 """
 
 from __future__ import annotations
 
 import contextlib
+
+import numpy as np
 
 
 @contextlib.contextmanager
@@ -147,5 +157,37 @@ def kick():
         yield
 
 
+def _banded_exact_operators(which):
+    """``MAGI_v2._exact_operators`` with the operators ``which`` (indices
+    into (C^{-1}, m, K^{-1})) zeroed beyond the model's bandsize."""
+    from magi_v2_tpu_torch import MAGI_v2
+
+    def make(orig):
+        def operators(model):
+            out = list(orig(model))
+            i = np.arange(out[0].shape[-1])
+            off = np.abs(i[:, None] - i[None, :]) > model.BANDSIZE
+            for k in which:
+                out[k] = np.where(off, 0.0, out[k])
+            return tuple(out)
+        return operators
+
+    return _patched(MAGI_v2, "_exact_operators", make)
+
+
+def truncated():
+    return _banded_exact_operators((0, 1, 2))
+
+
+def truncated_k():
+    return _banded_exact_operators((2,))
+
+
 FAULTS = {"stuck": stuck, "half": half, "altered": altered,
           "unfitted": unfitted, "energy": energy, "kick": kick}
+HYBRID_FAULTS = {"truncated": truncated, "truncated_k": truncated_k}
+
+
+def for_storage(storage: str) -> dict:
+    """The faults a cell of that storage can have."""
+    return dict(FAULTS, **(HYBRID_FAULTS if storage == "hybrid" else {}))

@@ -2,7 +2,7 @@
 returned, and what their transitions computed, held to the plain
 reference (``port_bench/reference``).
 
-Six numbers, each against the cell's limit in
+Five numbers (hybrid storage: six), each against the cell's limit in
 ``port_bench/limits/<cell>.json``:
 
 - ``fit_grad``: the largest |gradient| of the hyperparameter objective,
@@ -31,22 +31,45 @@ Six numbers, each against the cell's limit in
   (L is jittered over 1..192), and its worst chain swings from draw to
   draw.
 - ``draw_gap``: every draw of every chain that ``predict`` returned,
-  against the reference's GN factor applied to the port's own whitened
-  draws (``sample_results``), taken as differences from the chain's last
-  draw (reference/magi_ref.py says why differences): the largest |dX -
+  against a GN factor applied in float64 to the port's own whitened draws
+  (``sample_results``), taken as differences from the chain's last draw
+  (reference/magi_ref.py says why differences): the largest |dX -
   dX_ref| over each component's largest |dX_ref|; and the largest
   relative gap of theta, and of sigma^2 where it is sampled, to the
-  softplus of its sampled pre-image. It holds the program's GN factor,
-  which the two numbers above take as its state, and the unwhitening.
+  softplus of its sampled pre-image. In dense storage the factor is the
+  reference's own L, so the number holds the program's GN factor, which
+  the two numbers above take as its state, and the unwhitening. With a
+  banded factor (hybrid storage) it is that call's own factor, U^{-1}
+  worked out in float64 from the tiles the call's target held: at
+  N_I = 1025 two sound float64 builds of the GN factor differ along the
+  pseudo-inverses' cut by rounding alone, and a fixed preconditioner does
+  not change the posterior, so the number holds K4's float32 unwhitening
+  and the softplus maps, and the target and orbit numbers hold the rest.
 - ``stall``: for each chain, the median over trajectory values of the
   reference's GN posterior sd over the chain's sd across its draws; the
   largest over chains. A chain whose transitions return their state
   reads infinity (written as 1e30): it sampled nothing.
+- ``k_gap`` (hybrid storage): the operator S = K^{-1/2} that the
+  captured transitions' target evaluates through, held to the
+  reference's K where float64 determines it (``Reference.k_gap``): K
+  worked back from S less the reference's K, past its largest tenth of
+  directions. At N_I = 513 and 1025 K = C'' - C' C^{-1} 'C cancels to
+  its rounding in a few tens of directions, and K^{-1} is largest
+  there: two builds of the port's own operators (card and CPU, float64)
+  put lp 2,985 nats apart across chains at the same states, as far as
+  the reference's build is from either (PERF.md). The target and orbit
+  numbers therefore take the program's S as state, beside its zero
+  point and factor, and this number holds S in the other directions,
+  where a band-truncated K^{-1} moves K by 60 times what rounding
+  does on the card.
 
 The numbers are the largest over the window's calls and captures. The
 program's state that the target and orbit numbers take as given (the
 zero point, the GN factor, the mass and step size that warmup adapted) is
-named in PERF.md.
+named in PERF.md. The reference takes the configuration's storage:
+dense storage the band-truncated operators, hybrid storage the exact
+ones; banded storage is not judged (its target is the band-truncated
+posterior, whose square roots the port clamps).
 """
 
 from __future__ import annotations
@@ -60,10 +83,19 @@ import torch
 
 from port_bench.harness.manifest import field
 from port_bench.reference.magi_ref import (Mass, Reference, hparam_gradient,
-                                           precision, softplus)
+                                           precision, softplus,
+                                           upper_from_tiles)
 
 INFINITE = 1e30
 NUMBERS = ("fit_grad", "lp_gap", "orbit_gap", "draw_gap", "stall")
+# hybrid storage's target takes the program's S as state; this holds it
+HYBRID_NUMBERS = NUMBERS + ("k_gap",)
+
+
+def numbers(cell) -> tuple:
+    """The numbers the check compares in ``cell``."""
+    hybrid = cell.recipe().get("storage", "dense") == "hybrid"
+    return HYBRID_NUMBERS if hybrid else NUMBERS
 
 
 # --------------------------------------------------------------------------
@@ -78,16 +110,45 @@ def picks(seed: int, burnin: int, num_results: int, calls=(0, 1)):
     return [(c, burnin + int(rng.integers(num_results))) for c in calls]
 
 
+def _gn_target(target):
+    """The GN target of a bound transition's target (a pinned-sigma target
+    wraps it as ``logp_grad``)."""
+    return getattr(target, "logp_grad", target)
+
+
+def _factor_tiles(target):
+    """The tiles of the target's banded GN factor U (on the host), or None
+    for a target whose whitening is not banded."""
+    factor = getattr(getattr(_gn_target(target), "whitening", None),
+                     "factor", None)
+    return None if factor is None else factor.tiles.detach().cpu().clone()
+
+
+def factor_bandwidth(tiles, n: int) -> int:
+    """The upper bandwidth of the banded factor U (n, n) that ``tiles``
+    hold: the largest j - i with U[i, j] != 0."""
+    i, j = upper_from_tiles(torch.as_tensor(tiles), n).nonzero(as_tuple=True)
+    return int((j - i).max()) if i.numel() else 0
+
+
 def _frame(target) -> dict:
     """The program's coordinates of the target a transition was bound to:
-    x = x0 + F (z - z0), F in the flat order n D + d."""
+    x = x0 + F (z - z0), F in the flat order n D + d: the dense factor,
+    or, for a banded one, nothing here (the reference inverts the tiles of
+    the call's factor, ``Capture.factors``) but the operator S."""
+    target = _gn_target(target)
     wh = getattr(target, "whitening", None)
-    if not hasattr(wh, "L_perm"):
-        raise NotImplementedError("the check reads the dense GN target only")
     N, D = target.N, target.D
-    F = wh.L_perm.reshape(D, N, N * D).transpose(0, 1).reshape(N * D, N * D)
-    return {"x0": target.x0T.T.clone(), "z0": target.z0.clone(),
-            "F": F.clone()}
+    out = {"x0": target.x0T.T.clone(), "z0": target.z0.clone()}
+    if hasattr(wh, "L_perm"):
+        out["F"] = wh.L_perm.reshape(D, N, N * D).transpose(0, 1).reshape(
+            N * D, N * D).clone()
+    elif getattr(wh, "factor", None) is not None:
+        out["S"] = target.operators.S.clone()
+    else:
+        raise NotImplementedError("the check reads GN targets only (a dense "
+                                  "or a banded factor)")
+    return out
 
 
 def _mass(inv_mass) -> Mass:
@@ -107,21 +168,27 @@ class Capture:
     transitions, and at the ``picks`` (call, transition) copies what the
     transition took (state, step size, mass, temperature, noise) and
     computed (proposal, trajectory ends, log-posterior at its states) into
-    ``taken``. Elsewhere a transition passes straight through, apart from
-    ``observers`` (the trace's ``tracing.Tap``), each told of every
-    transition before and after it runs and of every call's end."""
+    ``taken``. At each call's end it copies the tiles of the banded GN
+    factor, if any, of the target its last transition was bound to
+    (``factors``, by call; a call samples one target), and hands them to
+    the call's entries of ``taken`` as their ``factor``. Elsewhere a
+    transition passes straight through, apart from ``observers`` (the
+    trace's ``tracing.Tap``), each told of every transition before and
+    after it runs and of every call's end."""
 
     def __init__(self, picks=(), observers=()):
         self.picks = set(picks)
         self.observers = list(observers)
         self.call, self.n = -1, 0
         self.taken = []
+        self.factors = {}
+        self._last = None
         self._targets = weakref.WeakKeyDictionary()
         self._saved = []
 
     def _take_hmc(self, obj, a, out):
         C = a["q"].shape[0]
-        return {"kind": "hmc", "q": a["q"].clone(),
+        return {"kind": "hmc", "call": self.call, "q": a["q"].clone(),
                 "eps": _per_chain(a["step_size"], C),
                 "beta_temp": a["beta_temp"].clone(),
                 "mass": _mass(a["inv_mass"]), "normals": a["normals"].clone(),
@@ -135,7 +202,7 @@ class Capture:
         C = a["q"].shape[0]
         prop, info = out
         ends = {s: obj.ends[s]["q"].clone() for s in ("minus", "plus")}
-        return {"kind": "nuts", "q": a["q"].clone(),
+        return {"kind": "nuts", "call": self.call, "q": a["q"].clone(),
                 "eps": _per_chain(a["step_size"], C),
                 "beta_temp": a["beta_temp"].clone(),
                 "mass": _mass(a["inv_mass"]),
@@ -160,6 +227,7 @@ class Capture:
             for o in cap.observers:
                 o.before(cap.call, cap.n)
             out = call(obj, *args, **kwargs)
+            cap._last = obj
             if (cap.call, cap.n) in cap.picks:
                 a = dict(zip(names, args), **kwargs)
                 cap.taken.append(take(obj, a, out))
@@ -190,10 +258,17 @@ class Capture:
     @contextlib.contextmanager
     def call_of(self, index: int):
         """Around predict call ``index``: its transitions counted from 0."""
-        self.call, self.n = index, 0
+        self.call, self.n, self._last = index, 0, None
         try:
             yield
         finally:
+            if self._last is not None:
+                tiles = _factor_tiles(self._targets.get(self._last))
+                self.factors[index] = tiles
+                for t in self.taken:
+                    if t["call"] == index:
+                        t["factor"] = tiles
+            self._last = None
             for o in self.observers:
                 o.end_call(index)
             self.call = -1
@@ -206,7 +281,8 @@ class Capture:
 
 def _frame64(ref: Reference, t: dict) -> dict:
     f = t["frame"]
-    return ref.frame(f["x0"], f["z0"], f["F"])
+    F = f["F"] if "F" in f else ref.factor_inverse(t["factor"])
+    return ref.frame(f["x0"], f["z0"], F, f.get("S"))
 
 
 def _norm(a):
@@ -327,10 +403,11 @@ def _ratio(gap, scale, quantile: float = 1.0) -> float:
 # --------------------------------------------------------------------------
 
 
-def keep(res: dict, N: int, D: int) -> dict:
+def keep(res: dict, N: int, D: int, factor=None) -> dict:
     """What the check needs of one call's results (host arrays, kept as
     ``predict`` returned them): the whitened draws and the trajectories,
-    theta and sigma^2 with their pre-images, each chain's spread."""
+    theta and sigma^2 with their pre-images, each chain's spread, and the
+    tiles of the call's banded GN factor (``Capture.factors``), if any."""
     X = res["X_samps"]                         # (T, C, N, D)
     raw = res["sample_results"]                # (T, C, N D + D + P)
     ND = N * D
@@ -342,31 +419,37 @@ def keep(res: dict, N: int, D: int) -> dict:
         "thetas": res["thetas_samps"],
         "sigma_sqs": res["sigma_sqs_samps"],
         "chain_sd": X.std(axis=0, dtype=np.float64),   # (C, N, D)
+        "factor": factor,
     }
 
 
 def draw_gap(ref: Reference, kept: dict, sigma_fixed, tf32: bool = False,
              block_bytes: int = 1 << 28) -> float:
     """The largest gap of one call's draws to the reference's, as the
-    module says; with ``tf32`` the reference's own map, computed as a
-    TF32 card would, stands in for the port's (the control). Draws go
-    through the reference in blocks of about ``block_bytes``."""
+    module says; with ``tf32`` the reference's map, computed as a TF32
+    card would, stands in for the port's (the control). The map is the
+    reference's own L, or U^{-1} of the call's banded factor where it had
+    one. Draws go through the reference in blocks of about
+    ``block_bytes``."""
     z, X = kept["z"], kept["X"]
     T = z.shape[0]
     dev = ref.device
+    op = (None if kept.get("factor") is None
+          else ref.factor_inverse(kept["factor"]))
+    apply = lambda a, tf32=False: ref.apply(a, tf32, op)
     last_z = torch.as_tensor(np.asarray(z[-1]), device=dev, dtype=torch.float64)
     last_x = torch.as_tensor(np.asarray(X[-1]), device=dev, dtype=torch.float64)
-    last_ctrl = ref.apply(last_z, tf32=True) if tf32 else None
-    last_ref = ref.apply(last_z)
+    last_ctrl = apply(last_z, tf32=True) if tf32 else None
+    last_ref = apply(last_z)
     step = max(1, block_bytes // max(1, z[0].size * 8))
     diff = torch.zeros(ref.D, dtype=torch.float64, device=dev)
     scale = torch.zeros_like(diff)
     for t0 in range(0, T - 1, step):
         zt = torch.as_tensor(np.asarray(z[t0:min(T - 1, t0 + step)]),
                              device=dev, dtype=torch.float64)
-        d_ref = ref.apply(zt) - last_ref
+        d_ref = apply(zt) - last_ref
         if tf32:
-            d = ref.apply(zt, tf32=True) - last_ctrl
+            d = apply(zt, tf32=True) - last_ctrl
         else:
             d = torch.as_tensor(np.asarray(X[t0:t0 + zt.shape[0]]),
                                 device=dev, dtype=torch.float64) - last_x
@@ -407,9 +490,22 @@ def control_precision(cfg: dict) -> str:
 
 
 def reference(cell, fit: dict, device) -> Reference:
-    if cell.recipe().get("storage", "dense") != "dense":
-        raise NotImplementedError("the reference holds dense storage only")
-    return Reference(fit, field(cell.config["field"]), device)
+    """The plain reference of the cell's posterior: band-truncated
+    operators for dense storage, the exact ones for hybrid storage, and
+    the known noise variances where the cell pins them."""
+    recipe = cell.recipe()
+    storage = recipe.get("storage", "dense")
+    if storage == "banded":
+        raise NotImplementedError(
+            "banded storage samples the band-truncated posterior through "
+            "square roots that the port clamps to PSD; the reference would "
+            "have to truncate and clamp exactly as the port does, so the "
+            "check judges dense and hybrid storage only")
+    if storage not in ("dense", "hybrid"):
+        raise ValueError(f"unknown storage {storage!r}")
+    return Reference(fit, field(cell.config["field"]), device,
+                     exact=storage == "hybrid",
+                     sigma_fixed=recipe.get("sigma_sqs_fixed"))
 
 
 def fit_gradient(cell, fit: dict) -> float:
@@ -439,6 +535,14 @@ def judge(cell, fit: dict, kept_calls: list, taken: list, device,
     for t in taken:
         out["lp_gap"] = max(out["lp_gap"], lp_gap(ref, t, control))
         out["orbit_gap"] = max(out["orbit_gap"], orbit_gap(ref, t, control))
+    if "k_gap" in numbers(cell):
+        out["k_gap"] = INFINITE if not taken else 0.0
+        if control is not None:
+            with precision(control) as dt:
+                S_ctrl = ref.s_in(dt)
+        for t in taken:
+            out["k_gap"] = max(out["k_gap"], ref.k_gap(
+                t["frame"]["S"] if control is None else S_ctrl))
     for kept in kept_calls:
         out["draw_gap"] = max(out["draw_gap"], draw_gap(
             ref, kept, sigma_fixed, tf32=control is not None))

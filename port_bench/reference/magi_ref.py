@@ -3,13 +3,17 @@ benchmark's check of ``correct``.
 
 The port samples flat states [z | sigma_pre | theta_pre]: z, the
 Gauss-Newton (GN) whitened coordinates of the trajectories (dense storage:
-x = mu + L z, L = Lambda^{-1/2}), theta = softplus(theta_pre), sigma^2 =
-softplus(sigma_pre) + LB. ``Reference`` works out again in float64, from
-the observations and the fitted hyperparameters: the Matern (nu = 2.01)
+x = mu + L z, L = Lambda^{-1/2}; hybrid storage: x = mu + U^{-1} z, U the
+banded Cholesky factor of a band of Lambda), theta = softplus(theta_pre),
+sigma^2 = softplus(sigma_pre) + LB, or a known sigma^2 where the
+configuration pins it. ``Reference`` works out again in float64, from the
+observations and the fitted hyperparameters: the Matern (nu = 2.01)
 conditioning matrices of Yang, Wong & Kou (PNAS 2021) with SciPy's Bessel
-K, their pseudo-inverses and square roots; the GN precision Lambda at the
-fit's start and its factor; the tempered log-posterior of a flat state and
-its gradient (autograd); and the leapfrog orbit of a state under a mass.
+K, their pseudo-inverses and square roots (band-truncated as dense storage
+samples them, or untruncated as hybrid storage does); the GN precision
+Lambda at the fit's start and its factor; the tempered log-posterior of a
+flat state and its gradient (autograd); and the leapfrog orbit of a state
+under a mass.
 
 Lambda's largest eigenvalues come from the pseudo-inverses' cut (their
 eigenvalues near n eps of the largest), so two sound float64 builds of it
@@ -19,6 +23,23 @@ factor is compared on differences of draws, x_t - x_s = L (z_t - z_s),
 which the sampler keeps at O(1) in every direction; and the target is
 evaluated in the sampler's own coordinates, x = x0 + F (z - z0), with the
 program's zero point and factor as its state (a ``frame``).
+
+At dense-grid sizes (N_I = 1025) that rounding reaches the factor itself:
+the reference's L and the port's banded U^{-1} map the same whitened
+differences apart by as much as the differences (PERF.md). A fixed
+linear preconditioner does not change the posterior over X, so any
+invertible factor is sound; what is held is that the program samples the
+right target in its own coordinates and maps its draws back through the
+factor it sampled with. For a banded factor the frame's F = U^{-1} is
+therefore worked out here in float64 from the float32 tiles the
+program's factor holds (``upper_from_tiles``, ``Reference.factor_inverse``),
+and the draws are held to that F; the chains' spread is still held to the
+reference's own GN scale. The same rounding sets the top of K^{-1} (K's
+smallest eigenvalues sit at its rounding), so a hybrid frame also takes
+the program's S = K^{-1/2} as state, and ``Reference.k_gap`` holds that
+S to the reference's K in the directions rounding leaves alone: worked
+back from S, K differs from the reference's by its rounding in a few
+tens of directions, where S^2 would read the inverse of it.
 
 Plain PyTorch, NumPy and SciPy: nothing of the port and nothing of JAX.
 TF32 is off for every product here, unless ``precision("tf32")`` (the
@@ -35,6 +56,8 @@ import scipy.special
 import torch
 
 NU = 2.01
+# the share of K's directions that ``Reference.k_gap`` leaves to rounding
+ROUNDING_RANK = 0.1
 
 
 def no_tf32() -> None:
@@ -124,10 +147,11 @@ def band(a, b: int):
     return torch.where((i[:, None] - i[None, :]).abs() <= b, a, 0.0)
 
 
-def operators(I, phi1s, phi2s, device, v=NU):
-    """(C^{-1}, m, K^{-1}), each (D, N_I, N_I) float64 on ``device``, on a
+def operators(I, phi1s, phi2s, device, v=NU, dtype=torch.float64):
+    """(C^{-1}, m, K^{-1}, K), each (D, N_I, N_I) on ``device``, on a
     uniform grid: the Matern Gram C, m = C' C^{-1} and K = C'' - C' C^{-1}
-    'C, with C^{-1} and K^{-1} their pseudo-inverses."""
+    'C, with C^{-1} and K^{-1} their pseudo-inverses; the Matern rows in
+    float64, the rest in ``dtype``."""
     n = I.shape[0]
     h = float(np.diff(I).mean())
     i = np.arange(n)
@@ -136,10 +160,11 @@ def operators(I, phi1s, phi2s, device, v=NU):
     out = []
     for p1, p2 in zip(phi1s, phi2s):
         kr, dr, pr = matern_rows(h * np.arange(n), float(p1), float(p2), v)
-        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         kappa, dk, kpp = t(kr[lag]), t(dr[lag] * sign), t(pr[lag])
         m = dk @ pinv_sym(kappa)
-        out.append((pinv_sym(kappa), m, pinv_sym(kpp + m @ dk)))
+        K = kpp + m @ dk
+        out.append((pinv_sym(kappa), m, pinv_sym(K), K))
     return tuple(torch.stack(x) for x in zip(*out))
 
 
@@ -275,7 +300,8 @@ class Reference:
     float64 from the observations and the fit's hyperparameters, theta
     start and smoothed start.
 
-    - The Matern operators with the configuration's band truncation: R =
+    - The Matern operators with the configuration's band truncation (or,
+      ``exact``, untruncated, as hybrid storage samples them): R =
       C^{-1/2}, m, S = K^{-1/2} per component (D, N, N).
     - The GN precision Lambda at the fit's start and its dense factor L =
       Lambda^{-1/2} (eigenvalues floored at 1e-12 of the largest); ``apply``
@@ -283,10 +309,13 @@ class Reference:
       GN posterior scale sqrt(diag Lambda^{-1}) (N, D).
     - ``log_posterior``: the tempered log-posterior of the sampler's flat
       states [z | sigma_pre | theta_pre] and its gradient, in the
-      coordinates of a ``Frame`` (x = x0 + F (z - z0)).
+      coordinates of a ``Frame`` (x = x0 + F (z - z0)); with
+      ``sigma_fixed`` (D,) the noise variances are those known values and
+      sigma_pre carries no potential, as in a predict that pins them.
     """
 
-    def __init__(self, setup: dict, field, device):
+    def __init__(self, setup: dict, field, device, exact: bool = False,
+                 sigma_fixed=None):
         no_tf32()
         self.device, self.field = device, field
         f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
@@ -296,8 +325,10 @@ class Reference:
         N, D = Xg.shape
         self.N, self.D = N, D
         b = setup["bandsize"]
-        Cinv, m, Kinv = operators(I, setup["phi1s"], setup["phi2s"], device)
-        truncated = (lambda a: band(a, b)) if b is not None else (lambda a: a)
+        self._grid = (I, setup["phi1s"], setup["phi2s"])
+        Cinv, m, Kinv, self.K = operators(*self._grid, device)
+        truncated = ((lambda a: band(a, b)) if b is not None and not exact
+                     else (lambda a: a))
         self.R, self.S = sqrt_sym(truncated(Cinv)), sqrt_sym(truncated(Kinv))
         self.m = truncated(m)
         obs = ~np.isnan(Xg)
@@ -308,6 +339,8 @@ class Reference:
         self.n_ds = f64(obs.sum(axis=0))
         xhat = np.asarray(setup["Xhat_init"], np.float64)
         self.sigma_lb = f64((xhat.std(axis=0) * 0.01) ** 2)
+        self.sigma_fixed = (None if sigma_fixed is None else f64(
+            np.full(D, 1.0) * np.asarray(sigma_fixed, np.float64)))
         self.thetas0 = f64(setup["thetas_init"])
         J = field_jacobian(field, I, xhat, setup["thetas_init"])
         lam = gn_precision(self.R, self.m, self.S, J, self.beta, obs,
@@ -318,35 +351,78 @@ class Reference:
         self.L = (V * w.rsqrt()[None, :]) @ V.mT
         self.sd = (self.L ** 2).sum(1).sqrt().reshape(N, D)
 
-    def apply(self, z, tf32: bool = False):
+    def apply(self, z, tf32: bool = False, op=None):
         """L z, float64 (..., N, D) from whitened draws z (..., N D) on the
-        reference's device. With ``tf32`` (the control) the map runs as a
-        float32 card would with TF32 on: its operands rounded to TF32's
+        reference's device, or ``op`` z for another factor (N D, N D) in
+        the flat order n D + d. With ``tf32`` (the control) the map runs as
+        a float32 card would with TF32 on: its operands rounded to TF32's
         10-bit mantissa, the products summed in float32."""
         z = torch.as_tensor(z, device=self.device)
         shape = z.shape[:-1] + (self.N, self.D)
         flat = z.reshape(-1, self.N * self.D)
-        op = self.L
+        op = self.L if op is None else op
         if tf32:
             flat, op = round_tf32(flat.float()), round_tf32(op.float())
         else:
             flat = flat.double()
         return (flat @ op.mT).double().reshape(shape)
 
+    def factor_inverse(self, tiles):
+        """F = U^{-1}, float64 (N D, N D) on the reference's device, of the
+        banded upper factor U whose tiles the program holds (see
+        ``upper_from_tiles``): the program's state, inverted here."""
+        U = upper_from_tiles(torch.as_tensor(tiles, device=self.device)
+                             .double(), self.N * self.D)
+        eye = torch.eye(U.shape[0], dtype=torch.float64, device=self.device)
+        return torch.linalg.solve_triangular(U, eye, upper=True)
+
     # the target ----------------------------------------------------------
 
-    def frame(self, x0, z0, F):
+    def s_in(self, dtype):
+        """S = K^{-1/2} worked out again with every product and
+        decomposition in ``dtype`` (the control of ``S`` as state)."""
+        Kinv = operators(*self._grid, self.device, dtype=dtype)[2]
+        return sqrt_sym(Kinv)
+
+    def frame(self, x0, z0, F, S=None):
         """The sampler's coordinates x = x0 + F (z - z0) (x0 (N, D), z0
         (N D,), F (N D, N D) in the flat order n D + d), with the constants
         of the relative energy around x0, in float64: a0 = R (x0 - mu), f0
-        = f(x0, theta0) and s0 = S (f0 - m (x0 - mu)), each (D, N)."""
+        = f(x0, theta0) and s0 = S (f0 - m (x0 - mu)), each (D, N). ``S``
+        (D, N, N), where given, is the program's operator taken as state
+        in place of the reference's own."""
         f64 = lambda a: torch.as_tensor(a, device=self.device).double()
         x0, z0, F = f64(x0), f64(z0), f64(F)
+        S = self.S if S is None else f64(S)
         xc = (x0 - self.mu).T[..., None]                      # (D, N, 1)
         f0 = self.field(self.I, x0, self.thetas0).T            # (D, N)
         a0 = (self.R @ xc)[..., 0]
-        s0 = (self.S @ (f0[..., None] - self.m @ xc))[..., 0]
-        return {"x0": x0, "z0": z0, "F": F, "a0": a0, "f0": f0, "s0": s0}
+        s0 = (S @ (f0[..., None] - self.m @ xc))[..., 0]
+        return {"x0": x0, "z0": z0, "F": F, "S": S, "a0": a0, "f0": f0,
+                "s0": s0}
+
+    def k_gap(self, S) -> float:
+        """How far an operator S (D, N, N), such as the program's, is from
+        K^{-1/2} where float64 determines K: K worked back from S (the
+        pseudo-inverse of S^2, the eigenvalues at or below n eps of S's
+        own precision dropped) less the reference's K, its singular value
+        next after the ``ROUNDING_RANK`` share of N largest, over the
+        median singular value of the reference's K; the worst component.
+        K's rounding is of low rank: two sound float64 builds of it at
+        N_I = 1025 differ by 22 in one direction, 1e-3 in the 21st and
+        1e-5 in the 100th, where a band-truncated S moves K by 2e-3 to
+        8e-2 (PERF.md)."""
+        S = torch.as_tensor(S, device=self.device)
+        S2 = S.double() @ S.double()
+        w, V = torch.linalg.eigh((S2 + S2.mT) / 2.0)
+        cut = S.shape[-1] * torch.finfo(S.dtype).eps * w.abs().amax(-1, True)
+        keep = w > cut
+        w_inv = torch.where(keep, 1.0 / torch.where(keep, w, 1.0), 0.0)
+        K = (V * w_inv[..., None, :]) @ V.mT
+        r = int(ROUNDING_RANK * S.shape[-1])
+        gap = torch.linalg.svdvals(K - self.K)[..., r]
+        scale = torch.linalg.svdvals(self.K).median(-1).values
+        return float((gap / scale).max())
 
     def log_posterior(self, q, beta_temp, frame, dtype=torch.float64):
         """(lp (C,), grad (C, dim)) at the flat states q (C, N D + D + P)
@@ -367,7 +443,7 @@ class Reference:
         qd = c(torch.as_tensor(q, device=self.device)).detach()
         qd.requires_grad_(True)
         bt = c(torch.as_tensor(beta_temp, device=self.device))
-        R, S, m = c(self.R), c(self.S), c(self.m)
+        R, S, m = c(self.R), c(frame["S"]), c(self.m)
         a0, f0, s0 = (c(frame[k])[None] for k in ("a0", "f0", "s0"))
         delta = ((qd[:, :ND] - c(frame["z0"])) @ c(frame["F"]).mT
                  ).reshape(-1, N, D)
@@ -380,11 +456,15 @@ class Reference:
         dr = (f - f0) - (m @ dT)[..., 0]
         Ds = (S @ dr[..., None])[..., 0]
         t2 = (Ds * (Ds + 2.0 * s0)).sum((1, 2))
-        sig2 = softplus_t(sig_pre) + c(self.sigma_lb)
+        sig2 = (softplus_t(sig_pre) + c(self.sigma_lb)
+                if self.sigma_fixed is None
+                else c(self.sigma_fixed).expand_as(sig_pre))
         t3 = (c(self.n_ds) * torch.log(2.0 * math.pi * sig2)).sum(-1)
         r = x - c(self.y)
         t4 = ((c(self.mask) * r * r).sum(1) / sig2).sum(-1)
-        lj = log_sigmoid(sig_pre).sum(-1) + log_sigmoid(th_pre).sum(-1)
+        lj = log_sigmoid(th_pre).sum(-1)
+        if self.sigma_fixed is None:
+            lj = log_sigmoid(sig_pre).sum(-1) + lj
         lp = bt * (-0.5 * ((t1 + t2) / float(self.beta) + t3 + t4) + lj)
         (grad,) = torch.autograd.grad(lp.sum(), qd)
         return lp.detach(), grad
@@ -440,6 +520,19 @@ class Mass:
         if self.k:
             out = torch.cat([out, tail_p @ self.tail_inv.to(p.dtype)], -1)
         return out
+
+
+def upper_from_tiles(tiles, n: int):
+    """The dense upper-triangular (n, n) matrix U of block-banded tiles
+    (nb, nw, T, T) with tile[q, s, r, c] = U[q T + r, (q + s) T + c] (the
+    diagonal tile at s = 0; rows and columns past n are padding)."""
+    nb, nw, T = tiles.shape[0], tiles.shape[1], tiles.shape[2]
+    U = torch.zeros((nb * T, (nb + nw) * T), dtype=tiles.dtype,
+                    device=tiles.device)
+    for q in range(nb):
+        U[q * T:(q + 1) * T, q * T:(q + nw) * T] = (
+            tiles[q].permute(1, 0, 2).reshape(T, nw * T))
+    return U[:n, :n]
 
 
 def round_tf32(a):

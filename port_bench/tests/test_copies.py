@@ -11,7 +11,7 @@ import torch
 import chip_smoke
 from magi_v2_tpu_torch import models
 from magi_v2_tpu_torch.utils import data, diagnostics
-from port_bench.reference.fields import seir
+from port_bench.reference.fields import lorenz, seir
 from port_bench.yardstick import bounds, simulate
 from port_bench.yardstick import diagnostics as frozen
 
@@ -98,11 +98,14 @@ def test_simulator_copy():
     np.testing.assert_array_equal(Xt, Xt0)
 
 
-@pytest.mark.parametrize("plain,port", [(seir.f_vec, models.seir_f_vec)])
+@pytest.mark.parametrize("plain,port", [(seir.f_vec, models.seir_f_vec),
+                                        (lorenz.f_vec, models.lorenz_f_vec)])
 def test_reference_fields(plain, port):
     g = torch.Generator().manual_seed(0)
     t = torch.linspace(0, 1, 7, dtype=torch.float64)[:, None]
     X = torch.rand((5, 7, 3), generator=g, dtype=torch.float64)
     th = torch.rand((5, 3), generator=g, dtype=torch.float64) + 0.5
+    if plain is lorenz.f_vec:
+        X, th = 40.0 * X - 20.0, 10.0 * th
     torch.testing.assert_close(plain(t, X, th), port(t, X, th), rtol=1e-14,
                                atol=1e-14)

@@ -2,7 +2,8 @@
 between_transitions_pct, adam_step_ms) on synthetic runs carrying
 hand-made traces: their arithmetic, the profiled call left out, and None
 where the trace, the markers or the algorithm is absent (as the parent of
-the trace reads)."""
+the trace reads); and k4_roofline and sampler_mfu_pct's hybrid count on
+a synthetic dense-grid run with known launches, device time and shapes."""
 
 from types import SimpleNamespace
 
@@ -59,12 +60,15 @@ def trace(markers=True):
     return {"spans": spans, "counts": {}, "fit": FIT}
 
 
-def make_run(traces, algorithm="nuts", profile_call=None):
+def make_run(traces, algorithm="nuts", profile_call=None, fits=()):
+    """A run of calls with the predict traces ``traces`` and fits with the
+    traces ``fits``."""
     calls = [SimpleNamespace(timings=None if t is None else {
         "sample_total_s": 1e-6, **({} if t is False else {"trace": t})})
         for t in traces]
     run = SimpleNamespace(calls=calls, profile_call=profile_call,
-                          shapes={"algorithm": algorithm})
+                          shapes={"algorithm": algorithm},
+                          fit_traces=list(fits))
     rest = [c for i, c in enumerate(calls) if i != profile_call]
     run.timed_calls = lambda: rest or calls
     return run
@@ -75,7 +79,7 @@ def read(name, run):
 
 
 def test_the_readers_arithmetic():
-    run = make_run([trace(), trace()])
+    run = make_run([trace(), trace()], fits=[FIT])
     assert read("replay_host_us", run) == pytest.approx(2000 / 10 / 1e3)
     assert read("nuts_read_stall_pct", run) == pytest.approx(
         100.0 * (20 + 60 + 40) / (500 + 1000))
@@ -119,8 +123,19 @@ def test_the_algorithm_and_the_spans_that_must_be_there():
     assert read("nuts_read_stall_pct", make_run([bare])) is None
     fit = dict(FIT, spans=[s for s in FIT["spans"]
                            if s["name"] != "theta_init"])
-    assert read("adam_step_ms", make_run([dict(trace(), fit=fit)])) is None
-    assert read("adam_step_ms", make_run([dict(trace(), fit=None)])) is None
+    assert read("adam_step_ms", make_run([trace()], fits=[fit])) is None
+    assert read("adam_step_ms", make_run([trace()], fits=[None])) is None
+
+
+def test_adam_step_ms_reads_the_fit_that_ran_adam():
+    """Two fits, as a dense-grid configuration runs them: the second takes
+    theta from the first and counts no Adam steps; the reader reads the
+    first. The predicts' traces carry only the last fit's."""
+    second = dict(FIT, spans=[dict(s, attrs={}) if s["name"] == "theta_init"
+                              else s for s in FIT["spans"]])
+    run = make_run([dict(trace(), fit=second)], fits=[FIT, second])
+    assert read("adam_step_ms", run) == pytest.approx(4e8 / 200 * 1e-6)
+    assert read("adam_step_ms", make_run([trace()], fits=[second])) is None
 
 
 def test_a_phase_without_markers_is_left_out():
@@ -133,3 +148,74 @@ def test_a_phase_without_markers_is_left_out():
     run = make_run([t])
     assert read("nuts_read_stall_pct", run) == pytest.approx(10.0)
     assert read("between_transitions_pct", run) == pytest.approx(5.0)
+
+
+# the kernels' rooflines and the step's share of the peak, hybrid storage
+
+
+def hybrid_run(profile=True, storage="hybrid", factor_bw=1200):
+    """A hybrid HMC run at the dense-grid shapes: two calls of 4 draws x
+    256 chains, 32 leapfrogs a chain and draw, 0.5 s of sampling each; a
+    slice whose counters saw 40 K4 launches (20 solves, 20 adjoints) in
+    8 ms of K4 device time."""
+    import numpy as np
+    import torch
+
+    shapes = {"C": 256, "N": 1025, "D": 3, "P": 3, "dim": 3081, "k": 0,
+              "storage": storage, "algorithm": "hmc", "dtype": torch.float32}
+    if factor_bw is not None:
+        shapes["factor_bw"] = factor_bw
+    calls = [SimpleNamespace(timings={"sample_total_s": 0.5},
+                             num_leapfrogs=np.full((4, 256), 32))
+             for _ in range(2)]
+    run = SimpleNamespace(calls=calls, profile_call=None, shapes=shapes,
+                          profile=None)
+    run.timed_calls = lambda: calls
+    if profile:
+        run.profile = {"counts": {"banded_solve": 20,
+                                  "banded_solve_adjoint": 20},
+                       "kernel_s": {
+                           "void banded_solve_kernel<float, 64, false>": 5e-3,
+                           "void banded_solve_kernel<float, 64, true>": 3e-3,
+                           "void banded_matvec_kernel<float, 0>": 1.0}}
+    return run
+
+
+def test_k4_roofline_arithmetic():
+    from port_bench.yardstick.bounds import band_nonzeros, bound
+
+    run = hybrid_run()
+    nnz = band_nonzeros(3075, 0, 1200)
+    one = bound((nnz + 2 * 256 * 3075) * 4, 2 * 256 * nnz)["bound_ms"]
+    assert read("k4_roofline", run) == pytest.approx(
+        100.0 * 40 * one * 1e-3 / 8e-3)
+
+
+def test_k4_roofline_reads_nothing_without_its_inputs():
+    assert read("k4_roofline", hybrid_run(profile=False)) is None
+    assert read("k4_roofline", hybrid_run(storage="dense",
+                                          factor_bw=None)) is None
+    run = hybrid_run()
+    run.profile["kernel_s"] = {"void banded_matvec_kernel<float, 0>": 1.0}
+    assert read("k4_roofline", run) is None
+
+
+def test_sampler_mfu_counts_by_storage():
+    """Hybrid: two banded solves of U's nonzeros in place of the dense
+    factor's two products, the rest as dense; dense unchanged."""
+    from port_bench.yardstick.bounds import K1_FLOPS, PEAK_FLOPS, band_nonzeros
+    from port_bench.yardstick.flops import evaluation_flops
+
+    n, N, D = 3075, 1025, 3
+    rest = D * 12 * N * N + sum(K1_FLOPS.values()) * n + 7 * 3081
+    per = 4 * band_nonzeros(n, 0, 1200) + rest
+    evals = 2 * 4 * 256 * 32
+    run = hybrid_run()
+    assert read("sampler_mfu_pct", run) == pytest.approx(
+        100.0 * per * evals / 1.0 / PEAK_FLOPS[run.shapes["dtype"]])
+    assert evaluation_flops(N, D, 3, 0, "hmc") == 4 * n * n + rest
+    dense = hybrid_run(storage="dense", factor_bw=None)
+    assert read("sampler_mfu_pct", dense) == pytest.approx(
+        100.0 * (4 * n * n + rest) * evals / PEAK_FLOPS[run.shapes["dtype"]])
+    assert read("sampler_mfu_pct", hybrid_run(factor_bw=None)) is None
+    assert read("sampler_mfu_pct", hybrid_run(storage="banded")) is None

@@ -2,14 +2,15 @@
 
 ``sampler_mfu_pct`` multiplies this count by the evaluations the chains
 needed and divides by the sampling phase's wall and the float32 peak. The
-count depends only on the shapes of dense storage, never on
-which kernel or library computes the work, so it still bounds a gain once
-a kernel is fused or a library call replaced.
+count depends only on the shapes of the storage (dense, or hybrid: a
+banded GN factor around the exact operators), never on which kernel or
+library computes the work, so it still bounds a gain once a kernel is
+fused or a library call replaced.
 """
 
 from __future__ import annotations
 
-from port_bench.yardstick.bounds import K1_FLOPS
+from port_bench.yardstick.bounds import K1_FLOPS, band_nonzeros
 
 
 def evaluation_flops(N: int, D: int, P: int, k: int, algorithm: str) -> int:
@@ -26,8 +27,24 @@ def evaluation_flops(N: int, D: int, P: int, k: int, algorithm: str) -> int:
       dense block, ten operations an element).
     """
     n = N * D
+    return 4 * n * n + _rest(N, D, P, k, algorithm)
+
+
+def hybrid_evaluation_flops(N: int, D: int, P: int, k: int, algorithm: str,
+                            w: int) -> int:
+    """``evaluation_flops`` in hybrid storage: the whitening is two banded
+    triangular solves (x = mu + U^{-1} z and U^{-T} back), two operations
+    a nonzero of the (N D) x (N D) upper factor U of bandwidth ``w``; the
+    six exact N x N operator products a component, K1's epilogue and the
+    update as in dense storage."""
+    return (4 * band_nonzeros(N * D, 0, w)
+            + _rest(N, D, P, k, algorithm))
+
+
+def _rest(N: int, D: int, P: int, k: int, algorithm: str) -> int:
+    """The operators, K1's epilogue and the update (``evaluation_flops``)."""
+    n = N * D
     dim = n + D + P
-    whitening = 4 * n * n
     ops = D * 6 * 2 * N * N
     k1 = sum(K1_FLOPS.values()) * n
     head = dim - k
@@ -35,4 +52,4 @@ def evaluation_flops(N: int, D: int, P: int, k: int, algorithm: str) -> int:
         update = 7 * head + k * (2 * k + 6)
     else:
         update = 2 * 2 * k * k + 10 * dim
-    return whitening + ops + k1 + update
+    return ops + k1 + update
