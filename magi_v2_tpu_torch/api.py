@@ -539,6 +539,7 @@ class MAGI_v2:
         gn_anchor: Optional[dict] = None,
         pt_betas: Optional[tuple] = None,
         pt_swap_every: int = 1,
+        reseat_accept_below: Optional[float] = None,
     ):
         """Sample the posterior; same arguments and results dict as
         magi_v2_tpu.MAGI_v2.predict. Ported: ``algorithm`` "nuts" (tree
@@ -600,7 +601,15 @@ class MAGI_v2:
         less its parts'), "map_warmstart" if asked for, "refresh_stage_a"
         and "refresh_rebuild" with a refresh, "sampling" and "unwhiten"
         (the draws' copy to the host, the span "x_fetch", comes after
-        it)."""
+        it). ``reseat_accept_below`` (default 0.05, ``SamplerConfig``; 0
+        switches it off) is the port's warmup re-seat rule, which the JAX
+        package does not have: at the start of each mass window and at the
+        end of step-size adaptation (at the latest four fifths into
+        burn-in), a chain whose mean acceptance over the last twentieth of
+        burn-in before that point is below it moves to the current state
+        of a chain drawn at random from the others, where fewer than half
+        the chains are below (``sampler/run.py:reseat_stuck``). Where no
+        chain is below, the draws are the bits the rule off gives."""
         # a NumPy ladder too (its truth value is ambiguous)
         pt_betas = (tuple(float(b) for b in pt_betas)
                     if pt_betas is not None else None)
@@ -701,6 +710,8 @@ class MAGI_v2:
             profile_timings=profile_timings,
             **({} if stage_above_bytes is None
                else {"stage_above_bytes": stage_above_bytes}),
+            **({} if reseat_accept_below is None
+               else {"reseat_accept_below": float(reseat_accept_below)}),
         )
         if precond_refresh_steps:
             mode, q0 = refresh_gn_anchor(

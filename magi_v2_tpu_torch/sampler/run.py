@@ -12,6 +12,16 @@ doubling (whether any chain's tree goes on, sampler/nuts.py). Counters
 that are host-known (the dual-averaging and Welford counts) are Python
 floats.
 
+Warmup's re-seat rule (``reseat_accept_below``; the JAX package has
+none): at each boundary of ``reseat_stretches`` (the start of each mass
+window, the end of step-size adaptation, at the latest four fifths into
+burn-in) the host reads once each chain's acceptance, summed on the device
+over the last twentieth of burn-in before it; where fewer than half the
+chains are below the threshold, each of them moves to the current state of
+a chain drawn with the run's generator from the others (``reseat_stuck``;
+momenta are drawn afresh every transition). Sampling is untouched. Where
+no chain is below, nothing is drawn and the draws are the rule off's bits.
+
 Parallel tempering (``pt_betas``: sampler/pt.py) tempers the sampling
 phase per chain and swaps adjacent rungs every ``pt_swap_every``
 transitions; warmup is shared by all chains, as in the JAX package.
@@ -27,9 +37,9 @@ last boundary, or loads a finished run from disk without a transition.
 The carry holds the chain states, the dual-averaging state, both Welford
 accumulators, the inverse mass (each tensor with its strides), the step
 size, the device generator's state, the host NumPy generator's (HMC's
-trajectory lengths) and, under PT, the swap counters; the bound
-transitions are rebuilt on resume. A fingerprint of the run refuses a
-checkpoint of another.
+trajectory lengths), warmup's re-seat sums and record and, under PT,
+the swap counters; the bound transitions are rebuilt on resume. A
+fingerprint of the run refuses a checkpoint of another.
 
 ``profile_timings`` traces the run into a ``utils.profiling.PhaseTimer``
 (the caller's ``timer``, or one of its own): spans ``eps_init``,
@@ -41,8 +51,12 @@ transition (a NUTS ``doubling`` per doubling, its device read a
 the bound transitions' replay counters. On one card the ``warmup`` and
 ``sample`` spans' transitions and doublings carry device markers
 (``dev_t0_ns``, ``dev_t1_ns``: where the card reached the start and the
-end of their work, on the host clock). ``ChainStats.timings`` is the view
-of those spans under the JAX package's keys.
+end of their work, on the host clock). The ``warmup`` span carries the
+re-seat rule's ``chains_reseated`` and ``reseats`` ([boundary, chains
+moved] at each boundary read), the ``sample`` span ``worst_chain_accept``
+(the lowest mean acceptance of a chain over the phase's draws, one
+reduction at its end). ``ChainStats.timings`` is the view of those spans
+under the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -159,6 +173,12 @@ class SamplerConfig(NamedTuple):
     # block's draws, not the run's; a checkpointed run always stages. An
     # I/O knob: the draws are the same bits either way
     stage_above_bytes: int = 1 << 30
+    # warmup's re-seat rule (``reseat_stretches``): at each boundary a
+    # chain whose mean acceptance over the stretch before it is below this
+    # moves to the state of a chain drawn from the others (0 = off). 0.05:
+    # stuck chains read 0 (every transition divergent); healthy chains read
+    # >= 0.1 in the benchmark's three cells (PERF.md)
+    reseat_accept_below: float = 0.05
 
 
 class DAState(NamedTuple):
@@ -316,6 +336,47 @@ def _blocks(total: int, block_steps: int, transitions_per_step: int = 1):
     if B <= 0 or B >= total:
         return [(0, total)]
     return [(s, min(B, total - s)) for s in range(0, total, B)]
+
+
+def reseat_stretches(B: int, num_adapt: int, window_starts=()) -> dict:
+    """{boundary: first step of its stretch} of warmup's re-seat rule.
+    The boundaries (the steps before which the rule reads): the start of
+    each mass window, so that the Welford moments leave out the chains it
+    moves, and the end of step-size adaptation, at the latest four fifths
+    into burn-in (B - ceil(B / 5)), so that a moved chain runs a fifth of
+    burn-in before the first draw; never step 0. A boundary's stretch is
+    the last twentieth of burn-in before it (ceil(B / 20) steps, from the
+    boundary before it at the earliest): the chains that a mass window's
+    close strands (its restart of dual averaging throws every chain about
+    for some ten transitions) show only in the transitions before the
+    next boundary."""
+    last = min(num_adapt, B - -(-B // 5))
+    w = -(-B // 20)
+    out, prev = {}, 0
+    for b in sorted({b for b in (*window_starts, last) if 0 < b <= last}):
+        out[b], prev = max(prev, b - w), b
+    return out
+
+
+def reseat_stuck(qs, accept_sum, n: int, threshold: float, gen):
+    """One boundary of the re-seat rule: each chain whose mean acceptance
+    over the stretch's ``n`` transitions (``accept_sum`` (C,) / n) is below
+    ``threshold`` moves to the current state of a chain drawn by ``gen``
+    from those that are not. Returns (states, chains moved). Reads the
+    device once; draws nothing, and moves nothing, when no chain is below,
+    or half the chains or more: then the step that all chains share fails,
+    not the chains, and moving them would copy a few chains over the
+    rest."""
+    flagged = (accept_sum < threshold * n).cpu()
+    bad = torch.nonzero(flagged).flatten()
+    if bad.numel() == 0 or 2 * bad.numel() >= flagged.numel():
+        return qs, 0
+    ok = torch.nonzero(~flagged).flatten().to(qs.device)
+    pick = torch.randint(ok.numel(), (bad.numel(),), generator=gen,
+                         device=qs.device)
+    qs = qs.clone()
+    qs[bad.to(qs.device)] = qs[ok[pick]]
+    return qs, bad.numel()
 
 
 _CKPT_VERSION = "torch-v1"
@@ -594,6 +655,14 @@ def run_chains(
                 "re-adapt to the re-estimated metric"
             )
 
+    # the re-seat rule's {boundary: stretch start}, and the steps it sums
+    reseat_at = {}
+    if config.reseat_accept_below > 0.0:
+        reseat_at = reseat_stretches(
+            B, num_adapt, ((win_lo,) if adapt_mass else ())
+            + ((win2_lo,) if two_windows else ()))
+    summed = {s for b, lo in reseat_at.items() for s in range(lo, b)}
+
     total = B + config.num_results * config.thin
     steps = np.arange(total)
     if not config.use_annealing:
@@ -785,6 +854,8 @@ def run_chains(
             wf = _ckpt_welford(arrays, "wf", dev)
             wf_tail = _ckpt_welford(arrays, "wf_tail", dev) if k > 0 else None
             inv_mass = _ckpt_mass(arrays, dev)
+            accept_sum = restore(arrays, "reseat_accept_sum")
+            reseats = [tuple(int(v) for v in r) for r in arrays["reseats"]]
             set_rng_state(arrays)
         else:
             with span("eps_init", wait=True):
@@ -797,8 +868,12 @@ def run_chains(
             wf = welford_init(dim, dtype, dev)
             wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
             qs, warmup_done = q0, 0
+            # each chain's acceptance summed over the re-seat stretch, and
+            # (boundary, chains moved) at each boundary read
+            accept_sum = torch.zeros((C,), dtype=dtype, device=dev)
+            reseats = []
         anchor()
-        with span("warmup", wait=True, hold_gc=True):
+        with span("warmup", wait=True, hold_gc=True) as warmup_span:
             for start, size in _blocks(B, config.dispatch_block_steps):
                 if start + size <= warmup_done:
                     continue
@@ -806,11 +881,19 @@ def run_chains(
                     make_bound(inv_mass)
                 with span("block", wait=True):
                     for step in range(start, start + size):
+                        if step in reseat_at:
+                            qs, moved = reseat_stuck(
+                                qs, accept_sum, step - reseat_at[step],
+                                config.reseat_accept_below, gen)
+                            reseats.append((step, moved))
+                            accept_sum.zero_()
                         eps = torch.exp(da.log_step
                                         if da.count < num_adapt
                                         else da.log_step_avg)
                         qs, info = transition(qs, eps, inv_mass, step)
                         progress("warmup", step, eps, info)
+                        if step in summed:
+                            accept_sum += info.accept_prob
                         if step < num_adapt:
                             da = da_update(da,
                                            torch.mean(info.accept_prob),
@@ -850,8 +933,15 @@ def run_chains(
                                      for f in DAState._fields},
                         **_welford_items("wf", wf),
                         **_welford_items("wf_tail", wf_tail),
-                        **_mass_items(inv_mass), **rng_state()}, fingerprint)
+                        **_mass_items(inv_mass), **rng_state(),
+                        "reseat_accept_sum": accept_sum,
+                        "reseats": np.asarray(reseats, np.int64).reshape(
+                            -1, 2)}, fingerprint)
             eps_final = torch.exp(da.log_step_avg)
+            if rec is not None:
+                warmup_span.attrs["chains_reseated"] = sum(
+                    n for _, n in reseats)
+                warmup_span.attrs["reseats"] = [list(r) for r in reseats]
         if pt:
             swap_counts = tuple(torch.zeros((len(betas) - 1,),
                                             dtype=torch.int32, device=dev)
@@ -930,7 +1020,7 @@ def run_chains(
                 0 if nuts else num_leapfrogs[start:start + size].nbytes))
 
     anchor()
-    with span("sample", wait=True, hold_gc=True):
+    with span("sample", wait=True, hold_gc=True) as sample_span:
         for b, (start, size) in enumerate(blocks):
             end = start + size
             if ck and end <= sample_done:
@@ -1006,6 +1096,10 @@ def run_chains(
                 copy_stream.synchronize()
     if rec is not None:
         rec.resolve_marks()
+        if T:
+            # the lowest mean acceptance of a chain over the phase's draws
+            sample_span.attrs["worst_chain_accept"] = float(
+                accept.mean(dim=0).min())
     if copy_stream is not None:
         # the host arrays are read from here on
         copy_stream.synchronize()

@@ -148,6 +148,57 @@ def test_crash_mid_warmup_resumes_bit_for_bit(tmp_path, monkeypatch,
     _assert_same_run(references[kind], _run(_cfg(ck, kind)))
 
 
+def _trap(q, beta_temp):
+    """A standard normal below 10 and, from 10 on, a well of curvature 1e6
+    around 20, which a chain started at its floor cannot leave: warmup's
+    re-seat rule moves it (tests/test_torch_reseat.py)."""
+    b = beta_temp.reshape(-1, 1) if beta_temp.dim() else beta_temp
+    inside = q >= 10.0
+    f = torch.where(inside, -0.5e6 * (q - 20.0) ** 2 - 100.0, -0.5 * q * q)
+    return beta_temp * f.sum(-1), b * torch.where(inside, -1e6 * (q - 20.0),
+                                                 -q)
+
+
+@pytest.mark.parametrize("kind", ["nuts", "hmc"])
+@pytest.mark.parametrize("crash_at", [20, 30, 50])
+def test_resume_across_a_reseat_boundary_is_bit_for_bit(
+        tmp_path, monkeypatch, kind, crash_at):
+    """Warmup's re-seat boundaries fall inside the blocks [20, 30) (step
+    27, where the trapped chains move) and [40, 50) (step 48), and their
+    stretches ([24, 27), [45, 48)) too: a run cut before, after and past
+    them resumes with the same draws and the same re-seats as the run
+    never cut."""
+    q0 = 0.3 * torch.randn((8, DIM), dtype=torch.float64,
+                           generator=torch.Generator().manual_seed(1))
+    q0[[2, 5], 0] = 20.0
+
+    def traced(cfg):
+        timer = tprof.PhaseTimer("cpu", trace=True)
+        out = run_chains(_trap, q0, 7, cfg._replace(profile_timings=True),
+                         timer=timer)
+        (warmup,) = [s for s in timer.spans if s.name == "warmup"]
+        return out, warmup.attrs["reseats"]
+
+    cfg = _cfg(kind=kind, num_burnin_steps=60)
+    ref, reseats = traced(cfg)
+    assert reseats == [[27, 2], [48, 0]]
+    ck = str(tmp_path / "ck")
+    real_save = run_mod._ckpt_save_state
+
+    def crash(dirpath, phase, nxt, carry, fp):
+        real_save(dirpath, phase, nxt, carry, fp)
+        if phase == "warmup" and nxt >= crash_at:
+            raise RuntimeError("simulated mid-warmup crash")
+
+    monkeypatch.setattr(run_mod, "_ckpt_save_state", crash)
+    with pytest.raises(RuntimeError, match="mid-warmup"):
+        traced(cfg._replace(checkpoint_path=ck))
+    monkeypatch.setattr(run_mod, "_ckpt_save_state", real_save)
+    out, reseats_resumed = traced(cfg._replace(checkpoint_path=ck))
+    _assert_same_run(ref, out)
+    assert reseats_resumed == reseats
+
+
 def test_missing_draws_file_refuses(tmp_path):
     ck = str(tmp_path / "ck")
     _run(_cfg(ck))
@@ -181,6 +232,7 @@ CHANGED = {
     "thin": 2, "algorithm": "hmc", "hmc_num_leapfrogs": 16,
     "hmc_jitter": False,
     "pt_betas": (1.0, 0.5), "pt_swap_every": 2, "dispatch_block_steps": 5,
+    "reseat_accept_below": 0.2,
 }
 
 

@@ -464,3 +464,73 @@ def test_banded_target_launches_k3_through_pairs(jax_fit, monkeypatch):
     target(qs, bt)
     assert sorted(seen) == sorted([(2, 1, 2, False), (1, 1, 1, False),
                                    (1, 1, 1, True), (2, 2, 1, True)])
+
+
+def test_hybrid_target_and_leapfrog_match_the_plain_reference(jax_fit):
+    """The port's hybrid target (float64, sigma^2 known) and one leapfrog
+    from it against the benchmark's plain reference
+    (port_bench/reference/magi_ref.py: the exact operators worked out
+    again from the fit's hyperparameters, and the frame's factor F =
+    U^{-1} from the tiles of the target's own banded GN factor): lp
+    differences between states, gradients, and the point one leapfrog
+    reaches. The reference is plain PyTorch, NumPy and SciPy: a fresh
+    interpreter that imports it has loaded neither JAX nor anything of
+    either package, the port's kernels included."""
+    import json
+    import subprocess
+    import sys
+
+    from port_bench.reference.fields.lorenz import f_vec as plain_lorenz
+    from port_bench.reference.magi_ref import Mass, Reference
+
+    code = ("import sys, json, port_bench.reference.magi_ref, "
+            "port_bench.reference.fields.lorenz\n"
+            "print(json.dumps(sorted({m.split('.')[0] for m in "
+            "sys.modules})))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert not set(json.loads(out.stdout)) & {
+        "jax", "jaxlib", "magi_v2_tpu", "magi_v2_tpu_torch"}
+
+    jm = jax_fit
+    jmode, tmode = _modes(jm, "hybrid", torch.float64,
+                          sigma_sqs_fixed=SIGMA_FIXED)
+    gn = tmode.logp_grad.logp_grad          # the GN target under the pin
+    setup = {"ts_obs": jm.ts_obs, "X_obs": jm.X_obs, "discretization": 2,
+             "bandsize": jm.BANDSIZE,
+             **{k: np.asarray(getattr(jm, k)) for k in (
+                 "phi1s", "phi2s", "sigma_sqs_init", "thetas_init",
+                 "Xhat_init")}}
+    ref = Reference(setup, plain_lorenz, "cpu", exact=True,
+                    sigma_fixed=SIGMA_FIXED)
+    assert (ref.N, ref.D) == (jm.mag_I, jm.D)
+    frame = ref.frame(gn.x0T.T, gn.z0,
+                      ref.factor_inverse(gn.whitening.factor.tiles))
+    qs = torch.as_tensor(_states(jmode, n=6, seed=3, scale=0.05))
+    bt = torch.tensor(BETA_TEMP, dtype=torch.float64)
+    lp, grad = tmode.logp_grad(qs, bt)
+    lp_ref, grad_ref = ref.log_posterior(qs, bt, frame)
+    # the port's lp is relative to its reference point: differences
+    centred = lambda a: a - a.mean()
+    scale = float(lp_ref.abs().max())
+    np.testing.assert_allclose(centred(lp).numpy(), centred(lp_ref).numpy(),
+                               rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(grad.numpy(), grad_ref.numpy(), rtol=1e-8,
+                               atol=1e-8 * float(grad_ref.abs().max()))
+
+    # one leapfrog, accepted (uniforms 0), from the same momenta
+    rng = np.random.default_rng(4)
+    C, dim = qs.shape
+    diag = torch.as_tensor(rng.uniform(0.5, 1.5, dim))
+    normals = torch.as_tensor(rng.standard_normal((C, dim)))
+    eps = torch.tensor(0.002, dtype=torch.float64)
+    q1, info = hmc_step(lambda q: tmode.logp_grad(q, bt), qs, eps, diag, 1,
+                        normals, torch.zeros(C, dtype=torch.float64))
+    assert not bool(info.diverging.any())
+    mass = Mass(diag)
+    (q1_ref,) = ref.orbits(qs, mass.momentum(normals), eps.expand(C),
+                           mass.velocity, frame, bt, 1)
+    step = (q1_ref - qs).norm(dim=1)
+    gap = (q1 - q1_ref).norm(dim=1)
+    assert float((gap / step).max()) < 1e-9
