@@ -496,6 +496,36 @@ def kernel_inputs(dtype, device, C=256, N=161, seed=0, model="seir"):
     return out
 
 
+def gn_band_inputs(N=1025, D=3, b=100, bw=None, width=None, sqrts=True,
+                   seed=0):
+    """Synthetic NumPy float64 arguments (args, kwargs) of
+    ``sampler.precond.gauss_newton_precision_band``: symmetric operators
+    (their square roots with ``sqrts``) and m nonzero within ``width``
+    (default b) of the diagonal and read at bandsize b, random Jacobians,
+    half the grid observed, the precision's band ``bw`` (default 4 D b, its
+    natural bandwidth with the square roots). The defaults are the Lorenz
+    dense grid's shapes: N_I = 1025, D = 3, bandsize 100, bw 1200."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(N)
+    near = np.abs(i[:, None] - i[None, :]) <= (b if width is None else width)
+
+    def sym():
+        A = rng.standard_normal((D, N, N))
+        return (A + A.transpose(0, 2, 1)) * near
+
+    C_ops, K_ops = sym(), sym()
+    m = rng.standard_normal((D, N, N)) * near
+    J = rng.standard_normal((N, D, D))
+    obs = (rng.random((N, D)) < 0.5).astype(np.float64)
+    sigma = rng.uniform(0.1, 1.0, D)
+    args = (C_ops, m, K_ops, 1.7, obs, sigma, J, 4 * D * b if bw is None
+            else bw)
+    kw = dict(comp_bandwidth=b)
+    if sqrts:
+        kw.update(C_inv_sqrts=C_ops, K_inv_sqrts=K_ops)
+    return args, kw
+
+
 def _relerr(a, b):
     scale = float(torch.max(torch.abs(a))) or 1.0
     err = float(torch.max(torch.abs(a - b)))

@@ -155,76 +155,52 @@ def gauss_newton_precision_band(
     comp_bandwidth: int | None = None, C_inv_sqrts=None, K_inv_sqrts=None,
 ):
     """Banded storage (2*bw+1, N*D) of the Gauss-Newton precision Lambda
-    without forming the dense (ND)^2 matrix: sparse products on the host
-    in float64 (NumPy/SciPy in, NumPy out, as the JAX function).
+    in float64, band[bw + k, i] = Lambda[i, i + k] (NumPy out, as the JAX
+    function; NumPy arrays or tensors in).
 
     Index order flat = n*D + d (X.ravel()), the order in which Lambda is
-    banded. With the float64 square roots R, S the precision is assembled
-    from band(R)'band(R) and band(S)'band(S), the exact PSD curvature of
-    the banded target (the raw band-truncated operators are indefinite at
-    dense-grid sizes)."""
-    import scipy.sparse as sp
-
-    C_invs = np.asarray(C_invs, np.float64)
-    m_ds = np.asarray(m_ds, np.float64)
-    J = np.asarray(J, np.float64)
-    D, N = C_invs.shape[0], C_invs.shape[1]
-    ND = N * D
+    banded. The per-component operators are read banded at
+    ``comp_bandwidth``; with the float64 square roots R, S the precision is
+    assembled from band(R)'band(R) and band(S)'band(S), the exact PSD
+    curvature of the banded target (the raw band-truncated operators are
+    indefinite at dense-grid sizes). ``gauss_newton_precision`` forms it
+    dense from the band-masked inputs on the device of the operators (the
+    first tensor among them, else the CPU), and one gather takes the band:
+    at the Lorenz dense grid (ND = 3075) ~26 GFLOP of float64 GEMMs, 0.036
+    s on an H100 with the band's copy to the host, 0.49 s on its host's
+    8 CPU threads (scripts/gn_band_probe.py)."""
+    dev = operator_device(C_inv_sqrts, K_inv_sqrts, C_invs, K_invs)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    N = m_ds.shape[-1]
     b = N - 1 if comp_bandwidth is None else int(min(comp_bandwidth, N - 1))
-
-    def interleaved(mats):
-        """Block diagonal over components in the interleaved order,
-        banded at b."""
-        rows, cols, vals = [], [], []
-        for d in range(D):
-            for k in range(-b, b + 1):
-                diag = np.diagonal(mats[d], offset=k)
-                r = np.arange(N - k) if k >= 0 else np.arange(N + k) - k
-                rows.append(r * D + d)
-                cols.append((r + k) * D + d)
-                vals.append(diag)
-        return sp.csr_matrix(
-            (np.concatenate(vals), (np.concatenate(rows),
-                                    np.concatenate(cols))),
-            shape=(ND, ND),
-        )
-
-    if C_inv_sqrts is not None:
-        Rb = interleaved(np.asarray(C_inv_sqrts, np.float64))
-        C_term = Rb.T @ Rb
-    else:
-        C_term = interleaved(C_invs)
-    if K_inv_sqrts is not None:
-        Sb = interleaved(np.asarray(K_inv_sqrts, np.float64))
-        K_term = Sb.T @ Sb
-    else:
-        K_term = interleaved(np.asarray(K_invs, np.float64))
-
-    # dr/dX = J_blockdiag - m_blockdiag
-    J_sp = sp.bsr_matrix((J, np.arange(N), np.arange(N + 1)),
-                         shape=(ND, ND)).tocsr()
-    Rm = J_sp - interleaved(m_ds)
-    lam = (C_term + Rm.T @ K_term @ Rm) / float(beta)
-    obs_diag = (np.asarray(obs_mask, np.float64)
-                / np.asarray(sigma_sqs, np.float64)[None, :]).ravel()
-    lam = (lam + sp.diags(obs_diag)).tocsr()
-    return sparse_band(lam, int(min(bw, ND - 1)))
+    i = torch.arange(N, device=dev)
+    inside = (i[:, None] - i[None, :]).abs() <= b
+    banded = lambda a: None if a is None else torch.where(inside, f64(a), 0.0)
+    lam = gauss_newton_precision(
+        None if C_inv_sqrts is not None else banded(C_invs), banded(m_ds),
+        None if K_inv_sqrts is not None else banded(K_invs), beta,
+        f64(obs_mask), f64(sigma_sqs), f64(J),
+        C_inv_sqrts=banded(C_inv_sqrts), K_inv_sqrts=banded(K_inv_sqrts),
+    )
+    return dense_band(lam, int(min(bw, lam.shape[0] - 1))).cpu().numpy()
 
 
-def sparse_band(lam, bw: int):
-    """The (2 bw + 1, n) band storage of the square sparse ``lam``:
-    band[bw + k] is lam.diagonal(k), left-aligned for k < 0 and
-    right-padded for k >= 0, so band[bw + (j - i), i] = lam[i, j]. One
-    scatter of the nonzeros: a diagonal extraction is a pass over all of
-    them, and 2 bw + 1 such passes dominated the host setup of the Lorenz
-    dense grid (scripts/gn_band_probe.py)."""
-    lam = lam.tocoo()
-    lam.sum_duplicates()
-    k = lam.col - lam.row
-    keep = np.abs(k) <= bw
-    band = np.zeros((2 * bw + 1, lam.shape[0]), np.float64)
-    band[bw + k[keep], lam.row[keep]] = lam.data[keep]
-    return band
+def operator_device(*operators) -> torch.device:
+    """The device of the first tensor among ``operators``, else the CPU:
+    where ``gauss_newton_precision_band`` assembles the precision."""
+    return next((a.device for a in operators if isinstance(a, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def dense_band(lam, bw: int):
+    """The (2 bw + 1, n) band storage of the square tensor ``lam`` in one
+    gather: band[bw + k, i] = lam[i, i + k], zero where i + k is off the
+    matrix."""
+    n = lam.shape[0]
+    i = torch.arange(n, device=lam.device)
+    j = i[None, :] + torch.arange(-bw, bw + 1, device=lam.device)[:, None]
+    inside = (j >= 0) & (j < n)
+    return torch.where(inside, lam[i[None, :], j.clamp(0, n - 1)], 0.0)
 
 
 def build_gn_cholesky_banded(model, sigma_sqs_init=None,
@@ -232,7 +208,9 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
                              C_inv_sqrts=None, K_inv_sqrts=None, at_X=None,
                              at_thetas=None, timer=untimed):
     """Banded Cholesky factor U of the Gauss-Newton precision Lambda = U'U
-    of a fitted port model, on the host in float64: (U_band, info). The
+    of a fitted port model in float64: (U_band, info), Lambda's band
+    assembled on the device of the square roots (the card's, where they
+    live; counted as ``gn_precision_on_card``), U on the host. The
     sampler whitens with z = U (x - mu), whose curvature U^{-T} Lambda
     U^{-1} is the identity; x = mu + U^{-1} z is the exact block-banded
     back substitution (K4). With the float64 square roots of the operators
@@ -249,8 +227,6 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
             bw_precision = min(N * D - 1, 4 * D * bsize)
         else:
             bw_precision = min(N * D - 1, D * (bsize + 1))
-    host = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-                      else a)
     obs_mask = (~np.isnan(model.X_obs_discret)).astype(np.float64)
     sigma = model.sigma_sqs_init if sigma_sqs_init is None else sigma_sqs_init
     X_anchor = model.Xhat_init if at_X is None else np.asarray(at_X)
@@ -260,12 +236,15 @@ def build_gn_cholesky_banded(model, sigma_sqs_init=None,
                                     dtype=torch.float64)
     with timer("setup_gn_jacobian"):
         J = pointwise_ode_jacobian(model.f_vec, f64(model.I), f64(X_anchor),
-                                   f64(th_anchor)).numpy()
+                                   f64(th_anchor))
     with timer("setup_gn_precision"):
+        ops = (C_inv_sqrts, K_inv_sqrts, model.C_d_invs, model.K_d_invs)
+        if operator_device(*ops).type == "cuda":
+            timer.count("gn_precision_on_card")
         lam_band = gauss_newton_precision_band(
             model.C_d_invs, model.m_ds, model.K_d_invs, model.beta, obs_mask,
             sigma, J, bw_precision, comp_bandwidth=bsize,
-            C_inv_sqrts=host(C_inv_sqrts), K_inv_sqrts=host(K_inv_sqrts),
+            C_inv_sqrts=C_inv_sqrts, K_inv_sqrts=K_inv_sqrts,
         )
     with timer("setup_gn_cholesky"):
         U_band, jitter = banded_cholesky_upper(lam_band)

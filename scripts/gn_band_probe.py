@@ -1,78 +1,76 @@
-"""Host time of the banded Gauss-Newton precision at the Lorenz dense-grid
-shapes, with its band taken in one scatter of the nonzeros and with the
-diagonal-by-diagonal extraction it replaced.
+"""Time of the banded Gauss-Newton precision at the Lorenz dense-grid
+shapes: the port's assembly (dense float64 products, then one gather of
+the band) on the CPU, and on the card when one is present, against the
+JAX package's SciPy sparse assembly.
 
     python3 scripts/gn_band_probe.py
 
-Builds synthetic symmetric band-limited operators at N_I = 1025, D = 3,
+Inputs are ``chip_smoke.gn_band_inputs()``: synthetic symmetric
+band-limited operators and their square roots at N_I = 1025, D = 3,
 bandsize 100 (the precision's bandwidth 4 * D * bandsize = 1200, as
-``build_gn_cholesky_banded`` takes it with the operators' square roots)
-and runs ``magi_v2_tpu_torch.sampler.precond.gauss_newton_precision_band``
-under cProfile twice: as it is (``sparse_band``), then with
-``sparse_band`` swapped for one ``lam.diagonal(k)`` a row of the band
-(2 * 1200 + 1 passes over the nonzeros). Checks that the two bands are
-equal bit for bit and prints one JSON line of host seconds. Runs on the
-CPU; no card is needed.
+``build_gn_cholesky_banded`` takes it with the operators' square roots).
+Prints one JSON line: the best of three walls of each assembly (the
+card's after a warm-up call, from the inputs on the card to the band on
+the host), and each band's largest difference from the reference band
+over the reference's largest entry. The reference is the JAX package's
+SciPy assembly (``magi_v2_tpu.sampler.precond``) where no card is
+present; on the card's machine, where the JAX package does not run, the
+card's band is held to the port's CPU band.
 """
 
-import cProfile
 import json
-import pstats
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
+import torch
 
-from magi_v2_tpu_torch.sampler import precond
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-
-def by_diagonal(lam, bw):
-    lam = lam.tocsr()
-    n = lam.shape[0]
-    band = np.zeros((2 * bw + 1, n), np.float64)
-    for k in range(-bw, bw + 1):
-        diag = lam.diagonal(k)
-        if k >= 0:
-            band[bw + k, : n - k] = diag
-        else:
-            band[bw + k, -k:] = diag
-    return band
+import chip_smoke  # noqa: E402
+from magi_v2_tpu_torch.sampler import precond  # noqa: E402
 
 
-def profiled(args, kw):
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    band = precond.gauss_newton_precision_band(*args, **kw)
-    prof.disable()
-    total = time.perf_counter() - t0
-    stats = pstats.Stats(prof).stats
-    cum = lambda name: sum(v[3] for k, v in stats.items() if k[2] == name)
-    return band, total, cum("__matmul__"), cum(precond.sparse_band.__name__)
+def best_of(fn, reps=3, sync=lambda: None):
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return out, min(walls)
 
 
 def main():
-    N, D, b = 1025, 3, 100
-    rng = np.random.default_rng(0)
-    A = rng.standard_normal((D, N, N))
-    A = A + A.transpose(0, 2, 1)
-    i = np.arange(N)
-    A = A * (np.abs(i[:, None] - i[None, :]) <= b)
-    J = rng.standard_normal((N, D, D))
-    args = (A, A, A, 1.0, np.ones((N, D)), np.ones(D), J, 4 * D * b)
-    kw = dict(comp_bandwidth=b, C_inv_sqrts=A, K_inv_sqrts=A)
-    band, total, products, scatter = profiled(args, kw)
-    scatter_fn = precond.sparse_band
-    precond.sparse_band = by_diagonal
-    try:
-        old, old_total, _, extraction = profiled(args, kw)
-    finally:
-        precond.sparse_band = scatter_fn
-    print(json.dumps({
-        "shape": {"N_I": N, "D": D, "bandsize": b, "bandwidth": 4 * D * b},
-        "band_equal": bool(np.array_equal(old, band)),
-        "total_s": total, "sparse_products_s": products,
-        "band_scatter_s": scatter, "total_by_diagonal_s": old_total,
-        "band_by_diagonal_s": extraction}))
+    args, kw = chip_smoke.gn_band_inputs()
+    line = {"shape": {"N_I": 1025, "D": 3, "bandsize": 100,
+                      "bandwidth": args[-1]},
+            "threads": torch.get_num_threads()}
+    cpu, line["port_cpu_s"] = best_of(
+        lambda: precond.gauss_newton_precision_band(*args, **kw))
+    rel = lambda band, ref: float(np.abs(band - ref).max()
+                                  / np.abs(ref).max())
+    if torch.cuda.is_available():
+        dev = torch.device("cuda:0")
+        on_card = lambda a: (torch.as_tensor(a, device=dev)
+                             if isinstance(a, np.ndarray) else a)
+        cargs = tuple(on_card(a) for a in args)
+        ckw = {k: on_card(v) for k, v in kw.items()}
+        card = lambda: precond.gauss_newton_precision_band(*cargs, **ckw)
+        card()
+        band, line["port_card_s"] = best_of(
+            card, sync=lambda: torch.cuda.synchronize(dev))
+        line["card"] = torch.cuda.get_device_name(dev)
+        line["card_vs_port_cpu"] = rel(band, cpu)
+    else:
+        from magi_v2_tpu.sampler import precond as jax_precond
+
+        ref, line["scipy_sparse_s"] = best_of(
+            lambda: jax_precond.gauss_newton_precision_band(*args, **kw),
+            reps=1)
+        line["port_cpu_vs_scipy"] = rel(cpu, ref)
+    print(json.dumps(line))
 
 
 if __name__ == "__main__":

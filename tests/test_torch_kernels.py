@@ -513,3 +513,27 @@ def test_large_grid_targets_on_card_match_cpu(device):
         assert torch.equal(lp1, keep[0]) and torch.equal(g1, keep[1])
         assert torch.equal(lp1b, lp1) and torch.equal(g1b, g1)
         assert not torch.equal(lp1, lp2)
+
+
+def test_gn_precision_band_on_card_matches_cpu(device):
+    """The banded GN precision assembled from card tensors (float64 GEMMs
+    on the card) against the same band built on the CPU, at the Lorenz
+    dense grid's shapes; a traced hybrid predict counts the one band it
+    assembled on the card."""
+    from magi_v2_tpu_torch.sampler.precond import gauss_newton_precision_band
+
+    args, kw = chip_smoke.gn_band_inputs()
+    cpu = gauss_newton_precision_band(*args, **kw)
+    on_card = lambda a: (torch.as_tensor(a, device=device)
+                         if isinstance(a, np.ndarray) else a)
+    card = gauss_newton_precision_band(
+        *(on_card(a) for a in args), **{k: on_card(v) for k, v in kw.items()})
+    assert card.dtype == np.float64
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=1e-12 * np.abs(cpu).max())
+
+    res = _small_lorenz(device).predict(
+        num_results=2, num_burnin_steps=2, num_chains=4, seed=0,
+        algorithm="hmc", hmc_num_leapfrogs=4, storage="hybrid",
+        sigma_sqs_fixed=0.25, mass_matrix="diag", profile_timings=True)
+    assert res["timings"]["trace"]["counts"]["gn_precision_on_card"] == 1
