@@ -5,7 +5,7 @@ Chains are independent but for the statistics that pool them: dual
 averaging's mean acceptance, the Welford moments of the mass windows and
 the parallel-tempering swap rounds. The JAX package lays the chain axis
 over a 1-D device mesh and lets XLA partition the run. Here one host
-process drives every shard: ``sampler/run.py:run_chains`` runs each
+process drives every shard: ``sampler/run.py:Stepper`` runs each
 transition over its shards, each a contiguous range of chains on its
 device with its own copy of the target, workspaces and bound transition
 (CUDA graphs on the card), and gathers the states on the first device,

@@ -22,9 +22,10 @@ Two forms of one transition, which give the same bits:
 
 - ``hmc_step``: eager, for any ``logp_grad`` callable (the analytic
   targets of the tests); a new lp and grad at each evaluation.
-- ``BoundTransition``: for a target with a bound evaluation
-  (``target.bind(q, beta_temp, lp, grad)``, as ``GNTarget`` and
-  ``PinnedSigma`` have), on fixed buffers. On the card it captures three
+- ``BoundTransition``: on fixed buffers, to which a target with a bound
+  evaluation (``target.bind(q, beta_temp, lp, grad)``, as ``GNTarget``
+  and ``PinnedSigma`` have) is bound and into which any other callable is
+  evaluated eagerly. For a bound target on the card it captures three
   steps as CUDA graphs once (the evaluation at the start; the first
   leapfrog, K2 with one kick and the drift, then the evaluation; every
   later leapfrog, K2 with two kicks and the drift, then the evaluation) and
@@ -428,47 +429,92 @@ def _capture_steps(steps: dict, device) -> dict:
     return graphs
 
 
-def check_per_chain(name: str, t, per_chain: bool) -> None:
-    """A bound transition made without ``per_chain`` reads one temperature
-    for all chains: a (C,) ``t`` would be read at chain 0 alone."""
-    if not per_chain and t.dim():
-        raise ValueError(f"{name} has one value per chain; bind the "
-                         "transition with per_chain=True")
+class BoundBuffers:
+    """What the bound transitions (``BoundTransition``, ``nuts.BoundNuts``)
+    share: the state, step size, temperature and mass buffers, the target's
+    evaluation into them, a transition's arguments copied in, and the
+    steps' capture where the target binds and the state lies on the card."""
 
-
-class BoundTransition:
-    """``hmc_step`` for a target with a bound evaluation, on fixed buffers
-    of C chains (see the module's docstring): q (the proposal), p, g, lp,
-    lp0, kin0, kin1, step_size and beta_temp (C,), and the mass parts diag
-    (dim,) and tail_inv (k, k, in K2's padded layout). ``q0`` (C, dim)
-    gives the shapes and the first state; ``inv_mass`` the mass form, fixed
-    for the object. With ``per_chain`` the target is bound to the (C,)
-    temperatures (K1's launches of stride 1), else to the first, which a
-    0-dim temperature fills like every other."""
-
-    def __init__(self, target, q0, inv_mass, per_chain: bool = False):
-        C, dim = q0.shape
-        dt, dev = q0.dtype, q0.device
-        self.device = dev
-        new = lambda *s: torch.empty(s, dtype=dt, device=dev)
+    def _buffers(self, q0, inv_mass, per_chain: bool) -> None:
+        C, dt, dev = q0.shape[0], q0.dtype, q0.device
+        self.device, self.per_chain = dev, per_chain
         self.q = q0.clone(memory_format=torch.contiguous_format)
-        self.p, self.g = torch.zeros_like(self.q), torch.zeros_like(self.q)
-        self.lp, self.lp0, self.kin0, self.kin1 = (new(C) for _ in range(4))
         # step size 0 until the first transition: the warm-up before the
         # captures then leaves q where it is
         self.step_size = torch.zeros((C,), dtype=dt, device=dev)
         self.beta_temp = torch.ones((C,), dtype=dt, device=dev)
-        self.per_chain = per_chain
+        # tail_inv in K2's padded layout, so that its launches read it
         diag, tail_inv, self.k = _mass_parts(inv_mass)
         self.diag = diag.clone()
-        # in K2's padded layout, so that its launches read this buffer
         self.tail_inv = padded_tail(tail_inv) if self.k else None
         self.mass = (TailDenseMass(self.diag, self.tail_inv, None) if self.k
                      else self.diag)
         self._mass_src = inv_mass
-        evaluate = target.bind(
-            self.q, self.beta_temp if per_chain else self.beta_temp[0],
-            self.lp, self.g)
+
+    def _evaluation(self, target):
+        """The target at q into lp and g, at the (C,) temperatures with
+        ``per_chain``, else at the first: its bound evaluation where it has
+        one (``target.bind``), else an eager adapter, which evaluates
+        ``target(q, beta_temp)`` and copies the result in."""
+        beta = self.beta_temp if self.per_chain else self.beta_temp[0]
+        if hasattr(target, "bind"):
+            return target.bind(self.q, beta, self.lp, self.g)
+
+        def evaluate():
+            lp, g = target(self.q, beta)
+            self.lp.copy_(lp)
+            self.g.copy_(g)
+        return evaluate
+
+    def _capture(self, target, device) -> None:
+        self.graphs = (capture_steps(self.steps, device)
+                       if device.type == "cuda" and hasattr(target, "bind")
+                       else None)
+        # the trace recorder of the steps' replays (run_chains sets it)
+        self.recorder = None
+
+    def _take(self, q, step_size, inv_mass, beta_temp) -> None:
+        """A transition's step size, temperature, mass (when ``inv_mass``
+        is another object than the last one) and state. Without
+        ``per_chain`` a (C,) temperature would be read at chain 0 alone."""
+        if not self.per_chain and beta_temp.dim():
+            raise ValueError("beta_temp has one value per chain; bind the "
+                             "transition with per_chain=True")
+        self.step_size.copy_(step_size)
+        self.beta_temp.copy_(beta_temp)
+        if inv_mass is not self._mass_src:
+            diag, tail_inv, k = _mass_parts(inv_mass)
+            if k != self.k:
+                raise ValueError(f"the transition was bound to a dense block "
+                                 f"of {self.k} columns, not {k}")
+            self.diag.copy_(diag)
+            if k:
+                self.tail_inv.copy_(tail_inv)
+            self._mass_src = inv_mass
+        self.q.copy_(q)
+
+    def _step(self, name: str) -> None:
+        run_step(self, name)
+
+
+class BoundTransition(BoundBuffers):
+    """``hmc_step`` on fixed buffers of C chains (see the module's
+    docstring): q (the proposal), p, g, lp, lp0, kin0, kin1, step_size and
+    beta_temp (C,), and the mass parts. ``target(q, beta_temp) -> (lp,
+    grad)``, bound where it has ``bind``; ``q0`` (C, dim) gives the shapes
+    and the first state; ``inv_mass`` the mass form, fixed for the object.
+    With ``per_chain`` the target is bound to the (C,) temperatures (K1's
+    launches of stride 1), else to the first, which a 0-dim temperature
+    fills like every other."""
+
+    def __init__(self, target, q0, inv_mass, per_chain: bool = False):
+        C, dim = q0.shape
+        dt, dev = q0.dtype, q0.device
+        self._buffers(q0, inv_mass, per_chain)
+        new = lambda *s: torch.empty(s, dtype=dt, device=dev)
+        self.p, self.g = torch.zeros_like(self.q), torch.zeros_like(self.q)
+        self.lp, self.lp0, self.kin0, self.kin1 = (new(C) for _ in range(4))
+        evaluate = self._evaluation(target)
 
         def k2(nkick, drift, kinetic=None):
             return bind_leapfrog(self.q, self.p, self.g, self.step_size,
@@ -487,23 +533,7 @@ class BoundTransition:
 
         self.steps = {"start": evaluate, "first": leapfrog(first),
                       "next": leapfrog(later)}
-        self.graphs = (capture_steps(self.steps, dev) if dev.type == "cuda"
-                       else None)
-        # the trace recorder of the steps' replays (run_chains sets it)
-        self.recorder = None
-
-    def _set_mass(self, inv_mass) -> None:
-        diag, tail_inv, k = _mass_parts(inv_mass)
-        if k != self.k:
-            raise ValueError(f"the transition was bound to a dense block of "
-                             f"{self.k} columns, not {k}")
-        self.diag.copy_(diag)
-        if k:
-            self.tail_inv.copy_(tail_inv)
-        self._mass_src = inv_mass
-
-    def _step(self, name: str) -> None:
-        run_step(self, name)
+        self._capture(target, dev)
 
     def __call__(self, q, step_size, inv_mass, beta_temp, num_leapfrogs: int,
                  normals, uniforms, max_energy_diff: float = 1000.0):
@@ -513,12 +543,7 @@ class BoundTransition:
         object made ``per_chain``. A mass is copied in when ``inv_mass`` is
         another object than the last one."""
         L = int(num_leapfrogs)
-        check_per_chain("beta_temp", beta_temp, self.per_chain)
-        self.step_size.copy_(step_size)
-        self.beta_temp.copy_(beta_temp)
-        if inv_mass is not self._mass_src:
-            self._set_mass(inv_mass)
-        self.q.copy_(q)
+        self._take(q, step_size, inv_mass, beta_temp)
         self._step("start")
         self.lp0.copy_(self.lp)
         self.p.copy_(momentum_from_normal(inv_mass, normals))

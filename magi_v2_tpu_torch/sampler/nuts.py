@@ -52,14 +52,10 @@ import torch
 from magi_v2_tpu_torch.ops.banded import launch_stream
 from magi_v2_tpu_torch.ops.nuts import bind_nuts_leaf
 from magi_v2_tpu_torch.sampler.hmc import (
-    _mass_parts,
+    BoundBuffers,
     bind_leapfrog,
-    capture_steps,
-    check_per_chain,
-    padded_tail,
-    run_step,
 )
-from magi_v2_tpu_torch.sampler.mass import TailDenseMass, momentum_from_normal
+from magi_v2_tpu_torch.sampler.mass import momentum_from_normal
 
 
 class NutsConfig(NamedTuple):
@@ -97,17 +93,13 @@ def _where(cond, a, b) -> None:
     torch.where(cond.view(-1, *([1] * (b.dim() - 1))), a, b, out=b)
 
 
-class BoundNuts:
+class BoundNuts(BoundBuffers):
     """``nuts_step`` on fixed buffers of C chains (see the module's
-    docstring). ``target(q, beta_temp) -> (lp, grad)``, with a bound
-    evaluation ``target.bind(q, beta_temp, lp, grad)`` where it has one;
-    ``q0`` (C, dim) gives the shapes; ``inv_mass`` the mass form (a
-    diagonal, or a dense block of fixed width), fixed for the object. The
-    steps are captured as CUDA graphs where the target binds and the state
-    lies on the card. The step size and the temperature are (C,) buffers,
-    filled from a 0-dim value or one per chain; with ``per_chain`` the
-    target gets the (C,) temperatures, else the first (a 0-dim view), as
-    ``BoundTransition``."""
+    docstring). ``target(q, beta_temp) -> (lp, grad)``, bound where it has
+    ``bind``; ``q0`` (C, dim) gives the shapes; ``inv_mass`` the mass form
+    (a diagonal, or a dense block of fixed width), fixed for the object.
+    The buffers, temperatures and graphs are ``BoundTransition``'s
+    (``hmc.BoundBuffers``)."""
 
     def __init__(self, target, q0, inv_mass, cfg: NutsConfig = NutsConfig(),
                  per_chain: bool = False):
@@ -115,16 +107,12 @@ class BoundNuts:
         D = int(cfg.max_tree_depth)
         if D < 1:
             raise ValueError("max_tree_depth must be at least 1")
-        self.cfg, self.device = cfg, q0.device
+        self.cfg = cfg
+        self._buffers(q0, inv_mass, per_chain)
         dt, dev = q0.dtype, q0.device
         new = lambda *s, dtype=dt: torch.zeros(s, dtype=dtype, device=dev)
-        self.q = q0.clone(memory_format=torch.contiguous_format)
         self.p, self.g, self.v = new(C, dim), new(C, dim), new(C, dim)
         self.lp, self.kin, self.H0, self.eps = (new(C) for _ in range(4))
-        self.step_size = new(C)
-        self.beta_temp = torch.ones((C,), dtype=dt, device=dev)
-        self.per_chain = per_chain
-        beta = self.beta_temp if per_chain else self.beta_temp[0]
         # the trajectory: its two ends (q, p, g, lp, v), proposal, weight
         self.ends = {side: {k: new(C, dim) if k != "lp" else new(C)
                             for k in ("q", "p", "g", "lp", "v")}
@@ -146,20 +134,7 @@ class BoundNuts:
         self.ctr = new(2, dtype=torch.int32)
         self.going = new(dtype=torch.bool)
 
-        diag, tail_inv, self.k = _mass_parts(inv_mass)
-        self.diag = diag.clone()
-        self.tail_inv = padded_tail(tail_inv) if self.k else None
-        self.mass = (TailDenseMass(self.diag, self.tail_inv, None) if self.k
-                     else self.diag)
-        self._mass_src = inv_mass
-
-        if hasattr(target, "bind"):
-            evaluate = target.bind(self.q, beta, self.lp, self.g)
-        else:
-            def evaluate():
-                lp, g = target(self.q, beta)
-                self.lp.copy_(lp)
-                self.g.copy_(g)
+        evaluate = self._evaluation(target)
         stream = lambda: launch_stream(dev)
         k2_root = bind_leapfrog(self.q, self.p, self.g, self.step_size,
                                 self.mass, 0, False, self.kin, vel=self.v)
@@ -179,12 +154,7 @@ class BoundNuts:
         self.steps = {"nuts_start": evaluate, "nuts_root": self._root(k2_root),
                       "nuts_prologue": self._prologue, "nuts_leaf": leaf,
                       "nuts_epilogue": self._epilogue}
-        self.graphs = (capture_steps(self.steps, dev)
-                       if dev.type == "cuda" and hasattr(target, "bind")
-                       else None)
-        # the trace recorder of the steps and doublings (run_chains sets
-        # it)
-        self.recorder = None
+        self._capture(target, dev)
 
     def _root(self, k2_root):
         def run():
@@ -250,19 +220,6 @@ class BoundNuts:
         self.ctr[:1].add_(1)
         torch.any(~self.terminated, out=self.going)
 
-    def _set_mass(self, inv_mass) -> None:
-        diag, tail_inv, k = _mass_parts(inv_mass)
-        if k != self.k:
-            raise ValueError(f"the transition was bound to a dense block of "
-                             f"{self.k} columns, not {k}")
-        self.diag.copy_(diag)
-        if k:
-            self.tail_inv.copy_(tail_inv)
-        self._mass_src = inv_mass
-
-    def _step(self, name: str) -> None:
-        run_step(self, name)
-
     def _traced_end(self, rec, span, d: int) -> bool:
         """The end of doubling ``d`` under a recorder: its end marker
         (after its epilogue's replay), its device read in a span of its
@@ -285,12 +242,7 @@ class BoundNuts:
         than the last one. ``on_doubling(d)``, where given, is called after
         doubling d's leaves, before its epilogue (to read the subtree's
         state)."""
-        check_per_chain("beta_temp", beta_temp, self.per_chain)
-        self.step_size.copy_(step_size)
-        self.beta_temp.copy_(beta_temp)
-        if inv_mass is not self._mass_src:
-            self._set_mass(inv_mass)
-        self.q.copy_(q)
+        self._take(q, step_size, inv_mass, beta_temp)
         self.go_right.copy_(noise.go_right)
         self.leaf_u.copy_(noise.leaf_u)
         self.accept_u.copy_(noise.accept_u)

@@ -3,24 +3,25 @@ mass adaptation, temperature annealing) and sampling with NUTS
 (the default) or jittered fixed-length HMC (counterpart of
 magi_v2_tpu/sampler/run.py).
 
+``run_chains`` is a warmup loop and a sampling loop over four parts, each
+the one owner of a decision: ``Schedule`` (what each step does),
+``Stepper`` (a transition of all chains: the algorithm, the shards, the
+noise), ``WarmupCarry`` and ``SampleCarry`` (a phase's state, which a
+checkpoint writes and reads back) and ``DrawStore`` (the draws, on the
+device or staged to host memory).
+
 Chains are the leading axis of every state tensor. The step size, the
 dual-averaging state, the Welford moments and the mass live on the device;
 what the host decides — the jittered HMC trajectory length, which step
 adapts, when a mass window closes — depends only on step counters. An HMC
 transition never waits for the card; a NUTS transition reads one flag a
-doubling (whether any chain's tree goes on, sampler/nuts.py). Counters
-that are host-known (the dual-averaging and Welford counts) are Python
-floats.
+doubling (whether any chain's tree goes on, sampler/nuts.py).
 
 Warmup's re-seat rule (``reseat_accept_below``; the JAX package has
-none): at each boundary of ``reseat_stretches`` (the start of each mass
-window, the end of step-size adaptation, at the latest four fifths into
-burn-in) the host reads once each chain's acceptance, summed on the device
-over the last twentieth of burn-in before it; where fewer than half the
-chains are below the threshold, each of them moves to the current state of
-a chain drawn with the run's generator from the others (``reseat_stuck``;
-momenta are drawn afresh every transition). Sampling is untouched. Where
-no chain is below, nothing is drawn and the draws are the rule off's bits.
+none) reads each chain's acceptance at the boundaries of
+``reseat_stretches`` and moves the chains that stopped accepting to other
+chains' states (``reseat_stuck``). Sampling is untouched; where no chain
+is below, the draws are the rule off's bits.
 
 Parallel tempering (``pt_betas``: sampler/pt.py) tempers the sampling
 phase per chain and swaps adjacent rungs every ``pt_swap_every``
@@ -29,17 +30,15 @@ transitions; warmup is shared by all chains, as in the JAX package.
 ``dispatch_block_steps`` cuts warmup and sampling into blocks of
 transitions (a thinned draw costs ``thin`` of them), as the JAX package's
 dispatch blocks. Here a block is only a checkpoint boundary: its size
-changes no draw. With ``checkpoint_path`` each boundary writes the carry
-to ``state.npz`` (atomically: a temporary file, then ``os.replace``) and
+changes no draw. With ``checkpoint_path`` each boundary writes the phase's
+carry and the generators' states (the device generator's, and the host
+NumPy generator's: HMC's trajectory lengths) to ``state.npz`` (atomically:
+a temporary file, then ``os.replace``; each tensor with its strides) and
 each sampling block its draws and per-draw statistics to
 ``draws_NNNNNN.npz``; a second identical call resumes bit for bit from the
 last boundary, or loads a finished run from disk without a transition.
-The carry holds the chain states, the dual-averaging state, both Welford
-accumulators, the inverse mass (each tensor with its strides), the step
-size, the device generator's state, the host NumPy generator's (HMC's
-trajectory lengths), warmup's re-seat sums and record and, under PT,
-the swap counters; the bound transitions are rebuilt on resume. A
-fingerprint of the run refuses a checkpoint of another.
+The bound transitions are rebuilt on resume. A fingerprint of the run
+refuses a checkpoint of another.
 
 ``profile_timings`` traces the run into a ``utils.profiling.PhaseTimer``
 (the caller's ``timer``, or one of its own): spans ``eps_init``,
@@ -65,17 +64,16 @@ import hashlib
 import json
 import math
 import os
+from functools import partial
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from magi_v2_tpu_torch.sampler.hmc import BoundTransition, HmcInfo, hmc_step
+from magi_v2_tpu_torch.sampler.hmc import BoundTransition
 from magi_v2_tpu_torch.sampler.nuts import (
     BoundNuts,
     NutsConfig,
-    NutsInfo,
-    NutsNoise,
     draw_noise,
 )
 from magi_v2_tpu_torch.sampler.pt import (
@@ -398,17 +396,16 @@ def _ckpt_fingerprint(config: SamplerConfig, C: int, dim: int, seed,
             f"q0{q0_digest}")
 
 
-def _welford_items(name, w):
-    if w is None:
-        return {}
-    return {f"{name}_count": w.count, f"{name}_mean": w.mean,
-            f"{name}_m2": w.m2}
+def _tuple_items(name, t) -> dict:
+    """A NamedTuple of a carry (None: nothing) as ``<name>_<field>``
+    arrays."""
+    return {} if t is None else {f"{name}_{f}": v
+                                 for f, v in zip(t._fields, t)}
 
 
 def _mass_items(inv_mass):
     if isinstance(inv_mass, TailDenseMass):
-        return {"mass_diag": inv_mass.diag, "mass_tail_inv": inv_mass.tail_inv,
-                "mass_tail_msqrt": inv_mass.tail_msqrt}
+        return _tuple_items("mass", inv_mass)
     return {"mass_diag": inv_mass}
 
 
@@ -421,18 +418,20 @@ def _ckpt_tensor(arrays, name, device):
     return t.copy_(torch.from_numpy(a))
 
 
-def _ckpt_welford(arrays, name, device) -> Welford:
-    return Welford(float(arrays[f"{name}_count"]),
-                   _ckpt_tensor(arrays, f"{name}_mean", device),
-                   _ckpt_tensor(arrays, f"{name}_m2", device))
+def _ckpt_tuple(cls, arrays, name, device):
+    """The NamedTuple ``cls`` that ``_tuple_items`` saved as ``name`` (None:
+    none was), its tensors on ``device``."""
+    keys = [f"{name}_{f}" for f in cls._fields]
+    if keys[0] not in arrays:
+        return None
+    return cls(*(_ckpt_tensor(arrays, k, device) if f"_stride_{k}" in arrays
+                 else float(arrays[k]) for k in keys))
 
 
 def _ckpt_mass(arrays, device):
-    diag = _ckpt_tensor(arrays, "mass_diag", device)
-    if "mass_tail_inv" not in arrays:
-        return diag
-    return TailDenseMass(diag, _ckpt_tensor(arrays, "mass_tail_inv", device),
-                         _ckpt_tensor(arrays, "mass_tail_msqrt", device))
+    if "mass_tail_inv" in arrays:
+        return _ckpt_tuple(TailDenseMass, arrays, "mass", device)
+    return _ckpt_tensor(arrays, "mass_diag", device)
 
 
 def _ckpt_save_state(dirpath, phase, nxt, carry, fingerprint):
@@ -527,22 +526,6 @@ class Shard(NamedTuple):
     target: Callable
 
 
-def _target_on(target, device):
-    """The target's copy on ``device`` (``target.to``), or the callable
-    itself when it has no ``to``."""
-    return target.to(device) if hasattr(target, "to") else target
-
-
-def _mass_on(inv_mass, device):
-    """The inverse mass on ``device``: the same object when it is there."""
-    parts = inv_mass if isinstance(inv_mass, TailDenseMass) else (inv_mass,)
-    if all(t.device == device for t in parts):
-        return inv_mass
-    if isinstance(inv_mass, TailDenseMass):
-        return TailDenseMass(*(t.to(device) for t in inv_mass))
-    return inv_mass.to(device)
-
-
 def make_shards(target, C: int, mesh) -> list:
     """One ``Shard`` per entry of ``mesh`` (a sequence of devices, an entry
     per shard, repeats allowed): contiguous chain ranges of C / len(mesh),
@@ -552,8 +535,509 @@ def make_shards(target, C: int, mesh) -> list:
         raise ValueError(f"num chains {C} must be a multiple of mesh size "
                          f"{k}")
     M = C // k
-    return [Shard(i * M, (i + 1) * M, torch.device(d), _target_on(target, d))
+    return [Shard(i * M, (i + 1) * M, torch.device(d),
+                  target.to(d) if hasattr(target, "to") else target)
             for i, d in enumerate(mesh)]
+
+
+class Schedule:
+    """What each step of a run does, from the config and the chain count
+    alone: the mass ``windows`` ((first, end)) and their ``closes`` ({end:
+    keep only the diagonal}), the re-seat rule's ``reseat_at`` ({boundary:
+    stretch start}), the temperatures, the PT ladder, the blocks."""
+
+    def __init__(self, config: SamplerConfig, C: int):
+        self.betas = check_ladder(config, C)
+        self.B = B = config.num_burnin_steps
+        self.num_adapt = num_adapt = int(config.adaptation_fraction * B)
+        win_lo = int(config.mass_window_begin * B)
+        win_hi = int(config.mass_window_end * B)
+        win2_lo = int(config.mass_window2_begin * B)
+        win2_hi = int(config.mass_window2_end * B)
+        adapt_mass = config.adapt_mass_matrix and win_hi > win_lo
+        two_windows = config.adapt_mass_matrix and win2_hi > win2_lo
+        if two_windows:
+            if win_hi <= win_lo:
+                raise ValueError(
+                    f"mass_window2 requires a valid first window (got "
+                    f"[{win_lo}, {win_hi}))"
+                )
+            if win2_lo < win_hi:
+                raise ValueError(
+                    f"mass_window2 [{win2_lo}, {win2_hi}) must start at or "
+                    f"after mass_window_end ({win_hi})"
+                )
+            if win2_hi >= num_adapt:
+                raise ValueError(
+                    f"mass_window2 must end (step {win2_hi}) before step-size "
+                    f"adaptation does (step {num_adapt}): the step size has "
+                    "to re-adapt to the re-estimated metric"
+                )
+        self.windows = (((win_lo, win_hi),) if adapt_mass else ()) + (
+            ((win2_lo, win2_hi),) if two_windows else ())
+        self.closes = {hi: two_windows and config.mass_window1_diag
+                       and hi == win_hi for _, hi in self.windows}
+        self.reseat_at = {}
+        if config.reseat_accept_below > 0.0:
+            self.reseat_at = reseat_stretches(
+                B, num_adapt, tuple(lo for lo, _ in self.windows))
+        self.summed = {s for b, lo in self.reseat_at.items()
+                       for s in range(lo, b)}
+        self.transitions = B + config.num_results * config.thin
+        steps = np.arange(self.transitions)
+        if not config.use_annealing:
+            self.temps = np.ones(steps.size)
+        else:
+            self.temps = log_temperature_schedule(steps,
+                                                  config.anneal_min_temp)
+            if config.anneal_mode == "warmup_only":
+                ramp_end = min(num_adapt, win_lo) if adapt_mass else num_adapt
+                self.temps = np.maximum(self.temps, np.clip(
+                    steps / max(ramp_end, 1), 0.0, 1.0))
+            elif config.anneal_mode != "reference":
+                raise ValueError(
+                    f"unknown anneal_mode {config.anneal_mode!r}")
+        self.warmup_blocks = _blocks(B, config.dispatch_block_steps)
+        self.sample_blocks = _blocks(config.num_results,
+                                     config.dispatch_block_steps, config.thin)
+
+
+def _part(x, sh: Shard, C: int | None = None):
+    # shard sh's rows of a per-chain tensor of C rows (a 0-dim one, or any
+    # with C None, whole) on its device; a tuple's part by part
+    if isinstance(x, tuple):
+        return type(x)(*(_part(t, sh, C) for t in x))
+    if not isinstance(x, torch.Tensor):
+        return x
+    if C is not None and x.dim() and x.shape[0] == C:
+        x = x[sh.lo:sh.hi]
+    return x.to(sh.device)
+
+
+class Stepper:
+    """One transition of all C chains, NUTS (``nuts.BoundNuts``) or HMC
+    (``hmc.BoundTransition``), over ``shards`` (None: one, q0's device and
+    ``target`` itself): each runs its chains on its device with its own
+    target and bound transition. The noise of all C chains is drawn on the
+    first shard's device from ``gen``, HMC's trajectory length from
+    ``host_rng`` on the host, both seeded with ``seed``, and the states
+    are gathered there, so a sharded run draws what the unsharded one
+    does and pools its statistics alike."""
+
+    def __init__(self, nuts: bool, config: SamplerConfig, target, q0, seed,
+                 shards=None, per_chain: bool = False):
+        if shards is None:
+            shards = [Shard(0, q0.shape[0], q0.device, target)]
+        self.shards, self.nuts, self.config = shards, nuts, config
+        self.device, self.target = shards[0].device, shards[0].target
+        self.q0, self.per_chain = q0.to(self.device), per_chain
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(int(seed))
+        self.host_rng = np.random.default_rng(int(seed))
+        # made at the first mass; the trace recorder (run_chains sets it)
+        self.bounds = self.recorder = None
+        self._masses = (None, None)
+
+    def anchor(self, transitions: int) -> None:
+        # the device markers' start, an event for each marker the
+        # transitions can make; none across shards (they time one card)
+        if self.recorder is not None and len(self.shards) == 1:
+            depth = self.config.max_tree_depth if self.nuts else 0
+            self.recorder.anchor(transitions * (2 + 2 * depth))
+
+    def rng_items(self) -> dict:
+        return {"gen": self.gen.get_state(),
+                "host_rng": json.dumps(self.host_rng.bit_generator.state)}
+
+    def set_rng(self, arrays) -> None:
+        self.gen.set_state(torch.from_numpy(arrays["gen"]))
+        self.host_rng.bit_generator.state = json.loads(str(arrays["host_rng"]))
+
+    def bind(self, inv_mass) -> None:
+        """Makes the bound transitions, once: they hold the mass's form."""
+        if self.bounds is not None:
+            return
+        parts = [(self.target, self.q0, inv_mass)]
+        if len(self.shards) > 1:
+            parts = [(sh.target, self.q0[sh.lo:sh.hi].to(sh.device), mass)
+                     for sh, mass in zip(self.shards,
+                                         self._shard_masses(inv_mass))]
+        cfg = NutsConfig(self.config.max_tree_depth,
+                         self.config.max_energy_diff)
+        self.bounds = [
+            BoundNuts(t, q, m, cfg, per_chain=self.per_chain) if self.nuts
+            else BoundTransition(t, q, m, per_chain=self.per_chain)
+            for t, q, m in parts]
+        for b in self.bounds:
+            b.recorder = self.recorder
+
+    def _shard_masses(self, inv_mass) -> list:
+        # each shard's copy of the mass, remade when the mass changes
+        if inv_mass is not self._masses[0]:
+            self._masses = (inv_mass, [_part(inv_mass, sh)
+                                       for sh in self.shards])
+        return self._masses[1]
+
+    def _noise(self) -> tuple:
+        # the bound transitions' arguments after the temperature
+        (C, dim), dt, dev = self.q0.shape, self.q0.dtype, self.device
+        if self.nuts:
+            return (draw_noise(self.gen, C, dim, self.config.max_tree_depth,
+                               dt, dev),)
+        normals = torch.randn((C, dim), generator=self.gen, dtype=dt,
+                              device=dev)
+        uniforms = torch.rand((C,), generator=self.gen, dtype=dt, device=dev)
+        L = self.config.hmc_num_leapfrogs
+        if self.config.hmc_jitter:
+            L = max(1, math.ceil(self.host_rng.random() * L))
+        return L, normals, uniforms, self.config.max_energy_diff
+
+    def __call__(self, qs, eps, inv_mass, step: int, beta_temp):
+        """(states, info) of transition ``step`` from ``qs`` (C, dim), its
+        step size and temperature each 0-dim or one a chain."""
+        args = (qs, eps, inv_mass, beta_temp, *self._noise())
+        rec = self.recorder
+        if rec is None:
+            return self._step(args)
+        s = rec.open("transition", step=step)
+        rec.mark(s, "dev_t0_ns")
+        out = self._step(args)
+        rec.mark(s, "dev_t1_ns")
+        rec.close(s)
+        return out
+
+    def _step(self, args):
+        if len(self.bounds) == 1:
+            return self.bounds[0](*args)
+        C = args[0].shape[0]
+        qs, infos = zip(*(
+            bound(*(mass if i == 2 else _part(a, sh, C)
+                    for i, a in enumerate(args)))
+            for bound, sh, mass in zip(self.bounds, self.shards,
+                                       self._shard_masses(args[2]))))
+        cat = lambda xs: (torch.cat([x.to(self.device) for x in xs])
+                          if isinstance(xs[0], torch.Tensor) else xs[0])
+        return cat(qs), type(infos[0])(*map(cat, zip(*infos)))
+
+
+class WarmupCarry(NamedTuple):
+    """Warmup's state between transitions (a warmup checkpoint with the
+    generators' states)."""
+    qs: torch.Tensor
+    da: DAState
+    wf: Welford
+    wf_tail: Welford | None    # the dense tail's covariance, or None
+    inv_mass: object
+    accept_sum: torch.Tensor   # (C,) acceptance over the re-seat stretch
+    reseats: list              # (boundary, chains moved) at each boundary
+
+    def arrays(self) -> dict:
+        return {"qs": self.qs, **_tuple_items("da", self.da),
+                **_tuple_items("wf", self.wf),
+                **_tuple_items("wf_tail", self.wf_tail),
+                **_mass_items(self.inv_mass),
+                "reseat_accept_sum": self.accept_sum,
+                "reseats": np.asarray(self.reseats, np.int64).reshape(-1, 2)}
+
+    @classmethod
+    def load(cls, arrays, device) -> WarmupCarry:
+        return cls(_ckpt_tensor(arrays, "qs", device),
+                   _ckpt_tuple(DAState, arrays, "da", device),
+                   _ckpt_tuple(Welford, arrays, "wf", device),
+                   _ckpt_tuple(Welford, arrays, "wf_tail", device),
+                   _ckpt_mass(arrays, device),
+                   _ckpt_tensor(arrays, "reseat_accept_sum", device),
+                   [tuple(int(v) for v in r) for r in arrays["reseats"]])
+
+
+class SampleCarry(NamedTuple):
+    """Sampling's state between blocks (a sampling checkpoint with the
+    generators' states)."""
+    qs: torch.Tensor
+    eps: torch.Tensor          # warmup's step size
+    inv_mass: object
+    swap_prop: torch.Tensor | None = None   # PT's swap counters, (R - 1,)
+    swap_accs: torch.Tensor | None = None
+
+    def arrays(self) -> dict:
+        swaps = ({} if self.swap_prop is None else
+                 {"swap_prop": self.swap_prop, "swap_accs": self.swap_accs})
+        return {"qs": self.qs, "eps": self.eps,
+                **_mass_items(self.inv_mass), **swaps}
+
+    @classmethod
+    def load(cls, arrays, device) -> SampleCarry:
+        swaps = [_ckpt_tensor(arrays, name, device)
+                 for name in ("swap_prop", "swap_accs") if name in arrays]
+        return cls(_ckpt_tensor(arrays, "qs", device),
+                   _ckpt_tensor(arrays, "eps", device),
+                   _ckpt_mass(arrays, device), *swaps)
+
+
+class DrawStore:
+    """The sampling phase's draws and per-draw statistics (``arrays``).
+    Draws of more than ``stage_above_bytes`` (with dispatch blocks), and a
+    checkpointed run's, are staged: each block is computed into a device
+    buffer and copied into (pinned) host memory. HMC's trajectory lengths
+    are host ints and stay on the host."""
+
+    def __init__(self, nuts: bool, config: SamplerConfig, blocks, q0,
+                 recorder):
+        T, (C, dim), dev = config.num_results, q0.shape, q0.device
+        ck = bool(config.checkpoint_path)
+        staged = ck or (
+            config.dispatch_block_steps > 0
+            and T * C * dim * q0.element_size() > config.stage_above_bytes)
+        new = partial(torch.empty, device="cpu" if staged else dev,
+                      pin_memory=staged and dev.type == "cuda")
+        self.arrays = {
+            "samples": new((T, C, dim), dtype=q0.dtype),
+            "accept": new((T, C), dtype=q0.dtype),
+            "diverging": new((T, C), dtype=torch.bool),
+            "num_leapfrogs": (new((T, C), dtype=torch.int32) if nuts
+                              else np.empty((T, C), np.int32))}
+        if nuts:
+            self.arrays["depths"] = new((T, C), dtype=torch.int32)
+        # what a block writes on the device (when staged, into a buffer)
+        self.per_draw = {name: a for name, a in self.arrays.items()
+                         if isinstance(a, torch.Tensor)}
+        self.nuts, self.device, self.recorder = nuts, dev, recorder
+        self.span = untimed.span if recorder is None else recorder.span
+        self.bufs = self.copy_stream = None
+        if staged:
+            # two buffers on the card, so that a block's copy (on a stream
+            # of its own, after the block's last write) overlaps the next
+            # block's compute, as the JAX package's finalize_block overlaps
+            # its fetch; one where the copy is synchronous (the CPU, or a
+            # checkpoint, whose files need the block on the host)
+            nbuf = 2 if dev.type == "cuda" and not ck else 1
+            bmax = max(size for _, size in blocks)
+            self.bufs = [{name: torch.empty((bmax,) + a.shape[1:],
+                                            dtype=a.dtype, device=dev)
+                          for name, a in self.per_draw.items()}
+                         for _ in range(nbuf)]
+            self.copied = [None] * nbuf
+            if nbuf == 2:
+                self.copy_stream = torch.cuda.Stream(dev)
+
+    def load(self, dirpath, start: int, end: int) -> None:
+        # block [start, end) of a finished run, from its draws file
+        loaded = _ckpt_load_draws(dirpath, start)
+        if loaded is None:
+            raise FileNotFoundError(
+                f"checkpoint state at {dirpath!r} marks block {start} "
+                f"complete but draws_{start:06d}.npz is missing; "
+                "delete state.npz to restart")
+        for name, arr in self.arrays.items():
+            a = loaded[0] if name == "samples" else loaded[1][name]
+            arr[start:end] = (torch.from_numpy(a)
+                              if isinstance(arr, torch.Tensor) else a)
+
+    def open(self, b: int, start: int, size: int) -> None:
+        # block b, draws [start, start + size), takes the next puts
+        self.start, self.size = start, size
+        if self.bufs is None:
+            self.views = {name: a[start:start + size]
+                          for name, a in self.per_draw.items()}
+            return
+        j = self.j = b % len(self.bufs)
+        if self.copied[j] is not None:
+            # the buffer's last copy must be done before it is rewritten
+            torch.cuda.current_stream(self.device).wait_event(self.copied[j])
+        self.views = {name: buf[:size] for name, buf in self.bufs[j].items()}
+
+    def put(self, i: int, qs, info) -> None:
+        v, n = self.views, i - self.start
+        v["samples"][n] = qs
+        v["accept"][n] = info.accept_prob
+        v["diverging"][n] = info.diverging
+        if self.nuts:
+            v["num_leapfrogs"][n] = info.num_leapfrogs
+            v["depths"][n] = info.depth
+        else:
+            self.arrays["num_leapfrogs"][i] = info.num_leapfrogs
+
+    def stage(self) -> None:
+        # a staged run's open block, from its device buffer to the host
+        if self.bufs is None:
+            return
+        start, end = self.start, self.start + self.size
+        with self.span("stage"):
+            stream = self.copy_stream
+            if stream is not None:
+                stream.wait_event(
+                    torch.cuda.current_stream(self.device).record_event())
+            with torch.cuda.stream(stream):
+                for name, v in self.views.items():
+                    self.per_draw[name][start:end].copy_(
+                        v, non_blocking=stream is not None)
+                if stream is not None:
+                    self.copied[self.j] = stream.record_event()
+            if self.recorder is not None:
+                host = (0 if self.nuts
+                        else self.arrays["num_leapfrogs"][start:end].nbytes)
+                self.recorder.count("staged_bytes", host + sum(
+                    v.numel() * v.element_size() for v in self.views.values()))
+
+    def host_block(self, start: int, end: int):
+        # block [start, end) in host memory, as its draws file holds it
+        return self.arrays["samples"][start:end].numpy(), {
+            name: (arr[start:end].numpy() if isinstance(arr, torch.Tensor)
+                   else arr[start:end].copy())
+            for name, arr in self.arrays.items() if name != "samples"}
+
+    def drain(self) -> None:
+        with self.span("drain", wait=True):
+            if self.recorder is not None and self.copy_stream is not None:
+                self.copy_stream.synchronize()
+
+    def stats(self) -> dict:
+        """The arrays, the copies done; num_leapfrogs and depths in NumPy
+        (HMC's depth ceil(log2 L), as the JAX package's)."""
+        if self.copy_stream is not None:
+            self.copy_stream.synchronize()
+        out = dict(self.arrays)
+        if self.nuts:
+            for name in ("num_leapfrogs", "depths"):
+                out[name] = out[name].cpu().numpy()
+        else:
+            out["depths"] = np.ceil(np.log2(np.maximum(
+                out["num_leapfrogs"], 1))).astype(np.int32)
+        return out
+
+
+def _progress(config: SamplerConfig, phase: str, step: int, eps, info):
+    every = config.progress_every
+    if every and step % every == 0:
+        L = info.num_leapfrogs
+        print(
+            f"[sampler] {phase} step {step:>6} eps={float(eps):.5f} "
+            f"accept={float(info.accept_prob.mean()):.3f} "
+            f"L={L if isinstance(L, int) else float(L.float().mean())} "
+            f"div={float(info.diverging.to(eps.dtype).mean()):.4f}",
+            flush=True,
+        )
+
+
+def _welfords(qs, k: int):
+    # a mass window's empty accumulators: the variances, and the
+    # covariance of the last k coordinates (None: k = 0)
+    dim, dt, dev = qs.shape[1], qs.dtype, qs.device
+    return (welford_init(dim, dt, dev),
+            welford_cov_init(k, dt, dev) if k > 0 else None)
+
+
+def _warmup_start(stepper: Stepper, config: SamplerConfig, beta_temp,
+                  span) -> WarmupCarry:
+    q0 = stepper.q0
+    (C, dim), dt, dev = q0.shape, q0.dtype, q0.device
+    with span("eps_init", wait=True):
+        inv_mass = identity_mass(dim, config.dense_tail_size, dt, dev)
+        eps0 = find_reasonable_step_size(
+            lambda q: stepper.target(q, beta_temp), q0[:1], stepper.gen,
+            inv_mass, config.initial_step_size)
+    return WarmupCarry(q0, da_init(torch.tensor(eps0, dtype=dt, device=dev)),
+                       *_welfords(q0, config.dense_tail_size), inv_mass,
+                       torch.zeros((C,), dtype=dt, device=dev), [])
+
+
+def _warmup(c: WarmupCarry, done: int, sched: Schedule, stepper: Stepper,
+            temps, config: SamplerConfig, span, fingerprint) -> WarmupCarry:
+    """Warmup's blocks from step ``done`` on, each checkpointed at its
+    end."""
+    ck, k = config.checkpoint_path, config.dense_tail_size
+    for start, size in sched.warmup_blocks:
+        if start + size <= done:
+            continue
+        stepper.bind(c.inv_mass)
+        qs, da, wf, wf_tail, inv_mass, accept_sum, reseats = c
+        with span("block", wait=True):
+            for step in range(start, start + size):
+                if step in sched.reseat_at:
+                    qs, moved = reseat_stuck(
+                        qs, accept_sum, step - sched.reseat_at[step],
+                        config.reseat_accept_below, stepper.gen)
+                    reseats.append((step, moved))
+                    accept_sum.zero_()
+                eps = torch.exp(da.log_step if da.count < sched.num_adapt
+                                else da.log_step_avg)
+                qs, info = stepper(qs, eps, inv_mass, step, temps[step])
+                _progress(config, "warmup", step, eps, info)
+                if step in sched.summed:
+                    accept_sum += info.accept_prob
+                if step < sched.num_adapt:
+                    da = da_update(da, torch.mean(info.accept_prob),
+                                   config.target_accept)
+                if any(lo <= step < hi for lo, hi in sched.windows):
+                    wf = welford_add_batch(wf, qs)
+                    if wf_tail is not None:
+                        wf_tail = welford_cov_add_batch(wf_tail, qs[:, -k:])
+                if step in sched.closes:
+                    var = welford_variance(wf)
+                    if wf_tail is None:
+                        inv_mass = var
+                    else:
+                        cov = welford_covariance(wf_tail,
+                                                 config.dense_shrinkage)
+                        if sched.closes[step]:
+                            cov = torch.diag(torch.diag(cov))
+                        inv_mass = mass_from_moments(var, cov)
+                    # restart dual averaging around the current step size
+                    # and the accumulators for a second window
+                    da = da_init(torch.exp(da.log_step))
+                    wf, wf_tail = _welfords(qs, k)
+        c = WarmupCarry(qs, da, wf, wf_tail, inv_mass, accept_sum, reseats)
+        if ck:
+            _ckpt_save_state(ck, "warmup", start + size, {
+                **c.arrays(), **stepper.rng_items()}, fingerprint)
+    return c
+
+
+def _sample(c: SampleCarry, done: int, sched: Schedule, stepper: Stepper,
+            store: DrawStore, temps, config: SamplerConfig, span,
+            fingerprint) -> SampleCarry:
+    """Sampling's blocks, those that end by draw ``done`` loaded from the
+    checkpoint, the others run and checkpointed at their ends."""
+    ck, qs, eps, beta, swap = config.checkpoint_path, c.qs, c.eps, None, None
+    (C, _), dt, dev = qs.shape, qs.dtype, qs.device
+    if sched.betas is not None:
+        # sampling at each chain's rung: its beta and a step scaled by
+        # beta^(-1/2), both in the sampling dtype
+        beta, scale = rung_temperatures(sched.betas, C, dt, dev)
+        eps = c.eps * scale
+    for b, (start, size) in enumerate(sched.sample_blocks):
+        if ck and start + size <= done:
+            store.load(ck, start, start + size)
+            continue
+        stepper.bind(c.inv_mass)
+        if sched.betas is not None and swap is None:
+            swap = BoundSwap(stepper.target, stepper.q0, sched.betas)
+            swap.prop.copy_(c.swap_prop)
+            swap.accs.copy_(c.swap_accs)
+            c = c._replace(swap_prop=swap.prop, swap_accs=swap.accs)
+        store.open(b, start, size)
+        with span("block", wait=True):
+            for i in range(start, start + size):
+                for t in range(config.thin):
+                    step = sched.B + i * config.thin + t
+                    qs, info = stepper(qs, eps, c.inv_mass, step,
+                                       temps[step] if beta is None else beta)
+                    rel = step - sched.B
+                    if swap is not None and (
+                            (rel + 1) % config.pt_swap_every == 0):
+                        u = torch.rand(
+                            (len(sched.betas) - 1, C // len(sched.betas)),
+                            generator=stepper.gen, dtype=dt, device=dev)
+                        qs = swap(qs, u, (rel // config.pt_swap_every) % 2)
+                    _progress(config, "sample", step, c.eps, info)
+                store.put(i, qs, info)
+        store.stage()
+        c = c._replace(qs=qs)
+        if ck:
+            _ckpt_save_draws(ck, start, *store.host_block(start, start + size))
+            _ckpt_save_state(ck, "sample", start + size, {
+                **c.arrays(), **stepper.rng_items()}, fingerprint)
+    return c
 
 
 def run_chains(
@@ -565,561 +1049,99 @@ def run_chains(
     timer=untimed,
 ):
     """Warmup + sampling of C chains with ``config.algorithm``: "nuts"
-    (``nuts.BoundNuts``) or "hmc" (jittered fixed-length HMC).
+    (``nuts.BoundNuts``) or "hmc" (jittered fixed-length HMC,
+    ``hmc.BoundTransition``), on fixed buffers: a ``tempered_logp_grad``
+    with a bound evaluation (``bind``, as every target ``predict`` builds)
+    is bound to them, as CUDA graphs on the card; any other callable is
+    evaluated eagerly into them, with the same draws.
 
-    For HMC, a ``tempered_logp_grad`` with a bound evaluation (``bind``, as
-    the targets ``predict`` builds have) takes the sampler's bound
-    transition (``hmc.BoundTransition``: CUDA graphs on the card); any
-    other callable the eager ``hmc_step``. NUTS takes ``BoundNuts`` for
-    both, with CUDA graphs where the target binds. Either way the two
-    forms give the same draws.
+    With two rungs or more in ``config.pt_betas`` (sampler/pt.py), chain c
+    samples at its rung's beta and step eps * beta^(-1/2) after warmup,
+    and a swap round follows every ``pt_swap_every``-th sampling
+    transition, its uniforms drawn after the transition's; samples and
+    stats keep every rung (``predict`` returns the beta = 1 rung), and
+    ``stats.pt_swap_accept`` holds each pair's acceptance.
 
-    With two rungs or more in ``config.pt_betas``, chain c samples at its
-    rung's beta and step eps * beta^(-1/2) after warmup, and a swap round
-    (``pt.BoundSwap``: the value-only evaluation and the swap kernel, one
-    CUDA graph on the card) follows every ``pt_swap_every``-th sampling
-    transition; samples and stats keep every rung (``predict`` returns the
-    beta = 1 rung), and ``stats.pt_swap_accept`` holds each pair's
-    acceptance.
-
-    ``shards`` (``make_shards``; ``parallel.run_chains_sharded`` makes
-    them) splits each transition over chain ranges, each on its shard's
-    device with its own target, workspaces and bound transition; the
-    states, the noise and everything pooled (dual averaging's mean
-    acceptance, the Welford moments, the swap rounds, the checkpoint
-    carry) live gathered, (C, ...), on the first shard's device. None is
-    one shard: q0's device and ``tempered_logp_grad`` itself, with no
-    slicing and no gather.
-
-    Returns (samples (num_results, C, dim), ChainStats): on the first
-    shard's device, or in host memory when the run stages its draws
-    (``config.stage_above_bytes``). The momenta and uniforms of all C
-    chains come from a ``torch.Generator`` on that device seeded with
-    ``seed``, a swap round's uniforms after its transition's; HMC's
-    trajectory lengths from a NumPy generator on the host with the same
-    seed. So a sharded run draws what the unsharded one draws.
-    ``config.dispatch_block_steps``, ``checkpoint_path`` and
-    ``profile_timings``: see the module's docstring; with
-    ``profile_timings`` the run's spans go into ``timer`` where it traces
-    (a ``PhaseTimer`` made with ``trace=True``), under the span open there
-    now, else into a recorder of the run's own.
+    ``shards``: see ``Stepper`` (``make_shards``; ``parallel.
+    run_chains_sharded`` makes them). Returns (samples (num_results, C,
+    dim), ChainStats), on the first shard's device, or in host memory when
+    the run stages its draws (``DrawStore``). ``dispatch_block_steps``,
+    ``checkpoint_path`` and ``profile_timings``: see the module's
+    docstring; with ``profile_timings`` the run's spans go into ``timer``
+    where it traces (a ``PhaseTimer`` made with ``trace=True``), under the
+    span open there now, else into a recorder of the run's own.
     """
-    if config.algorithm not in ("nuts", "hmc"):
-        raise ValueError(f"unknown algorithm {config.algorithm!r}; expected "
+    algorithm = config.algorithm
+    if algorithm not in ("nuts", "hmc"):
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected "
                          "'nuts' or 'hmc'")
-    nuts = config.algorithm == "nuts"
     pin_full_float32_matmuls()
     C, dim = q0.shape
-    if shards is None:
-        shards = [Shard(0, C, q0.device, tempered_logp_grad)]
-    dtype, dev = q0.dtype, shards[0].device
-    q0 = q0.to(dev)
-    tempered_logp_grad = shards[0].target
-    single = len(shards) == 1
-    betas = check_ladder(config, C)
-    pt = betas is not None
+    sched = Schedule(config, C)
+    stepper = Stepper(algorithm == "nuts", config, tempered_logp_grad, q0,
+                      seed, shards, per_chain=sched.betas is not None)
+    q0, dev = stepper.q0, stepper.device
     rec = None
     if config.profile_timings:
         # its spans wait for the first shard's device: the states are
         # gathered there every transition, after every shard's work
         rec = timer if timer.trace else PhaseTimer(dev, trace=True)
         first_span, parent = len(rec.spans), rec.innermost()
+    stepper.recorder = rec
     span = untimed.span if rec is None else rec.span
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    host_rng = np.random.default_rng(int(seed))
-
-    B = config.num_burnin_steps
-    num_adapt = int(config.adaptation_fraction * B)
-    win_lo = int(config.mass_window_begin * B)
-    win_hi = int(config.mass_window_end * B)
-    win2_lo = int(config.mass_window2_begin * B)
-    win2_hi = int(config.mass_window2_end * B)
-    adapt_mass = config.adapt_mass_matrix and win_hi > win_lo
-    two_windows = config.adapt_mass_matrix and win2_hi > win2_lo
-    if two_windows:
-        if win_hi <= win_lo:
-            raise ValueError(
-                f"mass_window2 requires a valid first window (got [{win_lo}, "
-                f"{win_hi}))"
-            )
-        if win2_lo < win_hi:
-            raise ValueError(
-                f"mass_window2 [{win2_lo}, {win2_hi}) must start at or after "
-                f"mass_window_end ({win_hi})"
-            )
-        if win2_hi >= num_adapt:
-            raise ValueError(
-                f"mass_window2 must end (step {win2_hi}) before step-size "
-                f"adaptation does (step {num_adapt}): the step size has to "
-                "re-adapt to the re-estimated metric"
-            )
-
-    # the re-seat rule's {boundary: stretch start}, and the steps it sums
-    reseat_at = {}
-    if config.reseat_accept_below > 0.0:
-        reseat_at = reseat_stretches(
-            B, num_adapt, ((win_lo,) if adapt_mass else ())
-            + ((win2_lo,) if two_windows else ()))
-    summed = {s for b, lo in reseat_at.items() for s in range(lo, b)}
-
-    total = B + config.num_results * config.thin
-    steps = np.arange(total)
-    if not config.use_annealing:
-        temps = np.ones(total)
-    else:
-        temps = log_temperature_schedule(steps, config.anneal_min_temp)
-        if config.anneal_mode == "warmup_only":
-            ramp_end = num_adapt
-            if adapt_mass:
-                ramp_end = min(ramp_end, win_lo)
-            temps = np.maximum(temps,
-                               np.clip(steps / max(ramp_end, 1), 0.0, 1.0))
-        elif config.anneal_mode != "reference":
-            raise ValueError(f"unknown anneal_mode {config.anneal_mode!r}")
-    temps = torch.as_tensor(temps, dtype=dtype, device=dev)
-
-    def draw_num_leapfrogs() -> int:
-        if not config.hmc_jitter:
-            return config.hmc_num_leapfrogs
-        return max(1, math.ceil(host_rng.random() * config.hmc_num_leapfrogs))
-
-    # a target with a bound evaluation runs on fixed buffers, and on the
-    # card as replayed CUDA graphs, made once the first mass is known: one
-    # bound transition per shard
-    bounds = None
-    masses = {"src": None, "per_shard": None}
-
-    nuts_cfg = NutsConfig(config.max_tree_depth, config.max_energy_diff)
-
-    def shard_masses(inv_mass):
-        """Each shard's copy of the mass, remade when the mass changes."""
-        if inv_mass is not masses["src"]:
-            masses["src"] = inv_mass
-            masses["per_shard"] = [_mass_on(inv_mass, sh.device)
-                                   for sh in shards]
-        return masses["per_shard"]
-
-    def shard_step(i, qs, eps, inv_mass, beta_temp, noise):
-        bound = bounds[i]
-        if nuts:
-            return bound(qs, eps, inv_mass, beta_temp, noise)
-        L, normals, uniforms = noise
-        if bound is not None:
-            return bound(qs, eps, inv_mass, beta_temp, L, normals, uniforms,
-                         config.max_energy_diff)
-        target = shards[i].target
-        return hmc_step(
-            lambda q: target(q, beta_temp), qs, eps, inv_mass, L, normals,
-            uniforms, config.max_energy_diff,
-        )
-
-    def part(t, sh):
-        """Shard ``sh``'s rows of a per-chain tensor (a 0-dim one whole),
-        on its device."""
-        if t.dim() and t.shape[0] == C:
-            t = t[sh.lo:sh.hi]
-        return t.to(sh.device)
-
-    def gather(outs):
-        qs = torch.cat([q.to(dev) for q, _ in outs])
-        infos = [info for _, info in outs]
-        cat = lambda f: torch.cat([getattr(x, f).to(dev) for x in infos])
-        if nuts:
-            return qs, NutsInfo(*(cat(f) for f in NutsInfo._fields))
-        return qs, HmcInfo(cat("accept_prob"), infos[0].num_leapfrogs,
-                           cat("diverging"))
-
-    def transition(qs, eps, inv_mass, step, beta_temp=None):
-        if beta_temp is None:
-            beta_temp = temps[step]
-        if nuts:
-            noise = draw_noise(gen, C, dim, nuts_cfg.max_tree_depth, dtype,
-                               dev)
-        else:
-            normals = torch.randn((C, dim), generator=gen, dtype=dtype,
-                                  device=dev)
-            uniforms = torch.rand((C,), generator=gen, dtype=dtype,
-                                  device=dev)
-            noise = (draw_num_leapfrogs(), normals, uniforms)
-        if rec is None:
-            return step_all(qs, eps, inv_mass, beta_temp, noise)
-        s = rec.open("transition", step=step)
-        rec.mark(s, "dev_t0_ns")
-        out = step_all(qs, eps, inv_mass, beta_temp, noise)
-        rec.mark(s, "dev_t1_ns")
-        rec.close(s)
-        return out
-
-    def step_all(qs, eps, inv_mass, beta_temp, noise):
-        """One transition of every shard's chains, gathered."""
-        if single:
-            return shard_step(0, qs, eps, inv_mass, beta_temp, noise)
-        per = shard_masses(inv_mass)
-        outs = []
-        for i, sh in enumerate(shards):
-            if nuts:
-                sh_noise = NutsNoise(*(part(t, sh) for t in noise))
-            else:
-                sh_noise = (noise[0], part(noise[1], sh), part(noise[2], sh))
-            outs.append(shard_step(i, part(qs, sh), part(eps, sh), per[i],
-                                   part(beta_temp, sh), sh_noise))
-        return gather(outs)
-
-    def progress(phase, step, eps, info):
-        every = config.progress_every
-        if every and step % every == 0:
-            L = info.num_leapfrogs
-            print(
-                f"[sampler] {phase} step {step:>6} eps={float(eps):.5f} "
-                f"accept={float(info.accept_prob.mean()):.3f} "
-                f"L={float(L.float().mean()) if nuts else L} "
-                f"div={float(info.diverging.to(dtype).mean()):.4f}",
-                flush=True,
-            )
-
-    k = config.dense_tail_size
+    temps = torch.as_tensor(sched.temps, dtype=q0.dtype, device=dev)
     ck = config.checkpoint_path
     fingerprint = _ckpt_fingerprint(config, C, dim, seed, q0) if ck else ""
-    resume = _ckpt_load_state(ck, fingerprint) if ck else None
-
-    def restore(arrays, name):
-        return _ckpt_tensor(arrays, name, dev)
-
-    def rng_state():
-        return {"gen": gen.get_state(),
-                "host_rng": json.dumps(host_rng.bit_generator.state)}
-
-    def set_rng_state(arrays):
-        gen.set_state(torch.from_numpy(arrays["gen"]))
-        host_rng.bit_generator.state = json.loads(str(arrays["host_rng"]))
-
-    def make_bound(inv_mass):
-        nonlocal bounds
-        per = [inv_mass] if single else shard_masses(inv_mass)
-        bounds = []
-        for sh, mass in zip(shards, per):
-            q0_sh = q0 if single else q0[sh.lo:sh.hi].to(sh.device)
-            if nuts:
-                bounds.append(BoundNuts(sh.target, q0_sh, mass, nuts_cfg,
-                                        per_chain=pt))
-            elif hasattr(sh.target, "bind"):
-                bounds.append(BoundTransition(sh.target, q0_sh, mass,
-                                              per_chain=pt))
-            else:
-                bounds.append(None)
-        for b in bounds:
-            if b is not None:
-                b.recorder = rec
-
-    T = config.num_results
-
-    def anchor():
-        """The device markers' start before the first sampling phase
-        that runs (``PhaseTimer.anchor`` starts them once), with an event
-        for each marker the run can make: two a transition, two a
-        doubling."""
-        if rec is not None and single:
-            per = 2 + (2 * config.max_tree_depth if nuts else 0)
-            rec.anchor((B + T * config.thin) * per)
-
-    sample_done = 0
-    swap = swap_counts = None
-
-    def sample_carry():
-        counts = (swap.prop, swap.accs) if swap is not None else swap_counts
-        return {"qs": qs, "eps": eps_final, **_mass_items(inv_mass),
-                **rng_state(),
-                **({"swap_prop": counts[0], "swap_accs": counts[1]}
-                   if pt else {})}
-
-    if resume is not None and resume[0] == "sample":
-        # warmup finished in an earlier call: its carry
-        _, sample_done, arrays = resume
-        qs = restore(arrays, "qs")
-        eps_final = restore(arrays, "eps")
-        inv_mass = _ckpt_mass(arrays, dev)
-        set_rng_state(arrays)
-        if pt:
-            swap_counts = (restore(arrays, "swap_prop"),
-                           restore(arrays, "swap_accs"))
+    phase, done, arrays = ((ck and _ckpt_load_state(ck, fingerprint))
+                           or (None, 0, None))
+    if arrays is not None:
+        stepper.set_rng(arrays)
+    if phase == "sample":
+        # warmup finished in an earlier call
+        carry = SampleCarry.load(arrays, dev)
     else:
-        if resume is not None:
-            # a warmup block boundary
-            _, warmup_done, arrays = resume
-            qs = restore(arrays, "qs")
-            da = DAState(*(restore(arrays, f"da_{f}")
-                           for f in DAState._fields[:4]),
-                         float(arrays["da_count"]))
-            wf = _ckpt_welford(arrays, "wf", dev)
-            wf_tail = _ckpt_welford(arrays, "wf_tail", dev) if k > 0 else None
-            inv_mass = _ckpt_mass(arrays, dev)
-            accept_sum = restore(arrays, "reseat_accept_sum")
-            reseats = [tuple(int(v) for v in r) for r in arrays["reseats"]]
-            set_rng_state(arrays)
-        else:
-            with span("eps_init", wait=True):
-                inv_mass = identity_mass(dim, k, dtype, dev)
-                eps0 = find_reasonable_step_size(
-                    lambda q: tempered_logp_grad(q, temps[0]), q0[:1], gen,
-                    inv_mass, config.initial_step_size,
-                )
-            da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
-            wf = welford_init(dim, dtype, dev)
-            wf_tail = welford_cov_init(k, dtype, dev) if k > 0 else None
-            qs, warmup_done = q0, 0
-            # each chain's acceptance summed over the re-seat stretch, and
-            # (boundary, chains moved) at each boundary read
-            accept_sum = torch.zeros((C,), dtype=dtype, device=dev)
-            reseats = []
-        anchor()
+        warm = (WarmupCarry.load(arrays, dev) if phase == "warmup"
+                else _warmup_start(stepper, config, temps[0], span))
+        stepper.anchor(sched.transitions)
         with span("warmup", wait=True, hold_gc=True) as warmup_span:
-            for start, size in _blocks(B, config.dispatch_block_steps):
-                if start + size <= warmup_done:
-                    continue
-                if bounds is None:
-                    make_bound(inv_mass)
-                with span("block", wait=True):
-                    for step in range(start, start + size):
-                        if step in reseat_at:
-                            qs, moved = reseat_stuck(
-                                qs, accept_sum, step - reseat_at[step],
-                                config.reseat_accept_below, gen)
-                            reseats.append((step, moved))
-                            accept_sum.zero_()
-                        eps = torch.exp(da.log_step
-                                        if da.count < num_adapt
-                                        else da.log_step_avg)
-                        qs, info = transition(qs, eps, inv_mass, step)
-                        progress("warmup", step, eps, info)
-                        if step in summed:
-                            accept_sum += info.accept_prob
-                        if step < num_adapt:
-                            da = da_update(da,
-                                           torch.mean(info.accept_prob),
-                                           config.target_accept)
-                        if not adapt_mass:
-                            continue
-                        in_window = win_lo <= step < win_hi or (
-                            two_windows and win2_lo <= step < win2_hi)
-                        if in_window:
-                            wf = welford_add_batch(wf, qs)
-                            if wf_tail is not None:
-                                wf_tail = welford_cov_add_batch(
-                                    wf_tail, qs[:, -k:])
-                        if step == win_hi or (two_windows
-                                              and step == win2_hi):
-                            var = welford_variance(wf)
-                            if wf_tail is None:
-                                inv_mass = var
-                            else:
-                                cov = welford_covariance(
-                                    wf_tail, config.dense_shrinkage)
-                                if (two_windows
-                                        and config.mass_window1_diag
-                                        and step == win_hi):
-                                    cov = torch.diag(torch.diag(cov))
-                                inv_mass = mass_from_moments(var, cov)
-                            # restart dual averaging around the current
-                            # step size and the accumulators for a second
-                            # window
-                            da = da_init(torch.exp(da.log_step))
-                            wf = welford_init(dim, dtype, dev)
-                            wf_tail = (welford_cov_init(k, dtype, dev)
-                                       if k > 0 else None)
-                if ck:
-                    _ckpt_save_state(ck, "warmup", start + size, {
-                        "qs": qs, **{f"da_{f}": getattr(da, f)
-                                     for f in DAState._fields},
-                        **_welford_items("wf", wf),
-                        **_welford_items("wf_tail", wf_tail),
-                        **_mass_items(inv_mass), **rng_state(),
-                        "reseat_accept_sum": accept_sum,
-                        "reseats": np.asarray(reseats, np.int64).reshape(
-                            -1, 2)}, fingerprint)
-            eps_final = torch.exp(da.log_step_avg)
+            warm = _warmup(warm, done, sched, stepper, temps, config, span,
+                           fingerprint)
+            eps = torch.exp(warm.da.log_step_avg)
             if rec is not None:
                 warmup_span.attrs["chains_reseated"] = sum(
-                    n for _, n in reseats)
-                warmup_span.attrs["reseats"] = [list(r) for r in reseats]
-        if pt:
-            swap_counts = tuple(torch.zeros((len(betas) - 1,),
-                                            dtype=torch.int32, device=dev)
-                                for _ in range(2))
+                    n for _, n in warm.reseats)
+                warmup_span.attrs["reseats"] = [list(r) for r in warm.reseats]
+        swaps = [] if sched.betas is None else [
+            torch.zeros((len(sched.betas) - 1,), dtype=torch.int32,
+                        device=dev) for _ in range(2)]
+        carry, done = SampleCarry(warm.qs, eps, warm.inv_mass, *swaps), 0
         if ck:
-            _ckpt_save_state(ck, "sample", 0, sample_carry(), fingerprint)
-
-    beta_s = eps_s = None
-    if pt:
-        # sampling at each chain's rung: its beta and a step scaled by
-        # beta^(-1/2), both in the sampling dtype
-        beta_s, scale = rung_temperatures(betas, C, dtype, dev)
-        eps_s = eps_final * scale
-
-    blocks = _blocks(T, config.dispatch_block_steps, config.thin)
-    # draws of more than stage_above_bytes, and a checkpointed run's, are
-    # staged: each block is computed into a device buffer and copied into
-    # host memory (pinned on the card); the device holds a block's draws
-    stage_host = bool(ck) or (
-        config.dispatch_block_steps > 0
-        and T * C * dim * q0.element_size() > config.stage_above_bytes)
-    out_dev = torch.device("cpu") if stage_host else dev
-    pin = stage_host and dev.type == "cuda"
-
-    def out(*shape, dt=dtype):
-        return torch.empty(shape, dtype=dt, device=out_dev, pin_memory=pin)
-
-    samples = out(T, C, dim)
-    accept = out(T, C)
-    diverging = out(T, C, dt=torch.bool)
-    num_leapfrogs = (out(T, C, dt=torch.int32) if nuts
-                     else np.empty((T, C), np.int32))
-    depths = out(T, C, dt=torch.int32) if nuts else None
-    # the per-draw tensors a block writes on the device (when staged, into
-    # a device buffer first)
-    per_draw = {"samples": samples, "accept": accept,
-                 "diverging": diverging,
-                 **({"num_leapfrogs": num_leapfrogs, "depths": depths}
-                    if nuts else {})}
-    info_arrays = {"accept": accept, "diverging": diverging,
-                   "num_leapfrogs": num_leapfrogs,
-                   **({"depths": depths} if nuts else {})}
-    bufs = copy_stream = None
-    if stage_host:
-        # two device buffers on the card, so that a block's copy (on a
-        # stream of its own, after the block's last write) overlaps the
-        # next block's compute, as the JAX package's finalize_block
-        # overlaps its fetch; one where the copy is synchronous (the CPU,
-        # or a checkpoint, whose files need the block on the host)
-        nbuf = 2 if dev.type == "cuda" and not ck else 1
-        bmax = max(size for _, size in blocks)
-        bufs = [{name: torch.empty((bmax,) + a.shape[1:], dtype=a.dtype,
-                                   device=dev)
-                 for name, a in per_draw.items()} for _ in range(nbuf)]
-        copied = [None] * nbuf
-        if nbuf == 2:
-            copy_stream = torch.cuda.Stream(dev)
-
-    def stage(j, start, size, views):
-        """Block [start, start + size)'s draws and stats, from device
-        buffer j into the host arrays."""
-        if copy_stream is None:
-            for name, v in views.items():
-                per_draw[name][start:start + size].copy_(v)
-        else:
-            done = torch.cuda.current_stream(dev).record_event()
-            with torch.cuda.stream(copy_stream):
-                copy_stream.wait_event(done)
-                for name, v in views.items():
-                    per_draw[name][start:start + size].copy_(
-                        v, non_blocking=True)
-                copied[j] = copy_stream.record_event()
-        if rec is not None:
-            rec.count("staged_bytes", sum(
-                v.numel() * v.element_size() for v in views.values()) + (
-                0 if nuts else num_leapfrogs[start:start + size].nbytes))
-
-    anchor()
+            _ckpt_save_state(ck, "sample", 0, {
+                **carry.arrays(), **stepper.rng_items()}, fingerprint)
+    store = DrawStore(algorithm == "nuts", config, sched.sample_blocks, q0,
+                      rec)
+    stepper.anchor(sched.transitions)
     with span("sample", wait=True, hold_gc=True) as sample_span:
-        for b, (start, size) in enumerate(blocks):
-            end = start + size
-            if ck and end <= sample_done:
-                loaded = _ckpt_load_draws(ck, start)
-                if loaded is None:
-                    raise FileNotFoundError(
-                        f"checkpoint state at {ck!r} marks block {start} "
-                        f"complete but draws_{start:06d}.npz is missing; "
-                        "delete state.npz to restart")
-                samples[start:end] = torch.from_numpy(loaded[0])
-                for name, arr in info_arrays.items():
-                    arr[start:end] = (torch.from_numpy(loaded[1][name])
-                                      if isinstance(arr, torch.Tensor)
-                                      else loaded[1][name])
-                continue
-            if bounds is None:
-                make_bound(inv_mass)
-            if pt and swap is None:
-                swap = BoundSwap(tempered_logp_grad, q0, betas)
-                swap.prop.copy_(swap_counts[0])
-                swap.accs.copy_(swap_counts[1])
-            if stage_host:
-                j = b % len(bufs)
-                if copied[j] is not None:
-                    # the buffer's last copy must be done before it is
-                    # rewritten
-                    torch.cuda.current_stream(dev).wait_event(copied[j])
-                views = {name: buf[:size] for name, buf in bufs[j].items()}
-            else:
-                views = {name: a[start:end] for name, a in per_draw.items()}
-            with span("block", wait=True):
-                for i in range(start, end):
-                    for t in range(config.thin):
-                        step = B + i * config.thin + t
-                        if not pt:
-                            qs, info = transition(qs, eps_final, inv_mass,
-                                                  step)
-                        else:
-                            qs, info = transition(qs, eps_s, inv_mass, step,
-                                                  beta_s)
-                            rel = step - B
-                            if (rel + 1) % config.pt_swap_every == 0:
-                                u = torch.rand(
-                                    (len(betas) - 1, C // len(betas)),
-                                    generator=gen, dtype=dtype, device=dev)
-                                qs = swap(qs, u,
-                                          (rel // config.pt_swap_every) % 2)
-                        progress("sample", step, eps_final, info)
-                    n = i - start
-                    views["samples"][n] = qs
-                    views["accept"][n] = info.accept_prob
-                    views["diverging"][n] = info.diverging
-                    if nuts:
-                        views["num_leapfrogs"][n] = info.num_leapfrogs
-                        views["depths"][n] = info.depth
-                    else:
-                        num_leapfrogs[i] = info.num_leapfrogs
-            if stage_host:
-                with span("stage"):
-                    stage(j, start, size, views)
-            if ck:
-                # the block's draws, on the host, to disk with the carry
-                i_blk = {name: (arr[start:end].numpy()
-                                if isinstance(arr, torch.Tensor)
-                                else arr[start:end].copy())
-                         for name, arr in info_arrays.items()}
-                _ckpt_save_draws(ck, start, samples[start:end].numpy(),
-                                 i_blk)
-                _ckpt_save_state(ck, "sample", end, sample_carry(),
-                                 fingerprint)
-        with span("drain", wait=True):
-            if rec is not None and copy_stream is not None:
-                copy_stream.synchronize()
+        carry = _sample(carry, done, sched, stepper, store, temps, config,
+                        span, fingerprint)
+        store.drain()
     if rec is not None:
         rec.resolve_marks()
-        if T:
+        if config.num_results:
             # the lowest mean acceptance of a chain over the phase's draws
             sample_span.attrs["worst_chain_accept"] = float(
-                accept.mean(dim=0).min())
-    if copy_stream is not None:
-        # the host arrays are read from here on
-        copy_stream.synchronize()
-    if nuts:
-        num_leapfrogs, depths = num_leapfrogs.cpu().numpy(), \
-            depths.cpu().numpy()
-    else:
-        depths = np.ceil(np.log2(np.maximum(num_leapfrogs, 1))).astype(
-            np.int32)
-    counts = (swap.prop, swap.accs) if swap is not None else swap_counts
-    stats = ChainStats(
-        step_size=eps_final,
-        inv_mass=mass_diag(inv_mass),
-        accept_probs=accept,
-        num_leapfrogs=num_leapfrogs,
-        divergences=diverging,
-        depths=depths,
-        tail_inv_mass=mass_tail_inv(inv_mass),
-        pt_swap_accept=swap_acceptance(*counts, dtype) if pt else None,
+                store.arrays["accept"].mean(dim=0).min())
+    out = store.stats()
+    return out["samples"], ChainStats(
+        step_size=carry.eps,
+        inv_mass=mass_diag(carry.inv_mass),
+        accept_probs=out["accept"],
+        num_leapfrogs=out["num_leapfrogs"],
+        divergences=out["diverging"],
+        depths=out["depths"],
+        tail_inv_mass=mass_tail_inv(carry.inv_mass),
+        pt_swap_accept=(None if sched.betas is None else swap_acceptance(
+            carry.swap_prop, carry.swap_accs, q0.dtype)),
         timings=(None if rec is None
                  else sampler_timings(rec.spans[first_span:], parent)),
     )
-    return samples, stats

@@ -105,7 +105,7 @@ def test_finished_run_loads_from_disk(tmp_path, monkeypatch, references,
     monkeypatch.setattr(run_mod, "_ckpt_save_draws", boom)
     monkeypatch.setattr(run_mod, "find_reasonable_step_size", boom)
     monkeypatch.setattr(run_mod, "BoundNuts", boom)
-    monkeypatch.setattr(run_mod, "hmc_step", boom)
+    monkeypatch.setattr(run_mod, "BoundTransition", boom)
     _assert_same_run(references[kind], _run(_cfg(ck, kind)))
 
 
@@ -146,6 +146,58 @@ def test_crash_mid_warmup_resumes_bit_for_bit(tmp_path, monkeypatch,
         _run(_cfg(ck, kind))
     monkeypatch.setattr(run_mod, "_ckpt_save_state", real_save)
     _assert_same_run(references[kind], _run(_cfg(ck, kind)))
+
+
+def _tensors(*names):
+    """Each tensor of a carry is saved with its strides."""
+    return {*names, *(f"_stride_{n}" for n in names)}
+
+
+HEADER = {"_fingerprint", "_next", "_phase", "host_rng"}
+WARMUP_KEYS = HEADER | {"da_count", "wf_count", "reseats"} | _tensors(
+    "qs", "da_log_step", "da_log_step_avg", "da_h_bar", "da_mu", "wf_mean",
+    "wf_m2", "mass_diag", "gen", "reseat_accept_sum")
+SAMPLE_KEYS = HEADER | _tensors("qs", "eps", "mass_diag", "gen")
+TAIL_MASS = _tensors("mass_tail_inv", "mass_tail_msqrt")
+DRAW_KEYS = {"samples", "info_accept", "info_diverging",
+             "info_num_leapfrogs"}
+# kind -> (warmup's keys, sampling's keys, a draws file's keys)
+FILE_KEYS = {
+    "nuts": (WARMUP_KEYS, SAMPLE_KEYS, DRAW_KEYS | {"info_depths"}),
+    "hmc": (WARMUP_KEYS | TAIL_MASS | {"wf_tail_count"}
+            | _tensors("wf_tail_mean", "wf_tail_m2"),
+            SAMPLE_KEYS | TAIL_MASS, DRAW_KEYS),
+    "pt": (WARMUP_KEYS, SAMPLE_KEYS | _tensors("swap_prop", "swap_accs"),
+           DRAW_KEYS | {"info_depths"}),
+}
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_checkpoint_files_keep_their_keys(tmp_path, monkeypatch, kind):
+    """The on-disk format: the arrays of state.npz at a warmup boundary and
+    at a sampling one, and of a draws file, by name (a checkpoint written
+    by an earlier version resumes only if they stay)."""
+    ck = str(tmp_path / "ck")
+    real_save = run_mod._ckpt_save_state
+
+    def crash(dirpath, phase, nxt, carry, fp):
+        real_save(dirpath, phase, nxt, carry, fp)
+        if phase == "warmup" and nxt >= 20:
+            raise RuntimeError("simulated mid-warmup crash")
+
+    def keys(name):
+        with np.load(os.path.join(ck, name)) as z:
+            return set(z.files), str(z["_phase"]) if "_phase" in z else None
+
+    monkeypatch.setattr(run_mod, "_ckpt_save_state", crash)
+    with pytest.raises(RuntimeError, match="mid-warmup"):
+        _run(_cfg(ck, kind))
+    warmup, sample, draws = FILE_KEYS[kind]
+    assert keys("state.npz") == (warmup, "warmup")
+    monkeypatch.setattr(run_mod, "_ckpt_save_state", real_save)
+    _run(_cfg(ck, kind))
+    assert keys("state.npz") == (sample, "sample")
+    assert keys("draws_000000.npz") == (draws, None)
 
 
 def _trap(q, beta_temp):

@@ -114,10 +114,11 @@ def test_bound_transition_is_hmc_step_bit_for_bit(models, case, form):
 @pytest.mark.parametrize("case", CASES)
 def test_bound_warmup_across_mass_windows_is_the_eager_one(models, case):
     """A short run whose warmup closes two mass windows (a diagonal one,
-    then a dense one) and adapts the step size: the target as given takes
-    the bound transition, the same target behind a plain callable the
-    eager one, and every draw, acceptance, step size and mass agree bit for
-    bit. The Lorenz cases pin sigma (the PinnedSigma wrapper)."""
+    then a dense one) and adapts the step size: the target as given is
+    bound to the bound transition, the same target behind a plain callable
+    evaluated eagerly into it, and every draw, acceptance, step size and
+    mass agree bit for bit. The Lorenz cases pin sigma (the PinnedSigma
+    wrapper)."""
     name, storage = case
     pinned = name == "lorenz"
     target, qs = _setup(models, name, storage, pinned=pinned)
@@ -135,6 +136,47 @@ def test_bound_warmup_across_mass_windows_is_the_eager_one(models, case):
                 assert torch.equal(x, y)
             else:
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("pt", [False, True])
+def test_plain_callable_hmc_run_is_hmc_step(monkeypatch, pt):
+    """An HMC run on a plain callable (no ``bind``) takes the bound
+    transition with its eager adapter: each transition, from the mass
+    windows' closes (a dense tail) to the tempered sampling, equals
+    ``hmc_step`` on the same arguments bit for bit."""
+    prec = torch.tensor([[2.0, 0.3, 0.0], [0.3, 1.0, 0.2], [0.0, 0.2, 0.5]],
+                        dtype=F64)
+
+    def target(q, beta_temp):
+        b = beta_temp.reshape(-1, 1) if beta_temp.dim() else beta_temp
+        g = -(q @ prec)
+        return 0.5 * beta_temp * torch.sum(q * g, dim=-1), b * g
+
+    seen, real = [], hmc.BoundTransition.__call__
+
+    def spy(bound, *args):
+        out = real(bound, *args)
+        seen.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args], out))
+        return out
+
+    monkeypatch.setattr(hmc.BoundTransition, "__call__", spy)
+    cfg = trun.SamplerConfig(
+        num_results=6, num_burnin_steps=20, algorithm="hmc",
+        hmc_num_leapfrogs=5, dense_tail_size=2, mass_window_begin=0.2,
+        mass_window_end=0.5, dispatch_block_steps=7,
+        **(dict(pt_betas=(1.0, 0.5), use_annealing=False) if pt else {}))
+    q0 = torch.randn((4, 3), dtype=F64,
+                     generator=torch.Generator().manual_seed(3))
+    trun.run_chains(target, q0, 5, cfg)
+    assert len(seen) == 26
+    for (q, eps, mass, beta, L, normals, uniforms, med), (q1, info) in seen:
+        q_ref, ref = hmc.hmc_step(lambda r: target(r, beta), q, eps, mass, L,
+                                  normals, uniforms, med)
+        assert torch.equal(q1, q_ref)
+        assert torch.equal(info.accept_prob, ref.accept_prob)
+        assert torch.equal(info.diverging, ref.diverging)
+        assert info.num_leapfrogs == ref.num_leapfrogs == L
 
 
 @pytest.mark.parametrize("case,pinned", [(c, False) for c in CASES]
@@ -247,11 +289,14 @@ def test_kinetic_partials_follow_the_kernel_layout():
 
 def test_predict_takes_the_bound_transition(models, monkeypatch):
     """Every target that predict builds has a bound evaluation, so its
-    sampler never takes the eager step."""
-    def eager(*args, **kwargs):
-        raise AssertionError("predict took the eager hmc_step")
+    sampler never takes the eager adapter."""
+    real = hmc.BoundBuffers._evaluation
 
-    monkeypatch.setattr(trun, "hmc_step", eager)
+    def bound_only(bound, target):
+        assert hasattr(target, "bind"), "predict took the eager adapter"
+        return real(bound, target)
+
+    monkeypatch.setattr(hmc.BoundBuffers, "_evaluation", bound_only)
     for name, storage, kw in (("seir", "dense", {}),
                               ("lorenz", "banded",
                                {"sigma_sqs_fixed": SIGMA_FIXED})):

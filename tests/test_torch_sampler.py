@@ -291,6 +291,84 @@ def test_sampler_pins_full_float32_matmuls():
         trun.pin_full_float32_matmuls()
 
 
+def _steps(*ranges):
+    return {s for lo, hi in ranges for s in range(lo, hi)}
+
+
+# (SamplerConfig fields, C) -> what the schedule holds: the mass windows
+# and their closes, the re-seat boundaries and summed steps, the blocks
+SCHEDULES = {
+    "defaults": (dict(), 4, dict(
+        B=1000, num_adapt=800, windows=((450, 700),),
+        closes={700: False}, reseat_at={450: 400, 800: 750},
+        summed=_steps((400, 450), (750, 800)), transitions=2000,
+        warmup_blocks=[(0, 1000)], sample_blocks=[(0, 1000)])),
+    # the seir-hmc cell's recipe, in blocks of 50 transitions, thinned
+    "two windows": (dict(num_burnin_steps=200, num_results=200,
+                         mass_window_begin=0.25, mass_window_end=0.45,
+                         mass_window2_begin=0.5, mass_window2_end=0.72,
+                         mass_window1_diag=True, dispatch_block_steps=50,
+                         thin=2), 4, dict(
+        num_adapt=160, windows=((50, 90), (100, 144)),
+        closes={90: True, 144: False},
+        reseat_at={50: 40, 100: 90, 160: 150},
+        summed=_steps((40, 50), (90, 100), (150, 160)), transitions=600,
+        warmup_blocks=[(s, 50) for s in range(0, 200, 50)],
+        sample_blocks=[(s, 25) for s in range(0, 200, 25)])),
+    "no mass": (dict(num_burnin_steps=100, num_results=10,
+                     adapt_mass_matrix=False), 4, dict(
+        windows=(), closes={}, reseat_at={80: 75}, summed=_steps((75, 80)))),
+    "no re-seat": (dict(num_burnin_steps=100, num_results=10,
+                        reseat_accept_below=0.0), 4, dict(
+        windows=((45, 70),), reseat_at={}, summed=set())),
+    "ladder": (dict(num_burnin_steps=20, num_results=10,
+                    pt_betas=(1.0, 0.5), use_annealing=False), 4, dict(
+        betas=(1.0, 0.5), reseat_at={9: 8, 16: 15})),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULES))
+def test_schedule_alone(case):
+    """The schedule from the config and the chain count alone: its windows,
+    closes, re-seat boundaries, temperatures and blocks."""
+    fields, C, want = SCHEDULES[case]
+    config = trun.SamplerConfig(**fields)
+    sched = trun.Schedule(config, C)
+    for name, value in want.items():
+        assert getattr(sched, name) == value, name
+    steps = np.arange(sched.transitions)
+    temps = (np.ones(steps.size) if not config.use_annealing
+             else trun.log_temperature_schedule(steps, 0.1))
+    np.testing.assert_array_equal(sched.temps, temps)
+    assert sched.betas is None or case == "ladder"
+
+
+def test_schedule_ramp_and_refusals():
+    """warmup_only annealing ramps up to the first window's start, and the
+    schedule refuses what run_chains refuses, with the same messages."""
+    cfg = trun.SamplerConfig(num_burnin_steps=100, num_results=10,
+                             anneal_mode="warmup_only")
+    steps = np.arange(110)
+    np.testing.assert_array_equal(
+        trun.Schedule(cfg, 2).temps,
+        np.maximum(trun.log_temperature_schedule(steps, 0.1),
+                   np.clip(steps / 45, 0.0, 1.0)))
+    bad = [(dict(mass_window_begin=0.5, mass_window_end=0.5,
+                 mass_window2_begin=0.6, mass_window2_end=0.7),
+            "requires a valid first window"),
+           (dict(mass_window2_begin=0.6, mass_window2_end=0.7),
+            "must start at or after"),
+           (dict(mass_window2_begin=0.7, mass_window2_end=0.9),
+            "before step-size adaptation does"),
+           (dict(anneal_mode="later"), "unknown anneal_mode"),
+           (dict(pt_betas=(1.0, 0.5), use_annealing=False),
+            "must divide by the PT ladder")]
+    for fields, message in bad:
+        with pytest.raises(ValueError, match=message):
+            trun.Schedule(trun.SamplerConfig(num_burnin_steps=100, **fields),
+                          3)
+
+
 def test_two_window_validation_matches_jax():
     cfg = trun.SamplerConfig(num_results=2, num_burnin_steps=100,
                              mass_window_begin=0.1, mass_window_end=0.5,
